@@ -5,7 +5,8 @@ k-means++ seeding on the full sample, a fixed iteration count, and
 empty-cluster re-seeding to the farthest points.  The random draws come
 from a CPU ``torch.Generator`` (the reference draws from ``jax.random``, so
 the two builds agree in quality, not bit for bit).  Distances run in row
-chunks, so the (N, k) matrix never exists whole.
+chunks, so the (N, k) matrix never exists whole.  Cluster sums are taken
+in a fixed order on every device, so a build repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +30,21 @@ def assign(data: torch.Tensor, centroids: torch.Tensor, *, chunk: int = 1 << 16)
         ids.append(a)
         dmin.append(m)
     return torch.cat(ids), torch.cat(dmin)
+
+
+def _cluster_sums(x: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """(k, D) sums of the rows of each cluster, in row order.
+
+    On CUDA ``index_add_`` sums with float atomics in no fixed order, so the
+    centroids (and the buckets after them) would change in their last bits
+    from run to run; ``index_put_(accumulate=True)`` sorts the rows by
+    cluster and sums each cluster's rows in order there.  On the CPU
+    ``index_add_`` already sums serially in row order.
+    """
+    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    if x.device.type == "cpu":
+        return sums.index_add_(0, a, x)
+    return sums.index_put_((a,), x, accumulate=True)
 
 
 def _plus_plus_init(data: torch.Tensor, k: int, generator: torch.Generator):
@@ -64,7 +80,7 @@ def kmeans(data, k: int, iters: int = 20, *,
     for _ in range(iters):
         a, dmin = assign(x, cents)
         counts = torch.bincount(a, minlength=k).to(x.dtype)
-        sums = torch.zeros_like(cents).index_add_(0, a, x)
+        sums = _cluster_sums(x, a, k)
         new = sums / torch.clamp_min(counts, 1.0)[:, None]
         # Re-seed empties to the points farthest from their centroid.
         far = torch.argsort(dmin, descending=True)[:k]

@@ -16,11 +16,12 @@ from repro_torch._device import resolve_device
 from repro_torch.core.calibration import EpsilonTable
 from repro_torch.core.estimators import Estimator
 from repro_torch.core.transforms import OrthogonalTransform
+from repro_torch.index.graph import GraphIndex
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.quant.scalar import QuantConfig
 
 __all__ = ["transform_from_arrays", "table_from_arrays", "estimator_from_arrays",
-           "ivf_from_arrays"]
+           "ivf_from_arrays", "graph_from_arrays"]
 
 
 def _t(x, dev, dtype=None) -> torch.Tensor:
@@ -78,3 +79,26 @@ def ivf_from_arrays(estimator: Estimator, *, centroids, bucket_sizes, starts,
         seed_codes=_t(seed_codes, dev, torch.int8),
         qscales=_t(qscales, dev, torch.float32),
         max_bucket=int(max_bucket), scan_block_d=int(scan_block_d))
+
+
+def graph_from_arrays(estimator: Estimator, *, corpus_rot, neighbors, entry,
+                      corpus_q, qscales, adj_rot, adj_codes, adj_ids, gscales,
+                      adj_block: int, scan_block_d: int,
+                      device="cuda") -> GraphIndex:
+    """The reference's int8 ``GraphIndex`` arrays as the port's index.
+
+    ``adj_rot`` keeps its dtype: float32, or bfloat16 carried as float32
+    (every bfloat16 value is exact in float32) and rounded back here, which
+    is the identity on such values.
+    """
+    dev = resolve_device(device)
+    rot = np.asarray(adj_rot)
+    adj_dtype = torch.bfloat16 if rot.dtype.name == "bfloat16" else torch.float32
+    return GraphIndex(
+        estimator=estimator, corpus_rot=_t(corpus_rot, dev, torch.float32),
+        neighbors=_t(neighbors, dev, torch.int32), entry=int(np.asarray(entry)),
+        corpus_q=_t(corpus_q, dev, torch.int8), qscales=_t(qscales, dev, torch.float32),
+        adj_rot=_t(rot.astype(np.float32), dev, torch.float32).to(adj_dtype),
+        adj_codes=_t(adj_codes, dev, torch.int8), adj_ids=_t(adj_ids, dev, torch.int32),
+        gscales=_t(gscales, dev, torch.float32), adj_block=int(adj_block),
+        scan_block_d=int(scan_block_d))

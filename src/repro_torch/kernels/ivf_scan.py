@@ -7,74 +7,43 @@ live: on CUDA tensors it launches the hand-written kernel in
 ``ref.ivf_scan_ref``.  There is no fallback between the two: a CUDA call
 that cannot launch raises.
 
-The kernel is built at first use with ``nvcc`` into ``build/`` beside this
-file, keyed by a hash of its sources and flags, and bound with ``ctypes``.
-Nothing CUDA-specific happens at import time.
+The kernel is built at first use with ``nvcc`` (``_build``) into
+``build/`` beside this file, keyed by a hash of its sources and flags, and
+bound with ``ctypes``.  Nothing CUDA-specific happens at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import STATS_COLS, ivf_scan_ref
 
-__all__ = ["ivf_scan_kernel_call", "build", "library_path", "NVCC_FLAGS",
-           "STATS_COLS", "MAX_SMEM_BYTES", "KERNEL_TILE"]
+__all__ = ["ivf_scan_kernel_call", "build", "library_path", "STATS_COLS",
+           "MAX_SMEM_BYTES", "KERNEL_TILE"]
 
-_HERE = Path(__file__).resolve().parent
-_CSRC = _HERE / "csrc"
-_SOURCES = ("ivf_scan.cu", "tiles.cuh")
+_SOURCES = ("ivf_scan.cu", "scan_walk.cuh", "tiles.cuh")
 # (block_q, block_c) of the CUDA kernel: 8 queries (the mma's n) by 128
 # candidates (16 per warp); the plain version takes any tile.
 KERNEL_TILE = (8, 128)
 # Dynamic shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the ivf_scan "
-                       "kernel is built from csrc/ at first use")
 
 
 def library_path() -> Path:
     """Where the built library lives: ``build/ivf_scan-<hash>.so``, the hash
     covering the sources and the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return _HERE / "build" / f"ivf_scan-{h.hexdigest()[:16]}.so"
+    return _build.library_path("ivf_scan", _SOURCES)
 
 
 def build() -> tuple[Path, str]:
     """Compile the kernel if its library is missing; returns (path, the
     compiler's resource report — empty when the library already existed)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "ivf_scan.cu")],
-        capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+    return _build.build("ivf_scan", _SOURCES)
 
 
 @functools.cache

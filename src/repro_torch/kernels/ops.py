@@ -1,11 +1,13 @@
-"""Public wrappers around the fused IVF scan (port of the IVF parts of
-``repro.kernels.ops``).
+"""Public wrappers around the fused scans (port of the IVF and graph parts
+of ``repro.kernels.ops``).
 
 Handles padding to tile boundaries, table resampling to the kernel's
-block-checkpoint schedule, per-(query, block) int8 query quantization and
-the row→tile offset table.  The scan itself runs where its tensors live:
-on a CUDA tensor the hand-written kernel (``ivf_scan.ivf_scan_kernel_call``)
-launches, on a CPU tensor the plain oracle ``ref.ivf_scan_ref`` runs.
+block-checkpoint schedule, per-(query, block) int8 query quantization, the
+row→tile offset table of the IVF scan and the visited bitmap of the graph
+wave.  A scan runs where its tensors live: on a CUDA tensor the
+hand-written kernel (``ivf_scan.ivf_scan_kernel_call``,
+``graph_scan.graph_scan_kernel_call``) launches, on a CPU tensor its plain
+oracle (``ref.ivf_scan_ref``, ``ref.graph_scan_ref``) runs.
 
 Shape contract: offset tables use sentinel ``-1`` for steps that must ship
 nothing; every non-negative offset stays inside the flat layout's tile
@@ -19,12 +21,14 @@ import torch
 
 from repro_torch.core.calibration import EpsilonTable
 from repro_torch.core.estimators import Estimator, blocked_schedule, kernel_spec
+from repro_torch.kernels import graph_scan
 from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
 from repro_torch.quant.scalar import quantize_queries_block
 
 __all__ = [
     "ivf_scan_kernel", "ivf_scan_inputs", "ivf_cap_tiles", "build_window_offsets",
-    "block_table", "fused_fetch_totals",
+    "block_table", "fused_fetch_totals", "graph_vis_words", "unpack_vis",
+    "graph_scan_inputs", "graph_scan_kernel",
 ]
 
 
@@ -157,3 +161,118 @@ def ivf_scan_kernel(estimator: Estimator, q_rot: torch.Tensor, *args, **kwargs):
     top_sq, top_ids, stats = ivf_scan_kernel_call(*call_args, **call_kwargs)
     qn = q_rot.shape[0]
     return top_sq[:qn], top_ids[:qn], stats[:qn]
+
+
+def graph_vis_words(n_nodes: int) -> int:
+    """Packed visited-bitmap width (int32 words) for ``n_nodes`` graph
+    nodes: ``ceil(n_nodes / 32)`` rounded up to a multiple of 128, the
+    reference's layout (sharded walks size it with the GLOBAL node count)."""
+    words = (max(n_nodes, 1) + 31) // 32
+    return (words + 127) // 128 * 128
+
+
+def unpack_vis(vis, n_nodes: int) -> np.ndarray:
+    """(q_tiles, W) packed int32 bitmap -> (q_tiles, n_nodes) bool mask on
+    the host (bit ``v % 32`` of word ``v // 32``; bit 31 is the sign bit)."""
+    vis = vis.cpu().numpy() if isinstance(vis, torch.Tensor) else np.asarray(vis)
+    vis = vis.astype(np.int32, copy=False)
+    bits = (vis[:, :, None] >> np.arange(32, dtype=np.int32)) & 1
+    return bits.reshape(vis.shape[0], -1)[:, :n_nodes].astype(bool)
+
+
+def graph_scan_inputs(
+    estimator: Estimator,
+    q_rot: torch.Tensor,  # (Q, D) rotated fp32 queries, tile-grouped by caller
+    step_offs: torch.Tensor,  # (ceil(Q/block_q), steps) int TILE offsets, -1 skip
+    top0_sq: torch.Tensor,  # (Q, EF) f32 beam window carried across waves
+    top0_ids: torch.Tensor,  # (Q, EF) int32
+    r0_sq: torch.Tensor,  # (Q,) f32 thresholds carried across waves
+    adj_rot: torch.Tensor,  # (N_adj, D_pad) f32/bf16 adjacency-flat rows
+    adj_codes: torch.Tensor,  # (N_adj, D_pad) int8 per-block codes
+    adj_ids: torch.Tensor,  # (N_adj,) int32, -1 per-block padding
+    bscales: torch.Tensor,  # (S,) f32 corpus per-block scales
+    vis0: torch.Tensor | None = None,  # (q_tiles, W) int32 packed bitmap
+    *,
+    vis_base: int = 0,  # global node id of local tile 0
+    vis_nodes: int | None = None,  # global node count the bitmap covers
+    ef: int,
+    thresh_col: int | None = None,
+    block_q: int = graph_scan.KERNEL_TILE[0],
+    block_c: int = graph_scan.KERNEL_TILE[1],
+    block_d: int = 32,
+    slack: float = 1e-4,
+    tighten: bool = True,
+):
+    """The padded ``(args, kwargs)`` of the ``graph_scan_kernel_call`` that
+    :func:`graph_scan_kernel` makes for these arguments, on the device of
+    ``adj_rot``.
+
+    Queries are padded to ``block_q`` rows with inf/-1 window entries and
+    r² = 0, so pad rows prune at the first checkpoint and never touch the
+    outputs.  ``vis0=None`` starts an all-clear bitmap of
+    ``graph_vis_words(vis_nodes)`` words per query tile; ``vis_nodes``
+    defaults to ``vis_base`` plus the local tile count.
+    """
+    qn, dim = q_rot.shape
+    n_adj, d_pad = adj_rot.shape
+    if d_pad % block_d or bscales.shape[0] != d_pad // block_d:
+        raise ValueError(
+            f"adjacency dim {d_pad} must be a multiple of block_d "
+            f"{block_d} with one block scale per block")
+    if n_adj % block_c:
+        raise ValueError(f"adjacency rows {n_adj} % block_c {block_c} != 0")
+    spec = kernel_spec(estimator, dim, block_d)
+    if spec.d_pad != d_pad:
+        raise ValueError(
+            f"blocked table spans {spec.d_pad} dims, adjacency has {d_pad}")
+    dev = adj_rot.device
+    eps, scale = spec.eps.to(dev), spec.scale.to(dev)
+
+    q = _pad_axis(q_rot.to(dev).float(), 1, block_d, 0.0)
+    q = _pad_axis(q, 0, block_q, 0.0)
+    qcodes, qscales = quantize_queries_block(q, block_d)
+    t_sq = _pad_axis(top0_sq.to(dev).float(), 0, block_q, float("inf"))
+    t_ids = _pad_axis(top0_ids.to(dev, torch.int32), 0, block_q, -1)
+    r0 = _pad_axis(r0_sq.to(dev).float(), 0, block_q, 0.0)
+
+    q_tiles = q.shape[0] // block_q
+    n_tiles = n_adj // block_c
+    vis_base = int(vis_base)
+    if vis_nodes is None:
+        vis_nodes = vis_base + n_tiles
+    if vis_base < 0 or vis_base + n_tiles > vis_nodes:
+        raise ValueError(
+            f"vis_base={vis_base} with {n_tiles} local tiles overruns the "
+            f"{vis_nodes}-node global bitmap")
+    words = graph_vis_words(vis_nodes)
+    if vis0 is None:
+        vis0 = torch.zeros((q_tiles, words), dtype=torch.int32, device=dev)
+    elif tuple(vis0.shape) != (q_tiles, words):
+        raise ValueError(
+            f"visited bitmap is {tuple(vis0.shape)}, need ({q_tiles}, {words}) "
+            f"(= graph_vis_words({vis_nodes}) words per query tile)")
+    # Offsets on the host (the beam walk's) are range-checked here; the
+    # kernel reads tile `off` unchecked.
+    if step_offs.device.type == "cpu" and step_offs.numel() and (
+            int(step_offs.min()) < -1 or int(step_offs.max()) >= n_tiles):
+        raise ValueError(f"step offsets must be -1 or in [0, {n_tiles})")
+    offs = step_offs.to(dev, torch.int32)
+    if thresh_col is None:
+        thresh_col = ef - 1
+    args = (offs, qcodes, q, qscales, t_sq, t_ids, r0, vis0.to(dev, torch.int32),
+            adj_codes, adj_rot, adj_ids, bscales, eps, scale, vis_base)
+    return args, dict(ef=ef, thresh_col=thresh_col, block_q=block_q,
+                      block_c=block_c, block_d=block_d, slack=slack,
+                      tighten=tighten)
+
+
+def graph_scan_kernel(estimator: Estimator, q_rot: torch.Tensor, *args, **kwargs):
+    """Public entry for one fused graph beam-scan wave; arguments as
+    :func:`graph_scan_inputs`.  Returns (top_sq (Q, EF) ascending, top_ids
+    (Q, EF), stats (Q, 6) f32 — see ``ref.STATS_COLS``, vis (q_tiles, W)
+    int32), cropped to Q — feed top/r²/vis back in to continue the beam."""
+    call_args, call_kwargs = graph_scan_inputs(estimator, q_rot, *args, **kwargs)
+    top_sq, top_ids, stats, vis = graph_scan.graph_scan_kernel_call(
+        *call_args, **call_kwargs)
+    qn = q_rot.shape[0]
+    return top_sq[:qn], top_ids[:qn], stats[:qn], vis

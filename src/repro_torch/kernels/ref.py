@@ -1,9 +1,10 @@
-"""Plain-PyTorch oracle of the fused IVF wave scan (port of
-``repro.kernels.ref.ivf_scan_ref``) — the plain version of the CUDA kernel
-in ``csrc/ivf_scan.cu``.
+"""Plain-PyTorch oracles of the fused scans (ports of
+``repro.kernels.ref.ivf_scan_ref`` and ``graph_scan_ref``) — the plain
+versions of the CUDA kernels in ``csrc/ivf_scan.cu`` and
+``csrc/graph_scan.cu``.
 
-It replays the kernel's walk with the helpers of ``tiles.py`` and models
-its memory behaviour exactly:
+Both replay the kernels' shared walk (``csrc/scan_walk.cuh``) with the
+helpers of ``tiles.py`` and model its memory behaviour exactly:
 
   * steps with offset -1 are skipped (no fetch, no screen, no stats);
   * a real step whose offset equals the last *issued* offset re-uses the
@@ -11,7 +12,10 @@ its memory behaviour exactly:
     counts fresh offsets only);
   * fp slabs are fetched per ``tiles.stage2_need``
     (``s2_slabs_fetched``), and a tile with no valid stage-1 survivor runs
-    no stage 2 and no merge.
+    no stage 2 and no merge;
+  * after a merge r² tightens to the window's ``thresh_col`` entry (the
+    K-th for the IVF scan), unless the graph wave freezes it
+    (``tighten=False``).
 
 Query tiles are independent, so the walk runs all of them together, one
 step at a time: step ``s`` screens every query tile whose offset at ``s``
@@ -28,7 +32,7 @@ from repro_torch.kernels.tiles import (
     dup_mask, merge_topk_tile, stage1_tile, stage2_tile,
 )
 
-__all__ = ["ivf_scan_ref", "STATS_COLS"]
+__all__ = ["ivf_scan_ref", "graph_scan_ref", "STATS_COLS"]
 
 # stats columns: semantic dims-consumed accounting (0-3) + fetch counters
 # (4-5, tile-level, broadcast to every query row of the tile).
@@ -40,6 +44,105 @@ STATS_COLS = (
     "s2_slabs_fetched",  # 4: fp (BC, block_d) slabs fetched
     "s1_tiles_fetched",  # 5: int8 tiles fetched (fresh real offsets)
 )
+
+
+def _walk(offs, qcodes, q_rot, qscales, r0_sq, top0_sq, top0_ids, codes, rows,
+          ids, bscales, eps, scale, *, k, thresh_col, tighten, block_q,
+          block_c, block_d, slack, return_trace):
+    """The walk of every query tile over its row of ``offs`` ((q_tiles,
+    steps) int64 numpy, -1 = gap step).  Returns (top_sq (Q, K), top_ids
+    (Q, K), stats (Q, 6), trace) with trace records keyed by (tile, step)."""
+    dev = q_rot.device
+    qn, dim = q_rot.shape
+    qt, steps = offs.shape
+    n_tiles = codes.shape[0] // block_c
+    codes_t = codes.reshape(n_tiles, block_c, dim)
+    rows_t = rows.reshape(n_tiles, block_c, dim)
+    ids_t = ids.reshape(n_tiles, block_c).to(torch.int32)
+
+    qc_t = qcodes.reshape(qt, block_q, dim)
+    q_t = q_rot.float().reshape(qt, block_q, dim)
+    qs_t = qscales.float().reshape(qt, block_q, -1)
+    t_sq = top0_sq.float().reshape(qt, block_q, k).clone()
+    t_ids = top0_ids.to(torch.int32).reshape(qt, block_q, k).clone()
+    rsq = r0_sq.float().reshape(qt, block_q, 1).clone()
+    st = torch.zeros((qt, block_q, 6), dtype=torch.float32, device=dev)
+    last = np.full((qt,), -1, np.int64)  # last issued offset per tile
+    offs_dev = torch.as_tensor(offs, device=dev)
+    last_dev = torch.full((qt,), -1, dtype=torch.int64, device=dev)
+    all_tiles = torch.arange(qt, device=dev)
+    trace = []
+
+    for s in range(steps):
+        off = offs[:, s]
+        tiles = np.nonzero(off >= 0)[0]
+        if tiles.size == 0:
+            continue  # gap step everywhere: nothing ships
+        fresh = off[tiles] != last[tiles]
+        last[tiles] = off[tiles]
+        # Tile indices stay on the device when every tile is real (the
+        # serving walk), so no step waits on a host copy.
+        ti = all_tiles if tiles.size == qt else torch.as_tensor(tiles, device=dev)
+        oi = offs_dev[ti, s]
+        s1f = (oi != last_dev[ti]).float()
+        last_dev[ti] = oi
+        ids_s = ids_t[oi].unsqueeze(-2)  # (R, 1, BC)
+        valid = ids_s >= 0
+        validf = valid.float()
+        rsq_frozen = rsq[ti]
+        active8, d8 = stage1_tile(
+            qc_t[ti], qs_t[ti], codes_t[oi], bscales, eps, scale, rsq_frozen,
+            block_d=block_d, slack=slack)
+        d8_sum = torch.sum(d8 * validf, dim=-1, keepdim=True)  # (R, BQ, 1)
+        nvalid = torch.sum(validf, dim=-1, keepdim=True).expand_as(d8_sum)
+        zero = torch.zeros_like(d8_sum)
+        s1f = s1f.reshape(-1, 1, 1).expand_as(d8_sum)
+        add = torch.cat([d8_sum, zero, nvalid, zero, zero, s1f], dim=-1)
+
+        alive_n = torch.sum(active8 & valid, dim=(-2, -1))  # (R,)
+        alive = alive_n > 0
+        # Stage 2 and the merge run for every tile of the step and are
+        # kept only where the tile has a valid stage-1 survivor: a tile
+        # without one ships no fp slab (its stage-2 terms are all zero) and
+        # leaves the window and r² untouched.
+        exact_sq, passed, d32, slabs = stage2_tile(
+            q_t[ti], rows_t[oi], eps, scale, rsq_frozen, active8, valid,
+            block_d=block_d)
+        ok = passed & valid
+        d32_sum = torch.sum(d32 * validf, dim=-1, keepdim=True)
+        npass = torch.sum(ok.float(), dim=-1, keepdim=True)
+        slabs_col = slabs.reshape(-1, 1, 1).expand_as(d32_sum)
+        add2 = torch.cat([zero, d32_sum, zero, npass, slabs_col, zero], dim=-1)
+        st[ti] += add + torch.where(alive.reshape(-1, 1, 1), add2,
+                                    torch.zeros_like(add2))
+
+        w_sq, w_ids = t_sq[ti], t_ids[ti]
+        dup = dup_mask(ids_s, w_ids, k=k)
+        new_sq = torch.where(ok & ~dup, exact_sq,
+                             torch.full_like(exact_sq, float("inf")))
+        m_sq, m_ids = merge_topk_tile(w_sq, w_ids, new_sq, ids_s, k=k)
+        keep = alive.reshape(-1, 1, 1)
+        m_sq = torch.where(keep, m_sq, w_sq)
+        t_sq[ti] = m_sq
+        t_ids[ti] = torch.where(keep, m_ids, w_ids)
+        if tighten:
+            rsq[ti] = torch.where(
+                keep, torch.minimum(rsq_frozen, m_sq[..., thresh_col:thresh_col + 1]),
+                rsq_frozen)
+
+        if return_trace:
+            for r, i in enumerate(tiles.tolist()):
+                a = bool(alive[r])
+                trace.append(dict(
+                    tile=i, step=s, row_start=int(off[i]) * block_c,
+                    ids=ids_s[r, 0], rsq=rsq_frozen[r, :, 0], active8=active8[r],
+                    valid=valid[r, 0], alive=int(alive_n[r]), fetched=a,
+                    fresh=bool(fresh[r]), slabs=float(slabs[r]) if a else 0.0,
+                    passed=passed[r] if a else torch.zeros_like(active8[r]),
+                    exact_sq=exact_sq[r] if a else None))
+
+    trace.sort(key=lambda rec: (rec["tile"], rec["step"]))
+    return t_sq.reshape(qn, k), t_ids.reshape(qn, k), st.reshape(qn, 6), trace
 
 
 def ivf_scan_ref(
@@ -70,98 +173,72 @@ def ivf_scan_ref(
     the real steps (frozen r², scanned window, stage masks and the fetch
     decisions ``alive``/``fetched``/``fresh``/``slabs``), ordered by
     (tile, probe, ctile)."""
-    dev = q_rot.device
-    qn, dim = q_rot.shape
-    qt = qn // block_q
-    steps = tile_offs.shape[1] * cap_tiles
-    offs = tile_offs.reshape(qt, steps).cpu().numpy().astype(np.int64)
-    n_tiles = flat_codes.shape[0] // block_c
-    codes_t = flat_codes.reshape(n_tiles, block_c, dim)
-    rows_t = flat_rot.reshape(n_tiles, block_c, dim)
-    ids_t = flat_ids.reshape(n_tiles, block_c).to(torch.int32)
+    qt = q_rot.shape[0] // block_q
+    offs = tile_offs.reshape(qt, -1).cpu().numpy().astype(np.int64)
+    *out, trace = _walk(
+        offs, qcodes, q_rot, qscales, r0_sq, top0_sq, top0_ids, flat_codes,
+        flat_rot, flat_ids, bscales, eps, scale, k=k, thresh_col=k - 1,
+        tighten=True, block_q=block_q, block_c=block_c, block_d=block_d,
+        slack=slack, return_trace=return_trace)
+    if not return_trace:
+        return tuple(out)
+    for rec in trace:
+        s = rec.pop("step")
+        rec.update(probe=s // cap_tiles, ctile=s % cap_tiles)
+    return tuple(out) + (trace,)
 
-    qc_t = qcodes.reshape(qt, block_q, dim)
-    q_t = q_rot.float().reshape(qt, block_q, dim)
-    qs_t = qscales.float().reshape(qt, block_q, -1)
-    t_sq = top0_sq.float().reshape(qt, block_q, k).clone()
-    t_ids = top0_ids.to(torch.int32).reshape(qt, block_q, k).clone()
-    rsq = r0_sq.float().reshape(qt, block_q, 1).clone()
-    st = torch.zeros((qt, block_q, 6), dtype=torch.float32, device=dev)
-    last = np.full((qt,), -1, np.int64)  # last issued offset per tile
-    offs_dev = torch.as_tensor(offs, device=dev)
-    last_dev = torch.full((qt,), -1, dtype=torch.int64, device=dev)
-    all_tiles = torch.arange(qt, device=dev)
-    trace = []
 
-    for s in range(steps):
-        off = offs[:, s]
-        tiles = np.nonzero(off >= 0)[0]
-        if tiles.size == 0:
-            continue  # gap step everywhere: nothing ships
-        fresh = off[tiles] != last[tiles]
-        last[tiles] = off[tiles]
-        # Tile indices stay on the device when every tile is real (the
-        # serving walk), so no step waits on a host copy.
-        ti = all_tiles if tiles.size == qt else torch.as_tensor(tiles, device=dev)
-        oi = offs_dev[ti, s]
-        s1f = (oi != last_dev[ti]).float()
-        last_dev[ti] = oi
-        ids = ids_t[oi].unsqueeze(-2)  # (R, 1, BC)
-        valid = ids >= 0
-        validf = valid.float()
-        rsq_frozen = rsq[ti]
-        active8, d8 = stage1_tile(
-            qc_t[ti], qs_t[ti], codes_t[oi], bscales, eps, scale, rsq_frozen,
-            block_d=block_d, slack=slack)
-        d8_sum = torch.sum(d8 * validf, dim=-1, keepdim=True)  # (R, BQ, 1)
-        nvalid = torch.sum(validf, dim=-1, keepdim=True).expand_as(d8_sum)
-        zero = torch.zeros_like(d8_sum)
-        s1f = s1f.reshape(-1, 1, 1).expand_as(d8_sum)
-        add = torch.cat([d8_sum, zero, nvalid, zero, zero, s1f], dim=-1)
+def graph_scan_ref(
+    step_offs: torch.Tensor,  # (q_tiles, steps) int per-step tile offsets
+    qcodes: torch.Tensor,  # (Q, D) int8
+    q_rot: torch.Tensor,  # (Q, D) f32
+    qscales: torch.Tensor,  # (Q, S) f32
+    top0_sq: torch.Tensor,  # (Q, EF) f32 beam window carried across waves
+    top0_ids: torch.Tensor,  # (Q, EF) int32
+    r0_sq: torch.Tensor,  # (Q,) f32
+    vis0: torch.Tensor,  # (q_tiles, W) int32 packed visited bitmap carried in
+    adj_codes: torch.Tensor,  # (N_adj, D) int8 adjacency-flat
+    adj_rot: torch.Tensor,  # (N_adj, D) f32 or bf16
+    adj_ids: torch.Tensor,  # (N_adj,) int32, -1 per-block padding
+    bscales: torch.Tensor,  # (S,) f32
+    eps: torch.Tensor,  # (S,) f32
+    scale: torch.Tensor,  # (S,) f32
+    vis_base: int = 0,
+    *,
+    ef: int,
+    thresh_col: int | None = None,
+    block_q: int,
+    block_c: int,
+    block_d: int,
+    slack: float = 1e-4,
+    tighten: bool = True,
+    return_trace: bool = False,
+):
+    """One wave of the graph beam scan: the walk seeded from the window,
+    r² and visited bitmap the previous wave returned.  Every real step sets
+    bit ``vis_base + off`` of its tile's bitmap row (bit 31 of a word is
+    its sign bit).
 
-        alive_n = torch.sum(active8 & valid, dim=(-2, -1))  # (R,)
-        alive = alive_n > 0
-        # Stage 2 and the merge run for every tile of the step and are
-        # kept only where the tile has a valid stage-1 survivor: a tile
-        # without one ships no fp slab (its stage-2 terms are all zero) and
-        # leaves the window and r² untouched.
-        exact_sq, passed, d32, slabs = stage2_tile(
-            q_t[ti], rows_t[oi], eps, scale, rsq_frozen, active8, valid,
-            block_d=block_d)
-        ok = passed & valid
-        d32_sum = torch.sum(d32 * validf, dim=-1, keepdim=True)
-        npass = torch.sum(ok.float(), dim=-1, keepdim=True)
-        slabs_col = slabs.reshape(-1, 1, 1).expand_as(d32_sum)
-        add2 = torch.cat([zero, d32_sum, zero, npass, slabs_col, zero], dim=-1)
-        st[ti] += add + torch.where(alive.reshape(-1, 1, 1), add2,
-                                    torch.zeros_like(add2))
-
-        w_sq, w_ids = t_sq[ti], t_ids[ti]
-        dup = dup_mask(ids, w_ids, k=k)
-        new_sq = torch.where(ok & ~dup, exact_sq,
-                             torch.full_like(exact_sq, float("inf")))
-        m_sq, m_ids = merge_topk_tile(w_sq, w_ids, new_sq, ids, k=k)
-        keep = alive.reshape(-1, 1, 1)
-        m_sq = torch.where(keep, m_sq, w_sq)
-        t_sq[ti] = m_sq
-        t_ids[ti] = torch.where(keep, m_ids, w_ids)
-        rsq[ti] = torch.where(keep, torch.minimum(rsq_frozen, m_sq[..., k - 1:k]),
-                              rsq_frozen)
-
-        if return_trace:
-            for r, i in enumerate(tiles.tolist()):
-                a = bool(alive[r])
-                trace.append(dict(
-                    tile=i, probe=s // cap_tiles, ctile=s % cap_tiles,
-                    row_start=int(off[i]) * block_c, ids=ids[r, 0],
-                    rsq=rsq_frozen[r, :, 0], active8=active8[r],
-                    valid=valid[r, 0], alive=int(alive_n[r]), fetched=a,
-                    fresh=bool(fresh[r]), slabs=float(slabs[r]) if a else 0.0,
-                    passed=passed[r] if a else torch.zeros_like(active8[r]),
-                    exact_sq=exact_sq[r] if a else None))
-
-    trace.sort(key=lambda rec: (rec["tile"], rec["probe"], rec["ctile"]))
-    out = (t_sq.reshape(qn, k), t_ids.reshape(qn, k), st.reshape(qn, 6))
-    if return_trace:
-        return out + (trace,)
-    return out
+    Returns (top_sq (Q, EF) f32, top_ids (Q, EF) int32, stats (Q, 6) f32,
+    vis (q_tiles, W) int32); with ``return_trace`` also per-(tile, step)
+    records of the real steps, as ``ivf_scan_ref``'s plus ``marked`` (the
+    global node whose bit the step set), ordered by (tile, step)."""
+    if thresh_col is None:
+        thresh_col = ef - 1
+    offs = step_offs.cpu().numpy().astype(np.int64)
+    *out, trace = _walk(
+        offs, qcodes, q_rot, qscales, r0_sq, top0_sq, top0_ids, adj_codes,
+        adj_rot, adj_ids, bscales, eps, scale, k=ef, thresh_col=thresh_col,
+        tighten=tighten, block_q=block_q, block_c=block_c, block_d=block_d,
+        slack=slack, return_trace=return_trace)
+    vis = vis0.cpu().numpy().astype(np.int32).copy()
+    tile, step = np.nonzero(offs >= 0)
+    node = offs[tile, step] + int(vis_base)
+    np.bitwise_or.at(vis.view(np.uint32), (tile, node // 32),
+                     np.left_shift(np.uint32(1), (node % 32).astype(np.uint32)))
+    out.append(torch.as_tensor(vis, device=vis0.device))
+    if not return_trace:
+        return tuple(out)
+    for rec in trace:
+        rec["marked"] = rec["row_start"] // block_c + int(vis_base)
+    return tuple(out) + (trace,)

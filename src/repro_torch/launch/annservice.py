@@ -1,5 +1,6 @@
 """The paper's serving workload on one card: the int8 fused flat route of
-``repro.launch.annservice.build_search_step``.
+``repro.launch.annservice.build_search_step``, and the graph route of
+``build_graph_engine``.
 
 The corpus (rotated into the PCA basis at ingest) lives on the card as
 rows (bf16 or f32) plus per-block int8 codes.  One search step seeds each
@@ -8,19 +9,25 @@ runs the whole corpus through the fused wave-scan kernel as
 ``corpus // wave`` waves of ``wave // 128`` candidate tiles: int8 stage 1,
 demand-paged fp stage 2, and the running top-K / r² kept on the card
 between waves.  With one card there is no cross-shard merge.
+
+The graph route serves a batch through ``index.graph.search_graph_fused``:
+one ``graph_scan`` launch per frontier wave, the host selecting the next
+frontier between waves.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.dade_ivf import ServiceConfig
 from repro_torch.core.estimators import SEED_SLACK, first_enabled_eps
+from repro_torch.index.graph import search_graph_fused
 from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
 from repro_torch.quant.scalar import quantize_queries_block
 
-__all__ = ["build_search_step", "seed_rsq", "fused_scan_inputs",
-           "FUSED_BLOCK_C", "FUSED_BLOCK_Q"]
+__all__ = ["build_search_step", "build_graph_engine", "seed_rsq",
+           "fused_scan_inputs", "FUSED_BLOCK_C", "FUSED_BLOCK_Q"]
 
 # Query-tile rows and candidate-tile rows of the fused route (the kernel's
 # tile); serve.py's fetch report normalizes its per-wave figures with
@@ -100,5 +107,22 @@ def build_search_step(svc: ServiceConfig, *, with_stats: bool = False):
         st = stats.double()
         scan = torch.cat([st[:, :4].sum(0), st[::FUSED_BLOCK_Q, 4:].sum(0)])
         return dists, top_ids, scan
+
+    return step
+
+
+def build_graph_engine(index, *, k: int, ef: int = 48, expand: int = 2,
+                       device: str | torch.device = "cuda"):
+    """Serving engine of the graph route: ``step(batch_np) -> (dists, ids,
+    GraphScanStats)``, numpy results of ``search_graph_fused`` over the
+    whole index on ``device`` (the index's), in query tiles of 8 (the CUDA
+    kernel's, and the reference's off-TPU default).  The step's batch
+    shape is free; the scheduler fixes it."""
+    resolve_device(device)
+
+    def step(batch_np):
+        d, i, st = search_graph_fused(index, batch_np, k=k, ef=ef,
+                                      expand=expand, device=device)
+        return d.cpu().numpy(), i.cpu().numpy(), st
 
     return step

@@ -6,7 +6,9 @@ parts of ``repro.quant.accounting`` this slice needs).
   * fetched (DMA-granular) bytes: every scanned candidate tile pays its
     full int8 block plus the id stream, and fp rows move in
     (block_c, block_d) slabs fetched only while stage 2 still has valid
-    active candidates.
+    active candidates;
+  * gathered (row-granular) bytes: what a host gather engine ships for the
+    same screen — every screened row's full fp and int8 dims plus its id.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ FP32_BYTES = 4   # stage-2 exact rows, bytes per dimension
 ID_BYTES = 4     # per-row id stream accompanying each scanned tile
 
 __all__ = ["INT8_BYTES", "FP32_BYTES", "ID_BYTES", "two_stage_bytes",
-           "fetched_tile_bytes", "stage2_skip_rate", "stage2_fetch_report"]
+           "fetched_tile_bytes", "row_gather_bytes", "stage2_skip_rate",
+           "stage2_fetch_report"]
 
 
 def two_stage_bytes(int8_dims, fp_dims, *, int8_bytes: int = INT8_BYTES,
@@ -29,6 +32,14 @@ def fetched_tile_bytes(blocks, *, block_c: int, dims: int,
                        bytes_per_dim: int, id_bytes: int = 0):
     """DMA-granular bytes of ``blocks`` fetched (block_c, dims) blocks."""
     return blocks * block_c * (dims * bytes_per_dim + id_bytes)
+
+
+def row_gather_bytes(rows, *, dims: int, fp_bytes: int = FP32_BYTES,
+                     int8_bytes: int = INT8_BYTES, id_bytes: int = ID_BYTES):
+    """Row-granular bytes of a host gather engine screening ``rows``
+    candidates of ``dims`` dimensions: a gather reads whole rows, so each
+    pays its full fp row, its full int8 code row and its id."""
+    return rows * (dims * (fp_bytes + int8_bytes) + id_bytes)
 
 
 def stage2_skip_rate(s2_slabs_fetched, s2_slabs_total) -> float:

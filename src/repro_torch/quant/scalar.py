@@ -1,7 +1,8 @@
 """Symmetric int8 scalar quantization of the *rotated* corpus (port of the
 parts of ``repro.quant.scalar`` the fused scan uses).
 
-Per-dimension scales (``fit_scales``/``quantize``) feed the threshold seed;
+Per-dimension scales (``fit_scales``/``quantize``, ``quantize_corpus``)
+feed the threshold seeds;
 per-BLOCK scales (one per ``block_d`` contiguous dims) feed the fused
 kernel's int8×int8 stage 1: within a block the dequantize is one scalar, so
 ``q'·o' = t_b·s_b·(qc·oc)`` with ``qc·oc`` accumulated in int32.  In-corpus
@@ -15,7 +16,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["QuantConfig", "fit_scales", "quantize", "fit_block_scales",
+__all__ = ["QuantConfig", "QuantizedCorpus", "fit_scales", "quantize",
+           "quantize_corpus", "wants_quant", "fit_block_scales",
            "quantize_block", "block_err_cum", "quantize_queries_block",
            "DEFAULT_SLACK"]
 
@@ -54,6 +56,30 @@ def quantize(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     q = torch.round(x / safe)
     q = torch.where(scales > 0.0, q, torch.zeros_like(q))
     return torch.clamp(q, -_QMAX, _QMAX).to(torch.int8)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedCorpus:
+    """int8 codes + per-dimension scales of a rotated corpus: codes
+    (..., D) int8 = round(x / scales) clipped to [-127, 127], scales (D,)
+    float32 (the reconstruction error is at most scales / 2)."""
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+
+def quantize_corpus(rot_corpus: torch.Tensor,
+                    scales: torch.Tensor | None = None) -> QuantizedCorpus:
+    """Fit per-dimension scales (unless given) and encode."""
+    if scales is None:
+        scales = fit_scales(rot_corpus)
+    return QuantizedCorpus(codes=quantize(rot_corpus, scales), scales=scales)
+
+
+def wants_quant(quant, estimator_quant) -> bool:
+    """Build-time decision: store int8 codes?  True when the build was
+    passed a policy ("int8" or a QuantConfig) or the estimator carries one."""
+    return estimator_quant is not None or quant not in (None, "none")
 
 
 def _num_blocks(dim: int, block_d: int) -> int:

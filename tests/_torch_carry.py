@@ -32,3 +32,13 @@ def recall(ids, gt):
     ids, gt = np.asarray(ids), np.asarray(gt)
     return float(np.mean([len(set(ids[i].tolist()) & set(gt[i].tolist())) / gt.shape[1]
                           for i in range(len(ids))]))
+
+
+def carry_graph(g, device="cpu"):
+    return interop.graph_from_arrays(
+        carry_estimator(g.estimator, device), corpus_rot=np.asarray(g.corpus_rot),
+        neighbors=np.asarray(g.neighbors), entry=np.asarray(g.entry),
+        corpus_q=np.asarray(g.corpus_q), qscales=np.asarray(g.qscales),
+        adj_rot=np.asarray(g.adj_rot), adj_codes=np.asarray(g.adj_codes),
+        adj_ids=np.asarray(g.adj_ids), gscales=np.asarray(g.gscales),
+        adj_block=g.adj_block, scan_block_d=g.scan_block_d, device=device)

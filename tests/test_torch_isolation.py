@@ -1,7 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the reference package, its entry points
-run on the card unless asked for the CPU, and the ``ivf_scan`` wrapper
-picks its path by the device of its tensors."""
+run on the card unless asked for the CPU, and the kernel wrappers pick
+their path by the device of their tensors."""
 
 import ast
 import inspect
@@ -19,10 +19,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.estimators import build_estimator  # noqa: E402
 from repro_torch.core.topk import exact_knn  # noqa: E402
 from repro_torch.core.transforms import fit_pca  # noqa: E402
+from repro_torch.index.graph import build_graph, search_graph_fused  # noqa: E402
 from repro_torch.index.ivf import build_ivf  # noqa: E402
 from repro_torch.index.kmeans import kmeans  # noqa: E402
-from repro_torch.kernels import ivf_scan, ops  # noqa: E402
+from repro_torch.kernels import graph_scan, ivf_scan, ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.annservice import build_graph_engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -46,7 +48,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.index.ivf, "
-            "repro_torch.interop, repro_torch.kernels.ops; "
+            "repro_torch.index.graph, repro_torch.interop, repro_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -55,12 +57,19 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
 
 
+def _cpu_graph(d):
+    return build_graph(d, m=4, ef_construction=8, delta_d=16, device="cpu")
+
+
 ENTRY_POINTS = [
     (fit_pca, lambda d: fit_pca(d)),
     (build_estimator, lambda d: build_estimator("dade", d)),
     (exact_knn, lambda d: exact_knn(d[:4], d, 2)),
     (kmeans, lambda d: kmeans(d, 4, 2)),
     (build_ivf, lambda d: build_ivf(d, n_clusters=4, delta_d=16)),
+    (build_graph, lambda d: build_graph(d, m=4, ef_construction=8, delta_d=16)),
+    (search_graph_fused, lambda d: search_graph_fused(_cpu_graph(d), d)),
+    (build_graph_engine, lambda d: build_graph_engine(_cpu_graph(d), k=2)),
 ]
 
 
@@ -130,3 +139,8 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
 def test_gpu_kernel_build_is_lazy():
     """Importing the kernel module builds and loads nothing."""
     assert ivf_scan._lib.cache_info().currsize == 0 or torch.cuda.is_available()
+
+
+def test_graph_scan_build_is_lazy():
+    """Importing the graph kernel's module builds and loads nothing."""
+    assert graph_scan._lib.cache_info().currsize == 0 or torch.cuda.is_available()

@@ -1,7 +1,8 @@
-"""Port parity for the serving route: the one-device int8 fused
+"""Port parity for the serving routes: the one-device int8 fused
 ``build_search_step`` of ``repro_torch.launch.annservice`` against the JAX
-package's (one-device mesh, Pallas interpret mode), and the port's serve
-CLI end to end on the CPU."""
+package's (one-device mesh, Pallas interpret mode), the port's serve CLI
+end to end on the CPU, and its graph route's recall against the
+reference's beam walk on the same corpus and queries."""
 
 import os
 import subprocess
@@ -24,7 +25,11 @@ from repro.launch.annservice import build_search_step as j_build_step  # noqa: E
 from repro.launch.annservice import search_input_specs  # noqa: E402
 from repro.launch.mesh import make_mesh_compat  # noqa: E402
 from repro.quant import fit_block_scales, quantize_block  # noqa: E402
+from repro.index.graph import build_graph as j_build_graph  # noqa: E402
+from repro.index.graph import search_graph_fused as j_search_graph  # noqa: E402
 from repro_torch.configs.dade_ivf import ServiceConfig  # noqa: E402
+from repro_torch.kernels.graph_scan import graph_scan_kernel_call  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call  # noqa: E402
 from repro_torch.launch.annservice import build_search_step  # noqa: E402
 
@@ -85,12 +90,45 @@ def test_serve_cli_prints_report_line():
     assert float(line.split("recall@10=")[1].split()[0]) >= 0.9
 
 
-@pytest.mark.parametrize("flag,value", [("--index", "graph"), ("--quant", "none"),
+@pytest.mark.parametrize("flag,value", [("--graph-shards", "2"), ("--quant", "none"),
                                         ("--fused", "off")])
 def test_serve_cli_refuses_unported_routes(flag, value):
     out = _serve("--device", "cpu", flag, value)
     assert out.returncode != 0
     assert flag in out.stderr and value in out.stderr
+
+
+def test_serve_graph_route_on_cpu(capsys):
+    """``--index graph`` end to end at test size: the report's fields, and
+    recall@10 within 0.02 of what the reference's beam walk reaches on the
+    same corpus, queries and build settings (the two estimators are
+    calibrated from different random draws, so equality is not asked)."""
+    n, dim, batch = 1024, 64, 16
+    launches = graph_scan_kernel_call.launches
+    report = serve.main(["--index", "graph", "--device", "cpu", "--requests", "1",
+                         "--corpus", str(n), "--dim", str(dim), "--batch", str(batch),
+                         "--k", "10", "--delta-d", "16"])
+    assert graph_scan_kernel_call.launches == launches  # CPU tensors: plain path
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    for key in ("index=graph", "ef=48", "expand=2", "m=16", "QPS=", "recall@10=",
+                "waves=", "fetched_B_per_q=", "device=cpu"):
+        assert key in line, line
+    assert report["requests_served"] == 1 and report["waves"] > 0
+    assert report["fetched_bytes_per_query"] > 0 and 0.0 <= report["s2_skip_rate"] < 1.0
+
+    corpus = synthetic_vectors(n, dim, seed=0)
+    nq = int(np.random.default_rng(9).integers(batch // 2, 2 * batch))
+    assert report["queries"] == nq
+    q = synthetic_queries(nq, dim, corpus, seed=100)
+    est = build_estimator("dade", corpus[:50000], jax.random.PRNGKey(0), p_s=0.02,
+                          delta_d=16)
+    g = j_build_graph(corpus, estimator=est, m=16, ef_construction=96, quant="int8")
+    _, ids, _ = j_search_graph(g, jnp.asarray(q), k=10, ef=48, expand=2, block_q=8,
+                               use_ref=True)
+    _, gt = exact_knn(jnp.asarray(q), jnp.asarray(corpus), 10)
+    ids, gt = np.asarray(ids), np.asarray(gt)
+    ref_recall = np.mean([len(set(ids[r]) & set(gt[r])) / 10 for r in range(nq)])
+    assert abs(report["recall"] - ref_recall) <= 0.02, (report["recall"], ref_recall)
 
 
 def _toy_step(calls):
