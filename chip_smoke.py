@@ -7,9 +7,9 @@ Drives the port's main paths (``src/repro_torch``) on the card at the full
 width of the ``dade_ivf`` workload and fails (nonzero exit, no result line)
 on any fault.  Phases, one line each:
 
-  1. build: ``nvcc`` builds the ivf_scan and graph_scan kernels from
-     ``csrc/``, both at once; the card's name and power limit as
-     ``nvidia-smi`` reports them;
+  1. build: ``nvcc`` builds the five kernels (ivf_scan, graph_scan,
+     dade_dco, quant_dco, l2_scan) from ``csrc/``, all at once; the card's
+     name and power limit as ``nvidia-smi`` reports them;
   2. parity: ivf_scan against its plain PyTorch version on identical
      inputs — awkward small shapes and one full-width slice;
   3. ivf: ``build_ivf`` (twice: the two builds must be identical) +
@@ -29,17 +29,35 @@ on any fault.  Phases, one line each:
      held against the same walk through the plain version
      (``search_graph_beam_host``), recall@10 >= 0.80; the widest wave's
      launch timed beside its bound and its plain version;
-  8. graph serve: ``serve --index graph`` on the same graph, 3 requests.
+  8. graph serve: ``serve --index graph`` on the same graph, 3 requests;
+  9. flat screen parity: dade_dco, quant_dco and l2_scan against their
+     plain versions on awkward cases (D 64/200/384/256 at Δd 32/64/128/64,
+     ragged N and Q, bf16 inputs, r² = 0, 1e30 and inf, DADE, ADSampling
+     and FDScanning tables, a query tile that retires after one block),
+     then at the full shape (1024 x 2^20 x 256, Δd = 64): the main path's
+     outputs of phase 10 against the plain versions run over 64 Ki-row
+     chunks of the corpus;
+ 10. the flat DCO screen (the paper's Fig. 3 workload): ``build_flat``
+     (DADE, Δd = 64, p_s = 0.02, int8) of the 2^20 x 256 corpus, the
+     1024 queries of phase 3 and r² = the squared 100th exact distance;
+     ``ops.dco_screen_kernel``, ``ops.quant_screen_kernel`` and
+     ``l2_scan_kernel_call`` once each: l2's top-100 is the exact top-100,
+     the fp32 screen passes >= 0.95 of it, the int8 prefilter prunes no
+     row inside r² and nothing the fp32 screen passes; each kernel timed
+     beside its bound, its plain version and (l2_scan) ``torch.cdist``;
+ 11. the flat index: ``search_flat`` (k = 100, wave 8192), fp32 and
+     ``use_quant``, recall@100 >= 0.95 and the same ids from both.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
-paths (phases 3-4 for ivf_scan, 7-8 for graph_scan), its worst deviation
-from the plain version, its time, bound, plain time and library time.
+paths (phases 3-4 for ivf_scan, 7-8 for graph_scan, 10 for the flat
+screens), its worst deviation from the plain version, its time, bound,
+plain time and library time.
 
 Kernel parity rule: the top-K ids, the squared distances, every stats
-counter and the visited bitmap are equal bit for bit (tolerance zero): a
-kernel and its plain version round every float operation alike, in the
-same order.  Float32 matmuls run in full float32 here: TF32 is switched
-off explicitly.
+counter, the visited bitmap and every screen output (estimates, flags,
+dims) are equal bit for bit (tolerance zero): a kernel and its plain
+version round every float operation alike, in the same order.  Float32
+matmuls run in full float32 here: TF32 is switched off explicitly.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, the script fails.
@@ -623,20 +641,288 @@ def run_graph(card: str) -> dict:
     return entry
 
 
+def agree_screen(name, out_k, out_p):
+    """Holds a flat screen kernel's outputs (estimate, flag, dims — or the
+    l2 distances alone) against its plain version's, bit for bit; returns
+    the largest absolute deviation of the finite estimates (0 when they
+    agree)."""
+    import torch
+
+    est_k, est_p = out_k[0], out_p[0]
+    fin = torch.isfinite(est_p)
+    err = float((est_k[fin] - est_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+    same_inf = torch.equal(torch.isfinite(est_k), fin) and torch.equal(
+        est_k[~fin], est_p[~fin])
+    check(same_inf and err == 0.0, f"{name}: estimates differ (max_abs_err={err:.3e})")
+    for what, a, b in zip(("flag", "dims"), out_k[1:], out_p[1:]):
+        check(torch.equal(a, b), f"{name}: {what} differ in {int((a != b).sum())} pairs")
+    return err
+
+
+def screen_case(seed, *, method, dim, block_d, n, qn=40, bf16=False, tile=(8, 128)):
+    """A calibrated estimator of ``method`` on a 4096-row corpus, ``qn``
+    queries near corpus rows, ``n`` candidates, int8 codes, and thresholds
+    from each query's 2 % quantile, with query rows 16-31 (one kernel tile)
+    at r² = 0 (retired after one block), row 32 at 1e30 and row 33 at inf."""
+    import torch
+    from repro_torch.core.estimators import build_estimator
+    from repro_torch.quant.scalar import quantize_corpus
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    scales = torch.exp(-0.03 * torch.arange(dim, device=DEV))
+    data = torch.randn((4096, dim), generator=g, device=DEV) * scales
+    est = build_estimator(method, data, torch.Generator().manual_seed(seed),
+                          delta_d=32, device=DEV)
+    c = est.rotate(data[:n])
+    q = est.rotate(data[:qn] + 0.3 * torch.randn((qn, dim), generator=g, device=DEV)
+                   * scales)
+    r_sq = torch.quantile(torch.cdist(q, c) ** 2, 0.02, dim=1)
+    r_sq[16:32] = 0.0
+    r_sq[32], r_sq[33] = 1e30, float("inf")
+    if bf16:
+        q, c = q.bfloat16(), c.bfloat16()
+    qc = quantize_corpus(c.float())
+    return est, q, c, qc, r_sq, dict(block_q=tile[0], block_c=tile[1], block_d=block_d)
+
+
+def run_flat(svc, card: str) -> list:
+    """Phases 9-11 on ``DEV``; returns the dade_dco, quant_dco and l2_scan
+    kernels entries."""
+    import torch
+    from repro_torch.core.estimators import kernel_spec
+    from repro_torch.core.topk import exact_knn
+    from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
+    from repro_torch.index.flat import build_flat, search_flat
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._screen import KERNEL_TILE
+    from repro_torch.kernels.tiles import sqrt_rn
+    from repro_torch.quant.scalar import cum_err_sq
+    from repro_torch.kernels.dade_dco import dade_dco_kernel_call
+    from repro_torch.kernels.l2_scan import l2_scan_kernel_call
+    from repro_torch.kernels.quant_dco import quant_dco_kernel_call
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs = {"dade_dco": 0.0, "quant_dco": 0.0, "l2_scan": 0.0}
+
+    # ---- 9. parity on awkward cases: kernel vs plain on identical inputs ----
+    cases = [
+        ("dade_d64_bd32", dict(seed=21, method="dade", dim=64, block_d=32, n=1037)),
+        ("adsampling_d200_bd64_bf16", dict(seed=22, method="adsampling", dim=200,
+                                           block_d=64, n=777, bf16=True)),
+        ("fdscanning_d384_bd128", dict(seed=23, method="fdscanning", dim=384,
+                                       block_d=128, n=555, tile=(1, 1))),
+        ("dade_d256_bd64_bf16_ragged", dict(seed=24, method="dade", dim=256, block_d=64,
+                                            n=3001, qn=37, bf16=True, tile=(1, 1))),
+    ]
+    for name, kw in cases:
+        est, q, c, qc, r_sq, kkw = screen_case(**kw)
+        out_k = ops.dco_screen_kernel(est, q, c, r_sq, **kkw)
+        out_p = ops.dco_screen_kernel(est, q, c, r_sq, use_ref=True, **kkw)
+        errs["dade_dco"] = max(errs["dade_dco"], agree_screen(f"dade_dco {name}", out_k, out_p))
+        passed, dims = out_k[1], out_k[2]
+        lq = ops.quant_screen_kernel(est, q, qc.codes, qc.scales, r_sq, **kkw)
+        lp = ops.quant_screen_kernel(est, q, qc.codes, qc.scales, r_sq, use_ref=True, **kkw)
+        errs["quant_dco"] = max(errs["quant_dco"], agree_screen(f"quant_dco {name}", lq, lp))
+        bd = kkw["block_d"]
+        pad = (-q.shape[1]) % bd
+        qp = torch.nn.functional.pad(q.float(), (0, pad))
+        cp = torch.cat([torch.nn.functional.pad(c.float(), (0, pad)),
+                        torch.full((5, q.shape[1] + pad), 1e18, device=DEV)])
+        dk = l2_scan_kernel_call(qp, cp, block_q=1, block_c=1, block_d=bd)
+        errs["l2_scan"] = max(errs["l2_scan"], agree_screen(
+            f"l2_scan {name}", (dk,), (ref.l2_scan_ref(qp, cp, block_d=bd),)))
+        sync()
+        log(f"parity flat {name}: bit for bit; passed={float(passed.float().mean()):.4f} "
+            f"pruned={float(lq[1].float().mean()):.4f} "
+            f"mean_dims={float(dims.float().mean()):.1f} "
+            f"tile_16_31_dims_max={int(dims[16:32].max())} inf_l2={int(torch.isinf(dk).sum())}")
+        check(int(dims[16:32].max()) == bd, f"{name}: the r²=0 tile did not retire at block 1")
+
+    # ---- 10. the flat DCO screen at full width ----
+    n, dim, qn, k, bd = svc.corpus_per_device, svc.dim, svc.query_batch, svc.k, svc.delta_d
+    t0 = time.perf_counter()
+    corpus = synthetic_vectors(n, dim, seed=0)
+    queries = synthetic_queries(qn, dim, corpus, seed=1)
+    corpus_t = torch.as_tensor(corpus, device=DEV)
+    del corpus
+    idx = build_flat(corpus_t, method="dade", delta_d=bd, p_s=svc.p_s, quant="int8",
+                     generator=torch.Generator().manual_seed(0), device=DEV)
+    gt_d, gt = exact_knn(queries, corpus_t, k, device=DEV)
+    r_sq = (gt_d[:, -1] ** 2).contiguous()
+    q_rot = idx.estimator.rotate(torch.as_tensor(queries, device=DEV)).contiguous()
+    c_rot, codes, qscales = idx.corpus_rot, idx.corpus_q, idx.qscales
+    sync()
+    log(f"flat: build_flat {n}x{dim} (DADE, delta_d={bd}, p_s={svc.p_s}, int8) and "
+        f"ground truth in {time.perf_counter() - t0:.1f}s")
+    kernels = (dade_dco_kernel_call, quant_dco_kernel_call, l2_scan_kernel_call)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    est_sq, passed, dims = ops.dco_screen_kernel(idx.estimator, q_rot, c_rot, r_sq, block_d=bd)
+    lb_sq, pruned, lb_dims = ops.quant_screen_kernel(idx.estimator, q_rot, codes, qscales,
+                                                     r_sq, block_d=bd)
+    dist_sq = l2_scan_kernel_call(q_rot, c_rot, block_d=bd)
+    sync()
+    path_s = time.perf_counter() - t0
+    launches = {kern.__name__.removesuffix("_kernel_call"): kern.launches for kern in kernels}
+    for name, count in launches.items():
+        check(count > 0, f"the flat screen path launched no {name} kernel")
+    check(tuple(est_sq.shape) == (qn, n) and tuple(dist_sq.shape) == (qn, n),
+          "flat screen outputs malformed")
+    check(bool(torch.isfinite(dist_sq).all()) and bool(torch.isfinite(est_sq).all()),
+          "flat screen outputs not finite")
+    top = torch.topk(dist_sq, k, dim=1, largest=False).indices
+    l2_rec = float(sum(len(set(a) & set(b)) for a, b in zip(top.tolist(), gt.tolist()))
+                   / (qn * k))
+    check(l2_rec >= 0.999, f"l2_scan top-{k} recall {l2_rec} < 0.999")
+    kept = float(torch.gather(passed, 1, gt).float().mean())
+    check(kept >= 0.95, f"dco_screen_kernel passed {kept} of the exact top-{k} < 0.95")
+    inside = dist_sq <= r_sq[:, None] * (1 - 1e-6)
+    false_prunes = int((pruned & inside).sum())
+    check(false_prunes == 0, f"quant_screen_kernel pruned {false_prunes} rows inside r²")
+    both = int((pruned & passed).sum())
+    check(both == 0, f"quant_screen_kernel pruned {both} rows the fp32 screen passed")
+    bq, bc = KERNEL_TILE
+    s_count = dim // bd
+
+    def tile_work(d):
+        tiles = d.reshape(qn // bq, bq, n // bc, bc).amax(dim=(1, 3))
+        return float(torch.ceil(tiles.double() / bd).sum() / (tiles.numel() * s_count))
+
+    pass_rate = float(passed.double().mean())
+    dims_frac = float(dims.double().mean()) / dim
+    prune_rate = float(pruned.double().mean())
+    work, work_q = tile_work(dims), tile_work(lb_dims)
+    log(f"flat screen: launches {launches} in {path_s:.2f}s; l2 top-{k} recall={l2_rec:.4f}; "
+        f"fp32 screen keeps {kept:.4f} of the exact top-{k}, pass_rate={pass_rate:.6f} "
+        f"dims_frac={dims_frac:.4f} tile_work_frac={work:.4f} "
+        f"(tile {bq}x{bc}); int8 prefilter prune_rate={prune_rate:.6f} "
+        f"lb_dims_frac={float(lb_dims.double().mean()) / dim:.4f} tile_work_frac={work_q:.4f}; "
+        f"false prunes 0, pruned∧passed 0")
+
+    # ---- 9 (full shape). the main path's outputs against the plain versions ----
+    chunk = 1 << 16
+    plain_ms = {"dade_dco": 0.0, "quant_dco": 0.0, "l2_scan": 0.0}
+    for lo in range(0, n, chunk):
+        sl = slice(lo, lo + chunk)
+        ms_, out_p = cuda_ms(lambda: ops.dco_screen_kernel(
+            idx.estimator, q_rot, c_rot[sl], r_sq, block_d=bd, use_ref=True), 1)
+        plain_ms["dade_dco"] += ms_
+        errs["dade_dco"] = max(errs["dade_dco"], agree_screen(
+            "dade_dco full", (est_sq[:, sl], passed[:, sl], dims[:, sl]), out_p))
+        ms_, out_p = cuda_ms(lambda: ops.quant_screen_kernel(
+            idx.estimator, q_rot, codes[sl], qscales, r_sq, block_d=bd, use_ref=True), 1)
+        plain_ms["quant_dco"] += ms_
+        errs["quant_dco"] = max(errs["quant_dco"], agree_screen(
+            "quant_dco full", (lb_sq[:, sl], pruned[:, sl], lb_dims[:, sl]), out_p))
+        ms_, out_p = cuda_ms(lambda: ref.l2_scan_ref(q_rot, c_rot[sl], block_d=bd), 1)
+        plain_ms["l2_scan"] += ms_
+        errs["l2_scan"] = max(errs["l2_scan"], agree_screen(
+            "l2_scan full", (dist_sq[:, sl],), (out_p,)))
+        del out_p
+    log(f"parity flat full shape {qn}x{n}x{dim}: all three kernels bit for bit over "
+        f"{-(-n // chunk)} row chunks; plain ms {plain_ms}")
+
+    # Bounds from this run's data: one multiply-add (2 fp32 operations) per
+    # (query, row) dim consumed, plus the norms; bytes: the queries once,
+    # each row's dims that the deepest query still needed once, the per-dim
+    # scales, and the three (Q, N) outputs once.
+    need_rows = dims.amax(dim=0).double().sum()
+    need_codes = lb_dims.amax(dim=0).double().sum()
+    out_b = 3 * 4 * qn * n
+    bounds = {
+        "dade_dco": (2.0 * (float(dims.double().sum()) + float(need_rows) + qn * dim)
+                     / PEAK_FP32_FLOPS,
+                     (4 * qn * dim + 4 * float(need_rows) + out_b) / PEAK_BYTES),
+        "quant_dco": (2.0 * (float(lb_dims.double().sum()) + float(need_codes) + qn * dim)
+                      / PEAK_FP32_FLOPS,
+                      (4 * qn * dim + float(need_codes) + 4 * dim + out_b) / PEAK_BYTES),
+        "l2_scan": (2.0 * (qn * n * dim + n * dim + qn * dim) / PEAK_FP32_FLOPS,
+                    (4 * qn * dim + 4 * n * dim + 4 * qn * n) / PEAK_BYTES),
+    }
+    screen_stats = (pass_rate, dims_frac, work, prune_rate)
+    del est_sq, passed, dims, lb_sq, pruned, lb_dims, dist_sq, inside, top
+    torch.cuda.empty_cache()
+
+    # ---- 10 (timing). each kernel at the full shape ----
+    spec = kernel_spec(idx.estimator, dim, bd)
+    eps, scale = spec.eps.to(DEV), spec.scale.to(DEV)
+    ecum = sqrt_rn(cum_err_sq(qscales, (torch.arange(s_count, device=DEV) + 1) * bd))
+    calls = {
+        "dade_dco": lambda: dade_dco_kernel_call(q_rot, c_rot, eps, scale, r_sq, block_d=bd),
+        "quant_dco": lambda: quant_dco_kernel_call(q_rot, codes, qscales, eps, scale, ecum,
+                                                   r_sq, block_d=bd),
+        "l2_scan": lambda: l2_scan_kernel_call(q_rot, c_rot, block_d=bd),
+    }
+    ms = {}
+    for name, fn in calls.items():
+        fn()  # warm
+        ms[name], out = cuda_ms(fn, 5)
+        del out
+        torch.cuda.empty_cache()
+    library_ms, _ = cuda_ms(lambda: torch.cdist(
+        q_rot, c_rot, compute_mode="use_mm_for_euclid_dist").square_(), 3)
+    log("library: dade_dco and quant_dco null — no single PyTorch call computes a "
+        "checkpointed early-exit screen; l2_scan against torch.cdist "
+        "(use_mm_for_euclid_dist, TF32 off) squared")
+
+    # ---- 11. the flat index ----
+    res = {}
+    for name, kw in (("fp32", {}), ("use_quant", {"use_quant": True})):
+        t0 = time.perf_counter()
+        out = search_flat(idx, queries, k=k, wave=svc.wave, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        ids = out.ids.cpu().numpy()
+        rec = sum(len(set(ids[i]) & set(gt[i].tolist())) for i in range(qn)) / (qn * k)
+        res[name] = out
+        log(f"flat index: search_flat {name} k={k} wave={svc.wave} recall@{k}={rec:.4f} "
+            f"avg_dims={float(out.avg_dims):.3f} in {wall:.2f}s")
+        check(tuple(out.ids.shape) == (qn, k) and bool(torch.isfinite(out.dists).all()),
+              f"search_flat {name} output malformed")
+        check(rec >= 0.95, f"search_flat {name} recall@{k} {rec} < 0.95")
+    check(torch.equal(res["fp32"].ids, res["use_quant"].ids),
+          "search_flat fp32 and use_quant return different ids")
+
+    entries = []
+    for name in ("dade_dco", "quant_dco", "l2_scan"):
+        ops_s, bytes_s = bounds[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": {"dade_dco": "src/repro/kernels/dade_dco.py:148",
+                         "quant_dco": "src/repro/kernels/quant_dco.py:160",
+                         "l2_scan": "src/repro/kernels/l2_scan.py:62"}[name],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": library_ms if name == "l2_scan" else None,
+        })
+        e = entries[-1]
+        log(f"kernels: {name} launches={e['launches']} max_abs_err={e['max_abs_err']:.3e} "
+            f"ms={e['ms']:.3f} plain_ms={e['plain_ms']:.1f} bound_ms={e['bound_ms']:.4f} "
+            f"({e['bound_by']}) library_ms={e['library_ms']} on {card}")
+    log(f"flat screen: pass_rate={screen_stats[0]:.6f} dims_frac={screen_stats[1]:.4f} "
+        f"tile_work_frac={screen_stats[2]:.4f} prune_rate={screen_stats[3]:.6f}; "
+        f"phases 9-11 took {time.perf_counter() - t_start:.0f}s")
+    return entries
+
+
 def build_kernels() -> None:
-    """Phase 1: both kernels built at once, one nvcc each."""
-    from repro_torch.kernels import graph_scan, ivf_scan
+    """Phase 1: the five kernels built at once, one nvcc each."""
+    from repro_torch.kernels import dade_dco, graph_scan, ivf_scan, l2_scan, quant_dco
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        jobs = [(m.__name__.rsplit(".", 1)[1], pool.submit(m.build))
-                for m in (ivf_scan, graph_scan)]
+    mods = (ivf_scan, graph_scan, dade_dco, quant_dco, l2_scan)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        jobs = [(m.__name__.rsplit(".", 1)[1], pool.submit(m.build)) for m in mods]
         for name, job in jobs:
             lib, ptxas = job.result()
             res = [ln.strip() for ln in ptxas.splitlines()
                    if "registers" in ln or "spill" in ln]
             log(f"build: ok {name} {lib.name}; ptxas: {' | '.join(res)}")
-    log(f"build: both kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"build: all {len(mods)} kernels in {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -663,8 +949,9 @@ def main() -> int:
     ivf = run(CONFIG, n_clusters=1024, n_queries=1024, slice_rows=65536,
               slice_queries=64, card=card)
     graph = run_graph(card)
-    log(f"phases 2-8 took {time.perf_counter() - t0:.0f}s")
-    log(json.dumps({"kernels": [ivf, graph]}))
+    flat = run_flat(CONFIG, card)
+    log(f"phases 2-11 took {time.perf_counter() - t0:.0f}s")
+    log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,12 +16,13 @@ from repro_torch._device import resolve_device
 from repro_torch.core.calibration import EpsilonTable
 from repro_torch.core.estimators import Estimator
 from repro_torch.core.transforms import OrthogonalTransform
+from repro_torch.index.flat import FlatIndex
 from repro_torch.index.graph import GraphIndex
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.quant.scalar import QuantConfig
 
 __all__ = ["transform_from_arrays", "table_from_arrays", "estimator_from_arrays",
-           "ivf_from_arrays", "graph_from_arrays"]
+           "flat_from_arrays", "ivf_from_arrays", "graph_from_arrays"]
 
 
 def _t(x, dev, dtype=None) -> torch.Tensor:
@@ -51,6 +52,18 @@ def estimator_from_arrays(method: str, transform: dict, table: dict, *,
                      transform=transform_from_arrays(**transform, device=device),
                      table=table_from_arrays(**table, device=device),
                      quant=QuantConfig() if quant else None)
+
+
+def flat_from_arrays(estimator: Estimator, corpus_rot, corpus, corpus_q=None,
+                     qscales=None, device="cuda") -> FlatIndex:
+    """The reference's ``FlatIndex`` arrays (the int8 mirror optional) as
+    the port's index."""
+    dev = resolve_device(device)
+    return FlatIndex(
+        estimator=estimator, corpus_rot=_t(corpus_rot, dev, torch.float32),
+        corpus=_t(corpus, dev, torch.float32),
+        corpus_q=None if corpus_q is None else _t(corpus_q, dev, torch.int8),
+        qscales=None if qscales is None else _t(qscales, dev, torch.float32))
 
 
 def ivf_from_arrays(estimator: Estimator, *, centroids, bucket_sizes, starts,

@@ -1,13 +1,13 @@
-"""Public wrappers around the fused scans (port of the IVF and graph parts
-of ``repro.kernels.ops``).
+"""Public wrappers around the kernels (port of ``repro.kernels.ops``).
 
 Handles padding to tile boundaries, table resampling to the kernel's
 block-checkpoint schedule, per-(query, block) int8 query quantization, the
 row→tile offset table of the IVF scan and the visited bitmap of the graph
-wave.  A scan runs where its tensors live: on a CUDA tensor the
-hand-written kernel (``ivf_scan.ivf_scan_kernel_call``,
-``graph_scan.graph_scan_kernel_call``) launches, on a CPU tensor its plain
-oracle (``ref.ivf_scan_ref``, ``ref.graph_scan_ref``) runs.
+wave.  A kernel runs where its tensors live: on a CUDA tensor the
+hand-written kernel (``dade_dco``, ``quant_dco``, ``ivf_scan``,
+``graph_scan``) launches, on a CPU tensor its plain oracle in ``ref``
+runs; ``use_ref=True`` asks the flat screens for the plain oracle on
+either device.
 
 Shape contract: offset tables use sentinel ``-1`` for steps that must ship
 nothing; every non-negative offset stays inside the flat layout's tile
@@ -22,11 +22,15 @@ import torch
 from repro_torch.core.calibration import EpsilonTable
 from repro_torch.core.estimators import Estimator, blocked_schedule, kernel_spec
 from repro_torch.kernels import graph_scan
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.dade_dco import dade_dco_kernel_call
 from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
-from repro_torch.quant.scalar import quantize_queries_block
+from repro_torch.kernels.quant_dco import quant_dco_kernel_call
+from repro_torch.kernels.tiles import sqrt_rn
+from repro_torch.quant.scalar import cum_err_sq, quantize_queries_block
 
 __all__ = [
-    "ivf_scan_kernel", "ivf_scan_inputs", "ivf_cap_tiles", "build_window_offsets",
+    "dco_screen_kernel", "quant_screen_kernel", "ivf_scan_kernel", "ivf_scan_inputs", "ivf_cap_tiles", "build_window_offsets",
     "block_table", "fused_fetch_totals", "graph_vis_words", "unpack_vis",
     "graph_scan_inputs", "graph_scan_kernel",
 ]
@@ -82,6 +86,85 @@ def _pad_axis(x: torch.Tensor, axis: int, to: int, value) -> torch.Tensor:
     shape[axis] = rem
     return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)],
                      dim=axis)
+
+
+_PAD_SENTINEL = 1e18  # huge-but-finite: pad rows prune at the first block
+
+
+def dco_screen_kernel(
+    estimator: Estimator,
+    q_rot: torch.Tensor,  # (Q, D) rotated queries
+    cands_rot: torch.Tensor,  # (N, D) rotated candidates
+    r_sq: torch.Tensor,  # (Q,)
+    *,
+    block_q: int = 128,
+    block_c: int = 128,
+    block_d: int = 128,
+    use_ref: bool = False,
+):
+    """Public entry of the fp32 DCO screen: pads, resamples the table onto
+    the ``block_d`` checkpoints and runs ``dade_dco_kernel_call`` (or, with
+    ``use_ref``, its plain version).  Returns (est_sq (Q, N) f32, passed
+    (Q, N) bool, dims_used (Q, N) int32), cropped to the caller's shapes.
+    """
+    qn, dim = q_rot.shape
+    n = cands_rot.shape[0]
+    dev = cands_rot.device
+    spec = kernel_spec(estimator, dim, block_d)
+    eps, scale = spec.eps.to(dev), spec.scale.to(dev)
+    q = _pad_axis(q_rot.to(dev).float(), 1, block_d, 0.0)
+    c = _pad_axis(cands_rot.float(), 1, block_d, 0.0)
+    q = _pad_axis(q, 0, block_q, 0.0)
+    c = _pad_axis(c, 0, block_c, _PAD_SENTINEL)
+    r = _pad_axis(r_sq.to(dev).float(), 0, block_q, 0.0)
+    if use_ref:
+        est_sq, passed, dims = _ref.dade_dco_ref(q, c, eps, scale, r, block_d=block_d)
+    else:
+        est_sq, passed, dims = dade_dco_kernel_call(
+            q, c, eps, scale, r, block_q=block_q, block_c=block_c, block_d=block_d)
+    return est_sq[:qn, :n], passed[:qn, :n].bool(), dims[:qn, :n]
+
+
+def quant_screen_kernel(
+    estimator: Estimator,
+    q_rot: torch.Tensor,  # (Q, D) rotated fp32 queries
+    codes: torch.Tensor,  # (N, D) int8 corpus codes
+    scales: torch.Tensor,  # (D,) per-dimension quantization scales
+    r_sq: torch.Tensor,  # (Q,)
+    *,
+    block_q: int = 128,
+    block_c: int = 128,
+    block_d: int = 128,
+    slack: float = 1e-4,
+    use_ref: bool = False,
+):
+    """Public entry of the int8 lower-bound prefilter: pads, resamples the
+    table, derives the cumulative error band E(d) from the scales and runs
+    ``quant_dco_kernel_call`` (or, with ``use_ref``, its plain version).
+    Returns (lb_sq (Q, N) f32, pruned (Q, N) bool, lb_dims (Q, N) int32),
+    cropped.  Padded dimensions carry zero codes and zero scales, so they
+    add nothing to the distance or the band; pad rows are zero codes.
+    """
+    qn, dim = q_rot.shape
+    n = codes.shape[0]
+    dev = codes.device
+    spec = kernel_spec(estimator, dim, block_d)
+    eps, scale = spec.eps.to(dev), spec.scale.to(dev)
+    sc = _pad_axis(scales.to(dev).float(), 0, block_d, 0.0)
+    ecum = sqrt_rn(cum_err_sq(sc, (torch.arange(spec.s_steps, device=dev) + 1) * block_d))
+    q = _pad_axis(q_rot.to(dev).float(), 1, block_d, 0.0)
+    q = _pad_axis(q, 0, block_q, 0.0)
+    c = _pad_axis(codes, 1, block_d, 0)
+    c = _pad_axis(c, 0, block_c, 0)
+    r = _pad_axis(r_sq.to(dev).float(), 0, block_q, 0.0)
+    if use_ref:
+        lb_sq, pruned, lb_dims = _ref.quant_dco_ref(
+            q, c, sc, eps, scale, ecum, r, block_d=block_d, slack=slack)
+    else:
+        lb_sq, pruned, lb_dims = quant_dco_kernel_call(
+            q, c, sc, eps, scale, ecum, r, block_q=block_q, block_c=block_c,
+            block_d=block_d, slack=slack)
+    return lb_sq[:qn, :n], pruned[:qn, :n].bool(), lb_dims[:qn, :n]
 
 
 def ivf_scan_inputs(

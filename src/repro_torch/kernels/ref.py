@@ -1,9 +1,18 @@
-"""Plain-PyTorch oracles of the fused scans (ports of
-``repro.kernels.ref.ivf_scan_ref`` and ``graph_scan_ref``) — the plain
-versions of the CUDA kernels in ``csrc/ivf_scan.cu`` and
-``csrc/graph_scan.cu``.
+"""Plain-PyTorch oracles of the CUDA kernels: the flat DCO screens
+``dade_dco_ref``, ``quant_dco_ref`` and ``l2_scan_ref`` (ports of
+``repro.kernels.ref.dade_dco_ref``/``quant_dco_ref`` and of the l2 scan's
+contract) for ``csrc/dade_dco.cu``, ``csrc/quant_dco.cu`` and
+``csrc/l2_scan.cu``, and the fused scans ``ivf_scan_ref`` and
+``graph_scan_ref`` (ports of ``repro.kernels.ref``'s) for
+``csrc/ivf_scan.cu`` and ``csrc/graph_scan.cu``.
 
-Both replay the kernels' shared walk (``csrc/scan_walk.cuh``) with the
+The flat screens walk the dimension blocks in order over all (Q, N) pairs
+at once, with ``tiles.mxu_block_sq``'s per-dimension sums: a pair retires
+at its first rejecting checkpoint (or the last one), which is the value the
+kernel's tile-granular early exit leaves, so kernel and plain version agree
+bit for bit whatever tile the kernel runs.
+
+The fused scans replay the kernels' shared walk (``csrc/scan_walk.cuh``) with the
 helpers of ``tiles.py`` and model its memory behaviour exactly:
 
   * steps with offset -1 are skipped (no fetch, no screen, no stats);
@@ -29,10 +38,92 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.tiles import (
-    dup_mask, merge_topk_tile, stage1_tile, stage2_tile,
+    dade_threshold, dup_mask, lb_penalized, merge_topk_tile, mxu_block_sq,
+    stage1_tile, stage2_tile,
 )
 
-__all__ = ["ivf_scan_ref", "graph_scan_ref", "STATS_COLS"]
+__all__ = ["dade_dco_ref", "quant_dco_ref", "l2_scan_ref", "ivf_scan_ref",
+           "graph_scan_ref", "STATS_COLS"]
+
+
+def _blocks(q, c, s_count, block_d):
+    """Yield ``(s, block_sq (Q, N))`` for the dimension blocks in order."""
+    dim = q.shape[1]
+    if dim % block_d or (s_count is not None and s_count != dim // block_d):
+        raise ValueError(f"D={dim} must be {s_count} blocks of {block_d}")
+    for s in range(dim // block_d):
+        sl = slice(s * block_d, (s + 1) * block_d)
+        yield s, mxu_block_sq(q[:, sl].float(), c[:, sl].float())
+
+
+def dade_dco_ref(q_rot, cands_rot, eps, scale, r_sq, *, block_d: int = 128):
+    """Algorithm 1 as a blocked fp32 screen of every (query, candidate) pair.
+
+    A pair retires rejected at the first non-final checkpoint where
+    ``psum·scale_s > (1+eps_s)²r²``, else exact at the last one.  Returns
+    (est_sq (Q, N) f32 at retirement, passed (Q, N) int32 = never rejected
+    and est <= r², dims_used (Q, N) int32)."""
+    s_count = eps.shape[0]
+    rsq = r_sq.float()[:, None]
+    shape = (q_rot.shape[0], cands_rot.shape[0])
+    dev = q_rot.device
+    psum = torch.zeros(shape, dtype=torch.float32, device=dev)
+    active = torch.ones(shape, dtype=torch.bool, device=dev)
+    est = torch.zeros(shape, dtype=torch.float32, device=dev)
+    dims = torch.zeros(shape, dtype=torch.int32, device=dev)
+    for s, bsq in _blocks(q_rot, cands_rot, s_count, block_d):
+        psum = psum + bsq
+        e = psum * scale[s]
+        if s == s_count - 1:  # the exact terminal retire: no rejection
+            retire = active
+        else:
+            retire = active & (e > dade_threshold(eps[s], rsq))
+        est = torch.where(retire, e, est)
+        dims = torch.where(retire, (s + 1) * block_d, dims)
+        active = active & ~retire
+    passed = (dims == s_count * block_d) & (est <= rsq)
+    return est, passed.to(torch.int32), dims
+
+
+def quant_dco_ref(q_rot, codes, scales, eps, scale, ecum, r_sq, *,
+                  block_d: int = 128, slack: float = 1e-4):
+    """The int8 lower-bound prefilter over per-dimension codes.
+
+    Codes dequantize as ``code·scales[d]``; a pair retires pruned at the
+    first checkpoint, the last included, where ``lb_penalized(psum,
+    ecum_s, scale_s) > (1+eps_s)²r²``.  Returns (lb_sq (Q, N) f32 at
+    retirement, pruned (Q, N) int32, lb_dims (Q, N) int32)."""
+    s_count = eps.shape[0]
+    rsq = r_sq.float()[:, None]
+    cf = codes.float() * scales.float()[None, :]
+    shape = (q_rot.shape[0], codes.shape[0])
+    dev = q_rot.device
+    psum = torch.zeros(shape, dtype=torch.float32, device=dev)
+    active = torch.ones(shape, dtype=torch.bool, device=dev)
+    pruned = torch.zeros(shape, dtype=torch.bool, device=dev)
+    lb = torch.zeros(shape, dtype=torch.float32, device=dev)
+    dims = torch.zeros(shape, dtype=torch.int32, device=dev)
+    for s, bsq in _blocks(q_rot, cf, s_count, block_d):
+        psum = psum + bsq
+        e = lb_penalized(psum, ecum[s], scale[s], slack=slack)
+        reject = active & (e > dade_threshold(eps[s], rsq))
+        retire = active if s == s_count - 1 else reject
+        lb = torch.where(retire, e, lb)
+        dims = torch.where(retire, (s + 1) * block_d, dims)
+        pruned = pruned | reject
+        active = active & ~retire
+    return lb, pruned.to(torch.int32), dims
+
+
+def l2_scan_ref(q_rot, cands_rot, *, block_d: int = 128):
+    """Exact squared L2 distances (Q, N) f32 over the full D: the sum over
+    dimension blocks of ``max(qn + cn - 2 q·cᵀ, 0)``."""
+    out = torch.zeros((q_rot.shape[0], cands_rot.shape[0]), dtype=torch.float32,
+                      device=q_rot.device)
+    for _, bsq in _blocks(q_rot, cands_rot, None, block_d):
+        out = out + bsq
+    return out
+
 
 # stats columns: semantic dims-consumed accounting (0-3) + fetch counters
 # (4-5, tile-level, broadcast to every query row of the tile).

@@ -1,8 +1,9 @@
 """Symmetric int8 scalar quantization of the *rotated* corpus (port of the
-parts of ``repro.quant.scalar`` the fused scan uses).
+parts of ``repro.quant.scalar`` the fused scans and the flat screen use).
 
 Per-dimension scales (``fit_scales``/``quantize``, ``quantize_corpus``)
-feed the threshold seeds;
+feed the threshold seeds and the flat int8 prefilter, whose sound lower
+bound is ``lower_bound_sq`` over the cumulative band ``cum_err_sq``;
 per-BLOCK scales (one per ``block_d`` contiguous dims) feed the fused
 kernel's int8×int8 stage 1: within a block the dequantize is one scalar, so
 ``q'·o' = t_b·s_b·(qc·oc)`` with ``qc·oc`` accumulated in int32.  In-corpus
@@ -16,8 +17,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.tiles import sqrt_rn
+
 __all__ = ["QuantConfig", "QuantizedCorpus", "fit_scales", "quantize",
-           "quantize_corpus", "wants_quant", "fit_block_scales",
+           "quantize_corpus", "dequantize", "cum_err_sq", "lower_bound_sq",
+           "upper_bound_sq", "wants_quant", "fit_block_scales",
            "quantize_block", "block_err_cum", "quantize_queries_block",
            "DEFAULT_SLACK"]
 
@@ -67,6 +71,9 @@ class QuantizedCorpus:
     codes: torch.Tensor
     scales: torch.Tensor
 
+    def dequantize(self) -> torch.Tensor:
+        return dequantize(self.codes, self.scales)
+
 
 def quantize_corpus(rot_corpus: torch.Tensor,
                     scales: torch.Tensor | None = None) -> QuantizedCorpus:
@@ -74,6 +81,35 @@ def quantize_corpus(rot_corpus: torch.Tensor,
     if scales is None:
         scales = fit_scales(rot_corpus)
     return QuantizedCorpus(codes=quantize(rot_corpus, scales), scales=scales)
+
+
+def dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    return codes.float() * scales.float()
+
+
+def cum_err_sq(scales: torch.Tensor, dims) -> torch.Tensor:
+    """E(d)^2 = sum_{j < d} (s_j/2)^2 at each checkpoint in ``dims``
+    (1-indexed dimension counts, as in ``EpsilonTable.dims``)."""
+    h = scales.float() * 0.5
+    e2 = torch.cumsum(h * h, dim=0)
+    return e2[torch.as_tensor(dims, device=e2.device).long() - 1]
+
+
+def lower_bound_sq(dq_psum: torch.Tensor, ecum_sq, *,
+                   slack: float = DEFAULT_SLACK) -> torch.Tensor:
+    """Sound lower bound ``max(0, sqrt(dq_psum) - E(d))^2 (1 - slack)`` on
+    the true partial squared distance (``dq_psum`` over dequantized rows,
+    ``ecum_sq`` = E(d)^2 broadcastable against it)."""
+    root = sqrt_rn(torch.clamp_min(dq_psum, 0.0)) - sqrt_rn(torch.as_tensor(ecum_sq))
+    root = torch.clamp_min(root, 0.0)
+    return root * root * (1.0 - slack)
+
+
+def upper_bound_sq(dq_psum: torch.Tensor, ecum_sq) -> torch.Tensor:
+    """Matching upper bound ``(sqrt(dq_psum) + E(d))^2 (1 + slack)``; the
+    slack inflates, so fp32 round-off never shrinks it below the truth."""
+    root = sqrt_rn(torch.clamp_min(dq_psum, 0.0)) + sqrt_rn(torch.as_tensor(ecum_sq))
+    return root * root * (1.0 + DEFAULT_SLACK)
 
 
 def wants_quant(quant, estimator_quant) -> bool:

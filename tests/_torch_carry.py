@@ -17,6 +17,13 @@ def carry_estimator(est, device="cpu"):
         quant=est.quant is not None, device=device)
 
 
+def carry_flat(idx, device="cpu"):
+    opt = (lambda a: None if a is None else np.asarray(a))
+    return interop.flat_from_arrays(
+        carry_estimator(idx.estimator, device), np.asarray(idx.corpus_rot),
+        np.asarray(idx.corpus), opt(idx.corpus_q), opt(idx.qscales), device=device)
+
+
 def carry_ivf(idx, device="cpu"):
     return interop.ivf_from_arrays(
         carry_estimator(idx.estimator, device),

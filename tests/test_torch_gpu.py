@@ -1,6 +1,7 @@
-"""The CUDA ``ivf_scan`` and ``graph_scan`` kernels against their plain
-PyTorch versions on the card, and the repeatability of an IVF build there
-(needs no JAX, so it runs where only the port is installed).
+"""The CUDA ``ivf_scan``, ``graph_scan``, ``dade_dco``, ``quant_dco`` and
+``l2_scan`` kernels against their plain PyTorch versions on the card, and
+the repeatability of an IVF build there (needs no JAX, so it runs where
+only the port is installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
 false, since a CUDA kernel has no CPU mode.  On the card:
@@ -130,3 +131,66 @@ def test_kmeans_build_repeats_on_the_card():
     a, b = (build_ivf(data, n_clusters=64, delta_d=16, device="cuda") for _ in range(2))
     assert torch.equal(a.centroids, b.centroids)
     assert torch.equal(a.flat_ids, b.flat_ids) and torch.equal(a.starts, b.starts)
+
+
+def _screen_case(seed, dim, n, qn, block_d, method):
+    from repro_torch.core.estimators import build_estimator
+    from repro_torch.quant.scalar import quantize_corpus
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scales = torch.exp(-0.03 * torch.arange(dim, device="cuda"))
+    data = torch.randn((2048, dim), generator=g, device="cuda") * scales
+    est = build_estimator(method, data, delta_d=32, device="cuda")
+    c = est.rotate(data[:n])
+    q = est.rotate(data[:qn] + 0.3 * torch.randn((qn, dim), generator=g, device="cuda") * scales)
+    r_sq = torch.quantile(torch.cdist(q, c) ** 2, 0.05, dim=1)
+    r_sq[0], r_sq[1] = 0.0, 1e30
+    return est, q, c, quantize_corpus(c), r_sq
+
+
+def _bitwise(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype.is_floating_point:
+        return torch.equal(torch.isinf(a), torch.isinf(b)) and torch.equal(
+            a[torch.isfinite(b)], b[torch.isfinite(b)])
+    return torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,n,qn,block_d,method", [
+    (64, 300, 20, 32, "dade"), (200, 333, 17, 64, "adsampling"),
+    (384, 150, 5, 128, "fdscanning"), (256, 1000, 40, 64, "dade")])
+def test_cuda_screen_kernels_match_plain_versions(dim, n, qn, block_d, method):
+    """dade_dco, quant_dco and l2_scan, each bit for bit against its plain
+    version on the same padded inputs (ragged tiles, pad rows at 1e18 whose
+    sums overflow to inf at D = 384, r² = 0 and 1e30, disabled
+    checkpoints)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flat screen kernels have no CPU mode")
+    from repro_torch.kernels import ops as k_ops
+    from repro_torch.kernels.dade_dco import dade_dco_kernel_call
+    from repro_torch.kernels.l2_scan import l2_scan_kernel_call
+    from repro_torch.kernels.quant_dco import quant_dco_kernel_call
+    from repro_torch.kernels.ref import l2_scan_ref
+
+    est, q, c, qc, r_sq = _screen_case(dim, dim, n, qn, block_d, method)
+    kw = dict(block_q=8, block_c=128, block_d=block_d)
+    before = (dade_dco_kernel_call.launches, quant_dco_kernel_call.launches)
+    for bf16 in (False, True):
+        qq, cc = (q.bfloat16(), c.bfloat16()) if bf16 else (q, c)
+        out_k = k_ops.dco_screen_kernel(est, qq, cc, r_sq, **kw)
+        out_p = k_ops.dco_screen_kernel(est, qq, cc, r_sq, use_ref=True, **kw)
+        assert all(_bitwise(a, b) for a, b in zip(out_k, out_p))
+    out_k = k_ops.quant_screen_kernel(est, q, qc.codes, qc.scales, r_sq, **kw)
+    out_p = k_ops.quant_screen_kernel(est, q, qc.codes, qc.scales, r_sq, use_ref=True, **kw)
+    assert all(_bitwise(a, b) for a, b in zip(out_k, out_p))
+    assert bool(out_k[1].any()) and not bool(out_k[1].all())
+    pad = (-dim) % block_d
+    qp = torch.nn.functional.pad(q, (0, pad))
+    cp = torch.cat([torch.nn.functional.pad(c, (0, pad)),
+                    torch.full((7, dim + pad), 1e18, device="cuda")])
+    assert _bitwise(l2_scan_kernel_call(qp, cp, block_q=1, block_c=1, block_d=block_d),
+                    l2_scan_ref(qp, cp, block_d=block_d))
+    torch.cuda.synchronize()
+    assert (dade_dco_kernel_call.launches, quant_dco_kernel_call.launches) == (
+        before[0] + 2, before[1] + 1)

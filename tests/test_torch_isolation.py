@@ -19,10 +19,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.estimators import build_estimator  # noqa: E402
 from repro_torch.core.topk import exact_knn  # noqa: E402
 from repro_torch.core.transforms import fit_pca  # noqa: E402
+from repro_torch.index.flat import build_flat  # noqa: E402
 from repro_torch.index.graph import build_graph, search_graph_fused  # noqa: E402
 from repro_torch.index.ivf import build_ivf  # noqa: E402
 from repro_torch.index.kmeans import kmeans  # noqa: E402
-from repro_torch.kernels import graph_scan, ivf_scan, ops  # noqa: E402
+from repro_torch.kernels import _screen, graph_scan, ivf_scan, ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.annservice import build_graph_engine  # noqa: E402
 
@@ -48,7 +49,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.index.ivf, "
-            "repro_torch.index.graph, repro_torch.interop, repro_torch.kernels.ops; "
+            "repro_torch.index.graph, repro_torch.index.flat, repro_torch.interop, "
+            "repro_torch.kernels.ops, repro_torch.kernels.l2_scan, repro_torch.core.dco, "
+            "repro_torch.core.topk, repro_torch.quant.screen; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,6 +70,7 @@ ENTRY_POINTS = [
     (exact_knn, lambda d: exact_knn(d[:4], d, 2)),
     (kmeans, lambda d: kmeans(d, 4, 2)),
     (build_ivf, lambda d: build_ivf(d, n_clusters=4, delta_d=16)),
+    (build_flat, lambda d: build_flat(d, delta_d=16)),
     (build_graph, lambda d: build_graph(d, m=4, ef_construction=8, delta_d=16)),
     (search_graph_fused, lambda d: search_graph_fused(_cpu_graph(d), d)),
     (build_graph_engine, lambda d: build_graph_engine(_cpu_graph(d), k=2)),
@@ -144,3 +148,8 @@ def test_gpu_kernel_build_is_lazy():
 def test_graph_scan_build_is_lazy():
     """Importing the graph kernel's module builds and loads nothing."""
     assert graph_scan._lib.cache_info().currsize == 0 or torch.cuda.is_available()
+
+
+def test_screen_kernel_builds_are_lazy():
+    """Importing the flat screen kernels' modules builds and loads nothing."""
+    assert _screen._lib.cache_info().currsize == 0 or torch.cuda.is_available()
