@@ -8,18 +8,25 @@ width of the ``dade_ivf`` workload and fails (nonzero exit, no result line)
 on any fault.  Phases, one line each:
 
   1. build: ``nvcc`` builds the five kernels (ivf_scan, graph_scan,
-     dade_dco, quant_dco, l2_scan) from ``csrc/``, all at once; the card's
-     name and power limit as ``nvidia-smi`` reports them;
+     dade_dco, quant_dco, l2_scan) and ivf_scan's timing build from
+     ``csrc/``, all at once; the card's name and power limit as
+     ``nvidia-smi`` reports them;
   2. parity: ivf_scan against its plain PyTorch version on identical
-     inputs — awkward small shapes and one full-width slice;
+     inputs — awkward small shapes at both query-tile widths (8, 16),
+     split into 2 and 8 segments, and one full-width slice unsplit and
+     split as served;
   3. ivf: ``build_ivf`` (twice: the two builds must be identical) +
      ``search_ivf_fused`` on a 2^20 x 256 corpus, the kernel held against
      the plain version on the search's own inputs;
   4. serve: the flat serving route (``repro_torch.launch.serve``) at the
-     ``dade_ivf`` configuration, 3 requests, recall@100 >= 0.95;
-  5. ivf_scan at the serving shape: time beside its bound, the plain
-     version's time (its output held against the kernel's at that shape)
-     and one library call's time;
+     ``dade_ivf`` configuration, 3 requests, recall@100 >= 0.95, with one
+     shard and then (the main path) with the served shard count;
+  5. ivf_scan at the serving shape as served: time beside its bound, the
+     plain version's time (its output held against the kernel's at that
+     shape) and one library call's time; then the design alternatives of
+     phase 5b: every (query-tile width, segments) pair timed in this run with its fetched bytes, slabs and recall per query, and the
+     phase clocks of the timing build at the one-walk 8-query configuration
+     and at the served one;
   6. graph parity: graph_scan against its plain version on awkward waves
      (EF 1/48/128, both threshold columns, frozen r², bf16 rows, Δd 32/64,
      -1 gaps with repeats across them, vis_base != 0, bit 31 set);
@@ -44,14 +51,15 @@ on any fault.  Phases, one line each:
      ``l2_scan_kernel_call`` once each: l2's top-100 is the exact top-100,
      the fp32 screen passes >= 0.95 of it, the int8 prefilter prunes no
      row inside r² and nothing the fp32 screen passes; each kernel timed
-     beside its bound, its plain version and (l2_scan) ``torch.cdist``;
+     beside its bound, its plain version and (l2_scan) ``torch.cdist``,
+     timed in the same run;
  11. the flat index: ``search_flat`` (k = 100, wave 8192), fp32 and
      ``use_quant``, recall@100 >= 0.95 and the same ids from both.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
-paths (phases 3-4 for ivf_scan, 7-8 for graph_scan, 10 for the flat
-screens), its worst deviation from the plain version, its time, bound,
-plain time and library time.
+paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan, 10
+for the flat screens), its worst deviation from the plain version, its
+time, bound, plain time and library time.
 
 Kernel parity rule: the top-K ids, the squared distances, every stats
 counter, the visited bitmap and every screen output (estimates, flags,
@@ -79,6 +87,10 @@ DEV = "cuda"
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# l2_scan's time at 1024 x 2^20 x 256 before its register-tiled body: the
+# 16 x 128 screen skeleton's no-screen mode, in this script's final run on
+# the commit that shipped it.
+L2_SCAN_BEFORE_MS = 43.503
 
 
 def log(msg: str) -> None:
@@ -111,13 +123,13 @@ def cuda_ms(fn, reps: int):
     return statistics.median(times), out
 
 
-def compare(name, args, kw):
-    """Kernel vs plain version on identical inputs; see :func:`agree`."""
-    from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call
-    from repro_torch.kernels.ref import ivf_scan_ref
+def compare(name, args, kw, **how):
+    """Kernel vs plain version on identical inputs, walked as ``how`` says
+    (``segments``); see :func:`agree`."""
+    from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call, ivf_scan_plain
 
-    out_k = ivf_scan_kernel_call(*args, **kw)
-    out_p = ivf_scan_ref(*args, **kw)
+    out_k = ivf_scan_kernel_call(*args, **kw, **how)
+    out_p = ivf_scan_plain(*args, **kw, segments=how.get("segments", 1))
     sync()
     return agree(name, out_k, out_p, kw["block_q"])
 
@@ -215,14 +227,15 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     from repro_torch.data.pipeline import synthetic_queries
     from repro_torch.index.ivf import build_ivf, fused_search_inputs, search_ivf_fused
     from repro_torch.kernels import ivf_scan
-    from repro_torch.kernels.ref import ivf_scan_ref
     from repro_torch.launch import serve
-    from repro_torch.launch.annservice import fused_scan_inputs, seed_rsq
+    from repro_torch.launch.annservice import FUSED_BLOCK_Q, SHARDS, fused_scan_inputs, seed_rsq
 
     kernel = ivf_scan.ivf_scan_kernel_call
     t_start = time.perf_counter()
 
     # ---- 2. parity: kernel vs plain on identical inputs ----
+    # Both query-tile widths the kernel holds, and split walks (6 or 12 waves in 2 or 8 segments, some of them all
+    # gaps) from empty windows.
     max_err = 0.0
     cases = [
         ("k1", dict(seed=1, k=1)),
@@ -231,10 +244,20 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         ("k100_seeded_bf16", dict(seed=4, k=100, seeded=True, bf16=True)),
         ("k7_d128_bd32", dict(seed=5, k=7, dim=128, block_d=32)),
         ("k128_many_probes", dict(seed=6, k=128, n_rows=8192, probes=12)),
+        ("k100_bq16", dict(seed=7, k=100, block_q=16)),
+        ("k10_seeded_bf16_bq16", dict(seed=8, k=10, seeded=True, bf16=True, block_q=16)),
+        ("k128_many_probes_bq16", dict(seed=10, k=128, n_rows=8192, probes=12, block_q=16)),
+        ("k100_bf16_G2", dict(seed=11, k=100, bf16=True), dict(segments=2)),
+        ("k7_d128_bd32_bq16_G8", dict(seed=12, k=7, dim=128, block_d=32, block_q=16),
+         dict(segments=8)),
+        ("k128_many_probes_bq16_G2", dict(seed=13, k=128, n_rows=8192, probes=12,
+                                          block_q=16, bf16=True), dict(segments=2)),
+        ("k100_many_probes_G8", dict(seed=14, k=100, n_rows=8192, probes=12),
+         dict(segments=8)),
     ]
-    for name, kw in cases:
+    for name, kw, *how in cases:
         args, kkw = awkward_case(**kw)
-        max_err = max(max_err, compare(name, args, kkw))
+        max_err = max(max_err, compare(name, args, kkw, **(how[0] if how else {})))
 
     t0 = time.perf_counter()
     srv = serve.prepare_service(svc, "dade", DEV)
@@ -245,7 +268,9 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     r0 = seed_rsq(svc, rows_s, qs, srv.eps)
     args, kw = fused_scan_inputs(svc, rows_s, codes_s, srv.bscales, qs,
                                  srv.eps, srv.scale, r0)
-    max_err = max(max_err, compare(f"full_width_{slice_queries}x{slice_rows}", args, kw))
+    for g in dict.fromkeys([1, SHARDS]):
+        max_err = max(max_err, compare(f"full_width_{slice_queries}x{slice_rows}_G{g}",
+                                       args, kw, segments=g))
 
     # ---- 3. IVF search at full width ----
     t0 = time.perf_counter()
@@ -302,34 +327,45 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     del idx
 
     # ---- 4. serving route at the dade_ivf configuration ----
-    kernel.launches = 0
-    report = serve.main([
+    # The one-walk route first, for comparison; then the served shard count,
+    # whose launches are the main path's.
+    serve_argv = [
         "--device", DEV, "--requests", "3", "--corpus", str(svc.corpus_per_device),
         "--dim", str(svc.dim), "--k", str(svc.k), "--batch", str(svc.query_batch),
         "--wave", str(svc.wave), "--delta-d", str(svc.delta_d), "--dtype", svc.dtype,
-        "--p-s", str(svc.p_s)])
-    serve_launches = kernel.launches
-    check(serve_launches > 0, "the serving route launched no ivf_scan kernel")
-    check(report["recall"] >= 0.95, f"serving recall@{svc.k} {report['recall']} < 0.95")
-    log(f"serve: ok recall@{svc.k}={report['recall']:.4f} qps={report['qps']:.1f} "
-        f"launches={serve_launches}")
+        "--p-s", str(svc.p_s)]
+    for g in dict.fromkeys([1, SHARDS]):
+        kernel.launches = 0
+        report = serve.main(serve_argv + ["--shards", str(g)])
+        serve_launches = kernel.launches
+        check(serve_launches > 0, "the serving route launched no ivf_scan kernel")
+        check(report["recall"] >= 0.95, f"serving recall@{svc.k} {report['recall']} < 0.95")
+        log(f"serve: ok shards={g} recall@{svc.k}={report['recall']:.4f} "
+            f"qps={report['qps']:.1f} fetched_B_per_query="
+            f"{report['fetched_bytes_per_query']:.0f} launches={serve_launches}")
 
     # ---- 5. the kernel at the serving shape: time, bound, plain, library ----
-    qb = srv.prep(synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7))
+    q_raw = synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7)
+    qb = srv.prep(q_raw)
     r0 = seed_rsq(svc, srv.rows, qb, srv.eps)
     args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
                                  srv.eps, srv.scale, r0)
+    kw = dict(kw, segments=SHARDS)
     kernel(*args, **kw)  # warm
     ms, out_k = cuda_ms(lambda: kernel(*args, **kw), 5)
     st_k = out_k[2]
     t0 = time.perf_counter()
-    plain_ms, out_p = cuda_ms(lambda: ivf_scan_ref(*args, **kw), 1)
+    plain_ms, out_p = cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args, **kw), 1)
     log(f"plain: one call at the serving shape in {time.perf_counter() - t0:.1f}s")
     max_err = max(max_err, agree(f"serving_shape_{qb.shape[0]}x{srv.rows.shape[0]}",
                                  out_k, out_p, kw["block_q"]))
     del out_p
     a8, b8 = args[1], srv.codes
     library_ms, _ = cuda_ms(lambda: torch._int_mm(a8, b8.T), 3)
+    _, gt = exact_knn(q_raw, srv.corpus_t, svc.k, device=DEV)
+    design = scan_design(svc, srv, qb, gt, card, widths=ivf_scan.KERNEL_BLOCK_QS,
+                         segment_counts=(1, 2, 4, 8, 16), served=(FUSED_BLOCK_Q, SHARDS))
+    del design
 
     qn, n, dim = qb.shape[0], srv.rows.shape[0], svc.dim
     bq, bc, bd = kw["block_q"], kw["block_c"], kw["block_d"]
@@ -362,8 +398,73 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         f"serve={serve_launches}) max_abs_err={max_err:.3e} "
         f"ms={ms:.3f} plain_ms={plain_ms:.1f} bound_ms={entry['bound_ms']:.4f} "
         f"({entry['bound_by']}) library_ms(_int_mm {qn}x{n}x{dim})={library_ms:.3f} "
-        f"on {card}; phases 2-5 took {time.perf_counter() - t_start:.0f}s")
+        f"at block_q={bq} segments={SHARDS} on {card}; phases 2-5 took "
+        f"{time.perf_counter() - t_start:.0f}s")
     return entry
+
+
+def scan_design(svc, srv, qb, gt, card, *, widths, segment_counts, served) -> dict:
+    """Phase 5b: ``ivf_scan`` at the serving shape for each (block_q,
+    segments) alternative, in this run: its time, stage-2 slabs and
+    fetched bytes per query and recall@k; then the phase clocks (the timing
+    build, ``ivf_scan_phase_clocks``) of the one-walk, 8-query configuration
+    and of the served one ``served`` = (block_q, segments), each run's
+    outputs held against the served kernel's at the same configuration, bit
+    for bit."""
+    import torch
+    from repro_torch.kernels import ivf_scan
+    from repro_torch.launch.annservice import fused_scan_inputs, seed_rsq
+
+    kernel = ivf_scan.ivf_scan_kernel_call
+    r0 = seed_rsq(svc, srv.rows, qb, srv.eps)
+    args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
+                                 srv.eps, srv.scale, r0)
+    qn, d_pad = qb.shape
+    bc, bd = kw["block_c"], kw["block_d"]
+    gt_np = gt.cpu().numpy()
+
+    def inputs(bq):
+        # The flat route's step table is the same for every query tile.
+        return (args[0][:1].expand(qn // bq, -1, -1),) + args[1:], dict(kw, block_q=bq)
+
+    rows = {}
+    for bq in widths:
+        a, k = inputs(bq)
+        smem = ivf_scan.smem_bytes(dim=d_pad, block_d=bd, k=svc.k, block_q=bq,
+                                   row_bytes=srv.rows.element_size())
+        log(f"design: block_q={bq}: {smem} B of shared memory a CTA")
+        for g in segment_counts:
+            try_kw = dict(k, segments=g)
+            kernel(*a, **try_kw)  # warm
+            ms, out = cuda_ms(lambda: kernel(*a, **try_kw), 3)
+            st = out[2].double()
+            s1, s2 = float(st[::bq, 5].sum()), float(st[::bq, 4].sum())
+            fetched = (s1 * bc * (d_pad + 4)
+                       + s2 * bc * bd * srv.rows.element_size()) / qn
+            ids = out[1].cpu().numpy()
+            rec = sum(len(set(ids[i]) & set(gt_np[i])) for i in range(qn)) / gt_np.size
+            rows[(bq, g)] = dict(ms=ms, s2_slabs_per_query=s2 / qn,
+                                 fetched_bytes_per_query=fetched, recall=rec)
+            log(f"design: ivf_scan block_q={bq} segments={g}: "
+                f"ms={ms:.3f} s2_slabs_per_query={s2 / qn:.1f} "
+                f"fetched_B_per_query={fetched:.0f} recall@{svc.k}={rec:.4f} on {card}")
+    clocks = {}
+    for bq, g in dict.fromkeys([(8, 1), served]):
+        a, k = inputs(bq)
+        out_k = kernel(*a, segments=g, **k)
+        *out_c, clk = ivf_scan.ivf_scan_phase_clocks(*a, segments=g, **k)
+        sync()
+        agree(f"clocks_build_bq{bq}_G{g}", out_c, out_k, bq)
+        steps = -(-args[0].shape[1] // g) * args[0].shape[2]
+        cyc = clk.double()
+        total = float(cyc.sum())
+        per_step = float(cyc.sum(1).mean()) / steps
+        shares = {p: float(cyc[:, i].sum()) / total for i, p in enumerate(ivf_scan.PHASES)}
+        clocks[(bq, g)] = dict(cycles_per_step=per_step, steps_per_cta=steps, shares=shares)
+        log(f"clocks: block_q={bq} segments={g} {clk.shape[0]} CTAs x {steps} steps: "
+            f"{per_step:.0f} cycles/step; " + " ".join(
+                f"{p}={100 * v:.1f}%" for p, v in shares.items()))
+    return {"variants": rows, "clocks": clocks}
 
 
 def agree_graph(name, out_k, out_p, block_q):
@@ -861,11 +962,20 @@ def run_flat(svc, card: str) -> list:
         ms[name], out = cuda_ms(fn, 5)
         del out
         torch.cuda.empty_cache()
-    library_ms, _ = cuda_ms(lambda: torch.cdist(
-        q_rot, c_rot, compute_mode="use_mm_for_euclid_dist").square_(), 3)
+    cdist = lambda: torch.cdist(  # noqa: E731
+        q_rot, c_rot, compute_mode="use_mm_for_euclid_dist").square_()
+    cdist()  # warm
+    library_ms, out = cuda_ms(cdist, 5)
+    del out
+    torch.cuda.empty_cache()
     log("library: dade_dco and quant_dco null — no single PyTorch call computes a "
         "checkpointed early-exit screen; l2_scan against torch.cdist "
         "(use_mm_for_euclid_dist, TF32 off) squared")
+    log(f"l2_scan {qn}x{n}x{dim} (block_d {bd}): {ms['l2_scan']:.3f} ms against "
+        f"torch.cdist {library_ms:.3f} ms in this run "
+        f"({'faster' if ms['l2_scan'] < library_ms else 'SLOWER'}, "
+        f"{library_ms / ms['l2_scan']:.2f}x); the shared-skeleton kernel it replaced "
+        f"took {L2_SCAN_BEFORE_MS} ms on an NVIDIA H100 80GB HBM3 at 700.00 W")
 
     # ---- 11. the flat index ----
     res = {}
@@ -910,19 +1020,22 @@ def run_flat(svc, card: str) -> list:
 
 
 def build_kernels() -> None:
-    """Phase 1: the five kernels built at once, one nvcc each."""
+    """Phase 1: the five kernels and the scan's timing build built at once,
+    one nvcc each."""
     from repro_torch.kernels import dade_dco, graph_scan, ivf_scan, l2_scan, quant_dco
 
     t0 = time.perf_counter()
-    mods = (ivf_scan, graph_scan, dade_dco, quant_dco, l2_scan)
-    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
-        jobs = [(m.__name__.rsplit(".", 1)[1], pool.submit(m.build)) for m in mods]
+    builds = {"ivf_scan": ivf_scan.build, "ivf_scan_clocks": ivf_scan.build_clocks,
+              "graph_scan": graph_scan.build, "dade_dco": dade_dco.build,
+              "quant_dco": quant_dco.build, "l2_scan": l2_scan.build}
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        jobs = [(name, pool.submit(fn)) for name, fn in builds.items()]
         for name, job in jobs:
             lib, ptxas = job.result()
             res = [ln.strip() for ln in ptxas.splitlines()
                    if "registers" in ln or "spill" in ln]
             log(f"build: ok {name} {lib.name}; ptxas: {' | '.join(res)}")
-    log(f"build: all {len(mods)} kernels in {time.perf_counter() - t0:.1f}s")
+    log(f"build: all {len(builds)} libraries in {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:

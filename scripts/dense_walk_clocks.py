@@ -1,0 +1,240 @@
+#!/usr/bin/env python3
+"""Phase clocks of the dense fused-scan walk, beside the pair-list walk's.
+
+    mkdir -p build/dense_tree && git archive f95b08e | tar -x -C build/dense_tree
+    python3 scripts/dense_walk_clocks.py build/dense_tree
+
+Commit f95b08e holds the dense walk of ``csrc/scan_walk.cuh``: one CTA per
+8-query tile, in which every thread screens its share of all 8 x 128 pairs
+of a candidate tile at every step, whether or not they have retired.  The
+pair-list walk that replaced it keeps a timing build
+(``csrc/ivf_scan_clocks.cu``); the dense walk has none, so this script
+stamps the dense walk's phases with ``clock64()`` at the same boundaries
+(the tile wait, stage 1, the stage-1 votes, stage 2's slab round trips and
+products, the duplicate scan, the merge, the rest), builds it with the
+port's compiler flags into the ignored ``src/repro_torch/kernels/build/``,
+and runs it at the flat serving shape: the 1024 queries and the 2^20 x 256
+``dade_ivf`` corpus of ``chip_smoke.py``'s phase 5, one walk of 8-query
+tiles (128 CTAs x 8,192 steps).  Its output is held against the served
+kernel's at the same configuration, bit for bit, and then the pair-list
+walk's timing build runs at that configuration and as served.  Each run
+prints cycles per step and each phase's share of the cycles.  Needs one
+CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("tile_wait", "stage1", "votes", "slab_wait", "stage2", "dup_scan",
+          "merge", "other")
+
+_PHASE_CLOCK = """
+// Phase clocks: every thread reads clock64() at each boundary and adds the
+// cycles since its last stamp to that phase; thread 0's sums are stored.
+enum Phase { kTileWait, kStage1, kVotes, kSlabWait, kStage2, kDupScan, kMerge,
+             kOther, kPhases };
+struct PhaseClock {
+  long long sum[kPhases];
+  long long t;
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int p = 0; p < kPhases; ++p) sum[p] = 0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void lap(int p) {
+    const long long now = clock64();
+    sum[p] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void store(long long* out) const {
+    if (threadIdx.x == 0)
+      for (int p = 0; p < kPhases; ++p) out[static_cast<size_t>(blockIdx.x) * kPhases + p] = sum[p];
+  }
+};
+"""
+
+# (text of the dense walk, its stamped replacement); each text occurs once.
+_STAMPS = (
+    ("  float one_minus_slack;\n};\n",
+     "  float one_minus_slack;\n  long long* clocks;\n};\n" + _PHASE_CLOCK),
+    ("  if (a.steps > 0 && offs[0] >= 0) issue_tile<BC>(a, codes_buf, offs[0]);\n",
+     "  if (a.steps > 0 && offs[0] >= 0) issue_tile<BC>(a, codes_buf, offs[0]);\n"
+     "  PhaseClock clk;\n  clk.start();\n"),
+    ("    const int off = offs[step];\n",
+     "    clk.lap(kOther);\n    const int off = offs[step];\n"),
+    ("    last = resident;\n", "    clk.lap(kTileWait);\n    last = resident;\n"),
+    ("      nvalid_acc += __syncthreads_count(g == 0 && valid);\n",
+     "      clk.lap(kStage1);\n      nvalid_acc += __syncthreads_count(g == 0 && valid);\n"),
+    ("      const bool alive = __syncthreads_or(mine) != 0;\n",
+     "      const bool alive = __syncthreads_or(mine) != 0;\n      clk.lap(kVotes);\n"),
+    ("          if (!__syncthreads_or(need)) break;\n",
+     "          const bool any_need = __syncthreads_or(need) != 0;\n"
+     "          clk.lap(kSlabWait);\n          if (!any_need) break;\n"),
+    ("          ++slabs_acc;\n", "          clk.lap(kSlabWait);\n          ++slabs_acc;\n"),
+    ("              a2[j] = false;\n          }\n        }\n",
+     "              a2[j] = false;\n          }\n          clk.lap(kStage2);\n        }\n"),
+    ("          cand_s[r * BC + c] = v;\n        }\n",
+     "          cand_s[r * BC + c] = v;\n        }\n        clk.lap(kDupScan);\n"),
+    ("          window_sorted = true;\n          __syncthreads();\n        }\n",
+     "          window_sorted = true;\n          __syncthreads();\n        }\n"
+     "        clk.lap(kMerge);\n"),
+    ("    if (prefetched) cur = 1 - cur;\n  }\n",
+     "    if (prefetched) cur = 1 - cur;\n  }\n  clk.lap(kOther);\n  clk.store(a.clocks);\n"),
+)
+
+_LAUNCHER = r"""
+#include "scan_walk.cuh"
+
+namespace {
+__global__ void __launch_bounds__(dade::kThreads) dense_clocks_kernel(const dade::WalkArgs a) {
+  dade::scan_walk<128>(a);
+}
+}  // namespace
+
+extern "C" int dense_clocks_launch(
+    int device, const int* offs, const int8_t* qcodes, const float* q,
+    const float* qscales, const float* r0, const float* top0_sq,
+    const int* top0_ids, const int8_t* codes, const void* rows, int rows_bf16,
+    const int* ids, const float* bscales, const float* eps, const float* scale,
+    float* top_sq, int* top_ids, float* stats, long long* clocks, int q_tiles,
+    int steps, int D, int K, int BD, float one_minus_slack, void* stream) {
+  const dade::WalkArgs a{offs, qcodes, q, qscales, r0, top0_sq, top0_ids,
+                         codes, rows, ids, bscales, eps, scale, top_sq,
+                         top_ids, stats, nullptr, nullptr, steps, D, D / BD, K,
+                         BD, rows_bf16, K - 1, 1, 0, 0, one_minus_slack, clocks};
+  return dade::launch_walk<128>(dense_clocks_kernel, device, a, q_tiles, stream);
+}
+"""
+
+
+def stamp(walk: str) -> str:
+    """The dense walk's source with its phase stamps; raises if the source
+    is not the dense walk's (each anchor must occur exactly once)."""
+    for old, new in _STAMPS:
+        if walk.count(old) != 1:
+            raise SystemExit(f"dense_walk_clocks: anchor found {walk.count(old)} "
+                             f"times, need 1 (not the dense walk?):\n{old}")
+        walk = walk.replace(old, new)
+    return walk
+
+
+def build(tree: Path) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
+    out = _build.CSRC.parent / "build" / "dense_walk_clocks"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "scan_walk.cuh").write_text(stamp((csrc / "scan_walk.cuh").read_text()))
+    (out / "tiles.cuh").write_text((csrc / "tiles.cuh").read_text())
+    (out / "launch.cu").write_text(_LAUNCHER)
+    lib = out / "dense_walk_clocks.so"
+    cmd = [_build._nvcc("dense walk clocks"), *_build.NVCC_FLAGS, "-o", str(lib),
+           str(out / "launch.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise SystemExit(f"dense_walk_clocks: nvcc failed:\n{proc.stderr}")
+    print("build: " + " | ".join(ln.strip() for ln in proc.stderr.splitlines()
+                                 if "registers" in ln or "spill" in ln), flush=True)
+    dll = ctypes.CDLL(str(lib))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.dense_clocks_launch.argtypes = ([i] + [p] * 8 + [p, i] + [p] * 8 + [i] * 5
+                                        + [ctypes.c_float, p])
+    dll.dense_clocks_launch.restype = i
+    return dll
+
+
+def dense_walk(dll, args, *, k, block_d, slack=1e-4):
+    """The dense walk with clocks on the flat route's 8-query inputs: its
+    (top_sq, top_ids, stats) and the (q_tiles, 8) phase cycles."""
+    import torch
+
+    (tile_offs, qcodes, q, qscales, r0, top0_sq, top0_ids, codes, rows, ids,
+     bscales, eps, scale) = args
+    qn, dim = q.shape
+    q_tiles = qn // 8
+    offs = tile_offs.to(torch.int32).reshape(q_tiles, -1).contiguous()
+    ins = [t.contiguous() for t in (qcodes, q.float(), qscales.float(), r0.float(),
+                                    top0_sq.float(), top0_ids.to(torch.int32), codes)]
+    rows = rows.contiguous()
+    tail = [t.contiguous() for t in (ids.to(torch.int32), bscales.float(), eps.float(),
+                                     scale.float())]
+    top_sq = torch.empty((qn, k), dtype=torch.float32, device=q.device)
+    top_ids = torch.empty((qn, k), dtype=torch.int32, device=q.device)
+    stats = torch.empty((qn, 6), dtype=torch.float32, device=q.device)
+    clk = torch.zeros((q_tiles, len(PHASES)), dtype=torch.int64, device=q.device)
+    err = dll.dense_clocks_launch(
+        q.device.index or 0, offs.data_ptr(), *(t.data_ptr() for t in ins),
+        rows.data_ptr(), int(rows.dtype == torch.bfloat16), *(t.data_ptr() for t in tail),
+        top_sq.data_ptr(), top_ids.data_ptr(), stats.data_ptr(), clk.data_ptr(),
+        q_tiles, offs.shape[1], dim, k, block_d, float(1.0 - slack),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise SystemExit(f"dense_walk_clocks: launch failed: cudaError {err}")
+    return (top_sq, top_ids, stats), clk
+
+
+def report(name, clk, steps, phases):
+    cyc = clk.double()
+    total = float(cyc.sum())
+    per_step = float(cyc.sum(1).mean()) / steps
+    print(f"clocks: {name} {clk.shape[0]} CTAs x {steps} steps: {per_step:.0f} cycles/step; "
+          + " ".join(f"{p}={100 * float(cyc[:, i].sum()) / total:.1f}%"
+                     for i, p in enumerate(phases)), flush=True)
+
+
+def main() -> int:
+    import torch
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("dense_walk_clocks: no CUDA device", file=sys.stderr)
+        return 2
+    tree = Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs.dade_ivf import CONFIG as svc
+    from repro_torch.data.pipeline import synthetic_queries
+    from repro_torch.kernels import ivf_scan
+    from repro_torch.launch import serve
+    from repro_torch.launch.annservice import FUSED_BLOCK_Q, SHARDS, fused_scan_inputs, seed_rsq
+
+    dll = build(tree)
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    srv = serve.prepare_service(svc, "dade", "cuda")
+    # phase 5's queries: the same seed, the same r0
+    qb = srv.prep(synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7))
+    r0 = seed_rsq(svc, srv.rows, qb, srv.eps)
+    args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
+                                 srv.eps, srv.scale, r0)
+    qn = qb.shape[0]
+
+    def inputs(bq):
+        return (args[0][:1].expand(qn // bq, -1, -1),) + args[1:], dict(kw, block_q=bq)
+
+    a8, k8 = inputs(8)
+    waves, cap = args[0].shape[1], args[0].shape[2]
+    out_d, clk = dense_walk(dll, a8, k=k8["k"], block_d=k8["block_d"])
+    out_k = ivf_scan.ivf_scan_kernel_call(*a8, **k8)
+    torch.cuda.synchronize()
+    chip_smoke.agree("dense_walk_bq8_G1_vs_served_kernel", out_d, out_k, 8)
+    report("dense walk block_q=8 segments=1", clk, waves * cap, PHASES)
+    for bq, g in dict.fromkeys([(8, 1), (FUSED_BLOCK_Q, SHARDS)]):
+        a, k = inputs(bq)
+        *_, clk = ivf_scan.ivf_scan_phase_clocks(*a, segments=g, **k)
+        torch.cuda.synchronize()
+        report(f"pair-list walk block_q={bq} segments={g}", clk, -(-waves // g) * cap,
+               ivf_scan.PHASES)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

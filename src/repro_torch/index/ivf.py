@@ -42,7 +42,9 @@ __all__ = ["IVFIndex", "build_ivf", "search_ivf_fused", "fused_search_inputs",
 
 SENTINEL = 1e18  # huge-but-finite pad row value: prunes at the first block
 ALIGN = 128      # cluster starts sit on this row grid
-BLOCK_Q, BLOCK_C = KERNEL_TILE  # the fused search's (query, candidate) tile
+# The fused search's (query, candidate) tile: probes are routed per query
+# tile, so the width is part of the result; 8 is the reference's default.
+BLOCK_Q, BLOCK_C = 8, KERNEL_TILE[1]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,13 @@
 """Host side shared by the flat DCO screen kernels (``dade_dco``,
-``quant_dco``, ``l2_scan``): their build, ``ctypes`` binding and launch.
+``quant_dco``): their build, ``ctypes`` binding and launch, and the shape
+and device checks ``l2_scan`` shares with them.
 
-The three kernels are one skeleton (``csrc/dco_screen.cuh``) at three
-modes, each built from its own ``.cu`` file into its own library with the
-same C entry point ``<name>_launch``; pointers a mode does not read are
-passed as null.  A kernel takes any Q and N (it masks its ragged tiles) and
-needs ``D % block_d == 0``, ``block_d % 16 == 0`` (16-byte copies of f32
-rows and int8 codes) and 16-byte aligned rows.  Nothing here runs at import
+The two screens are one skeleton (``csrc/dco_screen.cuh``) at two modes,
+each built from its own ``.cu`` file into its own library with the same C
+entry point ``<name>_launch``; pointers a mode does not read are passed as
+null.  A kernel takes any Q and N (it masks its ragged tiles) and needs
+``D % block_d == 0``, ``block_d % 16 == 0`` (16-byte copies of f32 rows
+and int8 codes) and 16-byte aligned rows.  Nothing here runs at import
 time.
 """
 
@@ -53,16 +54,16 @@ def _lib(name: str) -> ctypes.CDLL:
 def launch(name: str, q: torch.Tensor, c: torch.Tensor, *, block_d: int,
            cscales=None, eps=None, scale=None, ecum=None, r_sq=None,
            slack: float = 0.0):
-    """Launch kernel ``name`` on CUDA tensors ``q`` (Q, D) f32 and ``c``
-    (N, D) f32 rows or int8 codes.  Returns ``(est, flag, dims)`` — (Q, N)
-    f32, int32, int32 — for the screens and ``(est,)`` for ``l2_scan``."""
+    """Launch screen ``name`` on CUDA tensors ``q`` (Q, D) f32 and ``c``
+    (N, D) f32 rows or int8 codes.  Returns ``(est, flag, dims)``: (Q, N)
+    f32, int32, int32."""
     qn, dim = q.shape
     n = c.shape[0]
     if dim % block_d or block_d % 16:
         raise ValueError(f"the CUDA kernel copies 16 bytes at a time: D={dim} "
                          f"must be a multiple of block_d={block_d}, itself a "
                          f"multiple of 16")
-    if qn > 65535 * KERNEL_TILE[0]:
+    if qn > 65535 * KERNEL_TILE[0]:  # gridDim.y counts the query tiles
         raise ValueError(f"{qn} queries exceed the grid's {65535 * KERNEL_TILE[0]}")
     lib = _lib(name)
     smem = getattr(lib, f"{name}_smem_bytes")(dim // block_d, block_d)
@@ -77,16 +78,15 @@ def launch(name: str, q: torch.Tensor, c: torch.Tensor, *, block_d: int,
         if t.data_ptr() % 16:
             raise ValueError(f"{name_} must be 16-byte aligned for cp.async")
     est = torch.empty((qn, n), dtype=torch.float32, device=dev)
-    screen = r_sq is not None
-    flag = torch.empty((qn, n), dtype=torch.int32, device=dev) if screen else None
-    dims = torch.empty((qn, n), dtype=torch.int32, device=dev) if screen else None
+    flag = torch.empty((qn, n), dtype=torch.int32, device=dev)
+    dims = torch.empty((qn, n), dtype=torch.int32, device=dev)
     ptr = [None if t is None else t.data_ptr() for t in ins + [est, flag, dims]]
     err = getattr(lib, f"{name}_launch")(
         dev.index or 0, *ptr, qn, n, dim, block_d, float(1.0 - slack),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return (est, flag, dims) if screen else (est,)
+    return est, flag, dims
 
 
 def check_padded(name: str, qn: int, n: int, dim: int, s_count: int | None, *,

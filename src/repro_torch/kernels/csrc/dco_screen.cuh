@@ -1,6 +1,6 @@
-// The flat DCO screen for Hopper (sm_90a): one skeleton, three kernels.
+// The flat DCO screen for Hopper (sm_90a): one skeleton, two kernels.
 //
-// dade_dco.cu, quant_dco.cu and l2_scan.cu instantiate screen_kernel<MODE>:
+// dade_dco.cu and quant_dco.cu instantiate screen_kernel<MODE>:
 //   kFp32Screen  Algorithm 1 over f32 rows: at a non-final checkpoint a pair
 //                retires rejected where psum·scale_s > (1+ε_s)²r²; the rest
 //                retire exact at the last block, passed = est <= r²
@@ -9,9 +9,7 @@
 //                codes dequantize as code·scale[d], and a pair retires
 //                pruned where lb_penalized(psum, E(d_s), scale_s) exceeds the
 //                threshold, at every checkpoint, the last included (replaces
-//                repro/kernels/quant_dco.py);
-//   kNoScreen    the FDScanning control: the exact squared distance over all
-//                D, no test (replaces repro/kernels/l2_scan.py).
+//                repro/kernels/quant_dco.py).
 //
 // Design.  The TPU kernels walk a (q_tile, c_tile, S) grid whose S axis runs
 // in order and carries psum/active/retirement state in VMEM.  Here one CTA
@@ -36,12 +34,11 @@
 // (Q = 1024, N = 2^20, D = 256) each screen writes three (Q, N) 32-bit
 // arrays, 12.9 GB, 3.8 ms at 3.35 TB/s, and the dims the data consumes cost
 // one multiply-add each in fp32 outside the tensor cores (exactness rules
-// out TF32), so the screens are bound by their output bytes and the
-// full-depth l2_scan by its 5.5e11 operations (8.2 ms at 67 TFLOP/s).  The
-// design issues a separate rounded multiply and add per product (no FMA, so
-// half the fp32 peak at best) and re-reads each query block from shared
-// memory per candidate chunk; wgmma cannot keep the exact order.  Indexing
-// into the (Q, N) outputs is 64-bit: Q·N reaches 2^30 elements.
+// out TF32), so the screens are bound by their output bytes.  The design
+// issues a separate rounded multiply and add per product (no FMA, so half
+// the fp32 peak at best) and re-reads each query block from shared memory
+// per candidate chunk; wgmma cannot keep the exact order.  Indexing into
+// the (Q, N) outputs is 64-bit: Q·N reaches 2^30 elements.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,7 +48,7 @@
 
 namespace dade {
 
-enum ScreenMode { kFp32Screen = 0, kInt8Screen = 1, kNoScreen = 2 };
+enum ScreenMode { kFp32Screen = 0, kInt8Screen = 1 };
 
 constexpr int kScreenThreads = 256;
 constexpr int kScreenBQ = 16;                               // queries per CTA
@@ -63,13 +60,13 @@ struct ScreenArgs {
   const float* q;        // (Q, D) f32
   const void* c;         // (N, D) f32 rows, or int8 codes (kInt8Screen)
   const float* cscales;  // (D,) per-dimension code scales (kInt8Screen)
-  const float* eps;      // (S,) blocked table (screens)
+  const float* eps;      // (S,) blocked table
   const float* scale;    // (S,)
   const float* ecum;     // (S,) E(d_s), the cumulative error band (kInt8Screen)
-  const float* rsq;      // (Q,) squared thresholds (screens)
-  float* est;            // (Q, N) estimate at retirement / lower bound / distance
+  const float* rsq;      // (Q,) squared thresholds
+  float* est;            // (Q, N) estimate at retirement / lower bound
   int* flag;             // (Q, N) passed (kFp32Screen) or pruned (kInt8Screen)
-  int* dims;             // (Q, N) dims consumed at retirement (screens)
+  int* dims;             // (Q, N) dims consumed at retirement
   int Q, N, D, S, BD;
   float one_minus_slack;
 };
@@ -118,15 +115,13 @@ __device__ __forceinline__ void dco_screen(const ScreenArgs& a) {
   const int CS = BD + 4;  // candidate row stride (floats): conflict-free float4 reads
 
   // ---- prologue: per-checkpoint constants and the tile's thresholds ----
-  if (MODE != kNoScreen) {
-    for (int s = tid; s < S; s += T) {
-      const float t = __fadd_rn(1.0f, a.eps[s]);
-      thr_s[s] = __fmul_rn(t, t);
-      scl_s[s] = a.scale[s];
-      if (MODE == kInt8Screen) ecum_s[s] = a.ecum[s];
-    }
-    if (tid < kScreenBQ) rsq_s[tid] = q0 + tid < a.Q ? a.rsq[q0 + tid] : 0.0f;
+  for (int s = tid; s < S; s += T) {
+    const float t = __fadd_rn(1.0f, a.eps[s]);
+    thr_s[s] = __fmul_rn(t, t);
+    scl_s[s] = a.scale[s];
+    if (MODE == kInt8Screen) ecum_s[s] = a.ecum[s];
   }
+  if (tid < kScreenBQ) rsq_s[tid] = q0 + tid < a.Q ? a.rsq[q0 + tid] : 0.0f;
   // The query norms of every block, each summed in dimension order.
   for (int e = tid; e < kScreenBQ * S; e += T) {
     const int s = e / kScreenBQ, r = e - s * kScreenBQ;
@@ -221,7 +216,7 @@ __device__ __forceinline__ void dco_screen(const ScreenArgs& a) {
     for (int j = 0; j < QPT; ++j) {
       const int ql = g + j * G;
       psum[j] = __fadd_rn(psum[j], block_sq(qn_s[s * kScreenBQ + ql], cn, dot[j]));
-      if (MODE != kNoScreen && ((active >> j) & 1u)) {
+      if ((active >> j) & 1u) {
         float e;
         if constexpr (MODE == kInt8Screen)
           e = lb_penalized(psum[j], ecum_s[s], scl_s[s], a.one_minus_slack);
@@ -239,7 +234,7 @@ __device__ __forceinline__ void dco_screen(const ScreenArgs& a) {
         }
       }
     }
-    if (MODE != kNoScreen && !__syncthreads_or(active != 0u)) break;
+    if (!__syncthreads_or(active != 0u)) break;
   }
 
   // ---- outputs: one row of the tile per j, coalesced across candidates ----
@@ -249,17 +244,13 @@ __device__ __forceinline__ void dco_screen(const ScreenArgs& a) {
     const int qi = q0 + g + j * G;
     if (qi >= a.Q) continue;
     const size_t o = static_cast<size_t>(qi) * static_cast<size_t>(a.N) + cand;
-    if constexpr (MODE == kNoScreen) {
-      a.est[o] = psum[j];
-    } else {
-      a.est[o] = oest[j];
-      a.dims[o] = odims[j];
-      const bool rej = (rejected >> j) & 1u;
-      if constexpr (MODE == kInt8Screen)
-        a.flag[o] = rej;
-      else
-        a.flag[o] = !rej && oest[j] <= rsq_s[g + j * G];
-    }
+    a.est[o] = oest[j];
+    a.dims[o] = odims[j];
+    const bool rej = (rejected >> j) & 1u;
+    if constexpr (MODE == kInt8Screen)
+      a.flag[o] = rej;
+    else
+      a.flag[o] = !rej && oest[j] <= rsq_s[g + j * G];
   }
 }
 
@@ -287,8 +278,8 @@ inline int launch_screen(int device, const ScreenArgs& a, void* stream) {
 
 }  // namespace dade
 
-// One C entry point per kernel, the same signature for all three: pointers a
-// mode does not read may be null.
+// One C entry point per kernel, the same signature for both: pointers a mode
+// does not read may be null.
 #define DADE_SCREEN_ENTRY(NAME, MODE)                                              \
   extern "C" long long NAME##_smem_bytes(int S, int BD) {                           \
     return static_cast<long long>(dade::screen_layout(S, BD).total);                \

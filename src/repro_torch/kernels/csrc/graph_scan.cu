@@ -10,13 +10,14 @@
 // and walks that tile's row of the (q_tiles, steps) table, where step s
 // names the node whose neighbour block (adjacency-flat tile `off`, 32 rows:
 // the degree m rounded up to 32) the tile expands, or -1 for nothing.  The
-// walk is scan_walk<32> of scan_walk.cuh, the one the IVF scan runs at 128
-// rows, so the two share tile paging with the reuse cursor, the
-// mma.sync m16n8k32 stage 1, the vote-gated slab paging, the dimension-
-// ordered stage 2 and the dup-checked insertion merge.  At 32 rows a tile
-// is two m16 fragments: warps 0-1 run stage 1, every thread owns one
-// candidate and one query in stage 2, and all 8 warps merge, one per
-// query row of the seeded (8, EF) window.  What the graph adds:
+// walk is scan_walk<32, 8> of scan_walk.cuh, the one the IVF scan runs at
+// 128 rows, so the two share tile paging with the reuse cursor, the
+// mma.sync m16n8k32 first stage-1 block, the list of pairs it leaves
+// active (later blocks, stage 2, pass test and duplicate scan one pair per
+// thread), the vote-gated slab paging and the insertion merge.  At 32 rows
+// a tile is two m16 fragments: warps 0-1 run the first block, and all 8
+// warps merge, one per query row of the seeded (8, EF) window.  What the
+// graph adds:
 //   * r² tightens to the window's thresh_col entry after a merge (k-1: the
 //     paper's decoupled HNSW++ threshold), or stays at r0 for the whole
 //     launch when tighten = 0 (the sharded, frozen-threshold wave);
@@ -43,9 +44,10 @@
 namespace {
 
 constexpr int kBC = 32;  // candidates per tile: one node's neighbour block
+constexpr int kBQ = 8;   // queries per tile: the mma's n
 
-__global__ void __launch_bounds__(dade::kThreads) graph_scan_kernel(const dade::WalkArgs a) {
-  dade::scan_walk<kBC>(a);
+__global__ void __launch_bounds__(dade::kThreads, 1) graph_scan_kernel(const dade::WalkArgs a) {
+  dade::scan_walk<kBC, kBQ>(a);
 }
 
 }  // namespace
@@ -53,8 +55,9 @@ __global__ void __launch_bounds__(dade::kThreads) graph_scan_kernel(const dade::
 extern "C" {
 
 // Dynamic shared memory one CTA needs at these shapes (bytes).
-long long graph_scan_smem_bytes(int D, int S, int K, int BD) {
-  return static_cast<long long>(dade::make_layout<kBC>(D, S, K, BD).total);
+long long graph_scan_smem_bytes(int D, int S, int K, int BD, int row_bytes) {
+  return static_cast<long long>(
+      dade::make_layout<kBC, kBQ>(D, S, K, BD, row_bytes).total);
 }
 
 // Launch one wave on `stream` (query tiles of 8, neighbour blocks of 32
@@ -74,8 +77,8 @@ int graph_scan_launch(int device, const int* offs, const int8_t* qcodes,
                          codes, rows, ids, bscales, eps, scale, top_sq,
                          top_ids, stats, vis0, vis, steps, D, D / BD, K, BD,
                          rows_bf16, thresh_col, tighten, vis_words, vis_base,
-                         one_minus_slack};
-  return dade::launch_walk<kBC>(graph_scan_kernel, device, a, q_tiles, stream);
+                         one_minus_slack, /*clocks=*/nullptr};
+  return dade::launch_walk<kBC, kBQ>(graph_scan_kernel, device, a, q_tiles, stream);
 }
 
 }  // extern "C"

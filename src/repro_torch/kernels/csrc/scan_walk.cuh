@@ -1,39 +1,51 @@
 // The walk both fused scans share, for Hopper (sm_90a): one CTA owns one
-// tile of 8 queries and walks that tile's row of a step table of candidate
+// tile of BQ queries and walks that tile's row of a step table of candidate
 // tiles, each BC rows tall, with an int8 stage-1 prefilter, a demand-paged
 // fp32/bf16 DADE re-screen and a sorted top-K window kept on chip.
 //
-// ivf_scan.cu instantiates it at BC = 128 (bucket tiles), graph_scan.cu at
-// BC = 32 (one node's neighbour block).  The graph walk adds three things,
-// each a field of WalkArgs that the IVF scan leaves at its neutral value:
-// the window column that tightens r² (thresh_col; K-1 for the IVF scan),
-// a frozen-threshold mode (tighten = 0), and the packed visited bitmap
-// (vis; null for the IVF scan).
+// ivf_scan.cu instantiates it at BC = 128 (bucket tiles) and BQ = 8 or 16,
+// graph_scan.cu at BC = 32 (one node's neighbour block) and BQ = 8.  A
+// pair's decisions, a query's window and its r² depend only on that query,
+// so on a step table every query tile shares (the flat serving route) the
+// per-query results do not depend on BQ; only the tile-level fetch
+// counters (stats columns 4-5) do.  The graph walk adds three things, each
+// a field of WalkArgs that the IVF scan leaves at its neutral value: the
+// window column that tightens r² (thresh_col; K-1 for the IVF scan), a
+// frozen-threshold mode (tighten = 0), and the packed visited bitmap (vis;
+// null for the IVF scan).
 //
 // Per step of the walk:
-//   * the int8 codes tile (BC x D) arrives by cp.async into one of two
-//     shared buffers; the next step's fresh tile is issued before this
-//     step's work, and a real step whose offset equals the last issued one
-//     re-uses the resident buffer, even across -1 gap steps (the
-//     reference's slot_s[0, 1] cursor);
-//   * stage 1 runs on the tensor cores: warp w < BC/16 multiplies
-//     candidates 16w..16w+15 with the 8 queries by mma.sync m16n8k32
-//     (s8 x s8 -> s32), one Δd block at a time, and each lane carries 2
-//     candidates x 2 queries through the per-block dequantize and the
-//     cumulative error band, bit-identical to tiles.stage1_tile (exact
+//   * the int8 codes tile (BC x D) and its ids arrive by cp.async into
+//     shared memory; a real step whose offset equals the last issued one
+//     re-uses the resident tile, even across -1 gap steps (the reference's
+//     slot_s[0, 1] cursor).  There is one buffer (a second bought no time on
+//     an H100 and would cost the second CTA on each SM): the next step's
+//     fresh tile is issued as soon as this step is done with the buffer,
+//     after the stage-1 vote, or after stage 2 when there is one.  The step
+//     table itself is read two steps ahead;
+//   * stage 1's first Δd block runs on the tensor cores for the whole tile:
+//     warp w < BC/16 multiplies candidates 16w..16w+15 with the BQ queries
+//     by mma.sync m16n8k32 (s8 x s8 -> s32, BQ/8 n-tiles), and each lane
+//     carries 2 candidates x 2 queries per n-tile through the dequantize and
+//     the cumulative error band, bit-identical to tiles.stage1_tile (exact
 //     integer dot, then elementwise float ops in the same order, no FMA);
-//     the stage-1 masks then pass through shared memory to stage 2, where
-//     each thread owns one candidate and 8·BC/256 of the queries;
+//   * the valid pairs still active after it (almost every pair retires at
+//     the first checkpoint) are compacted into a list, one warp-wide
+//     reservation each, and the list is walked one pair per thread from
+//     there on: the later stage-1 blocks (__dp4a over the resident tile),
+//     stage 2, the pass test and the duplicate scan.  A pair's arithmetic
+//     is the same whoever runs it, and the list's order reaches no output;
 //   * a block-wide vote (__syncthreads_or) gates stage 2, and inside it
 //     each (BC, Δd) fp slab is fetched (cp.async, in the row dtype) only
-//     while some valid candidate is still active (tiles.stage2_need); its
-//     norms and dot products are summed one dimension at a time, in order,
+//     while some listed pair is still active (tiles.stage2_need); a pair's
+//     norms and dot product are summed one dimension at a time, in order,
 //     with rounded multiplies and adds (no FMA), the order of the plain
 //     version, so distances, decisions and r² agree with it bit for bit;
-//   * survivors not already in the window (tiles.dup_mask) are merged by
-//     insertion into the sorted (8, K) window, one warp per query row,
-//     keeping the reference's tie order (window first, then lower column),
-//     and r² = min(r², top[thresh_col]) unless the threshold is frozen.
+//   * passing pairs not already in the window (tiles.dup_mask, checked by
+//     a warp 32 window entries at a time) are merged by insertion into the
+//     sorted (BQ, K) window, one warp per query row, keeping the
+//     reference's tie order (window first, then lower column), and
+//     r² = min(r², top[thresh_col]) unless the threshold is frozen.
 // Counters are kept in 32/64-bit integers and converted to float once at
 // the end, so columns 0 and 2 of stats stay exact past 2^24.
 #pragma once
@@ -49,7 +61,6 @@ namespace dade {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 8;  // queries per CTA: the mma's n
 constexpr unsigned kFull = 0xffffffffu;
 
 struct WalkArgs {
@@ -76,25 +87,70 @@ struct WalkArgs {
   int tighten;             // 0: r² stays at r0 for the whole launch
   int vis_words, vis_base;
   float one_minus_slack;
+  long long* clocks;       // (q_tiles, kPhases) cycle sums: timing builds only
+};
+
+// The phases of a step that a timing build (kClocks) stamps with clock64():
+// thread 0 reads the clock at each boundary (after the phase's barrier) and
+// adds the cycles since the last stamp to that phase's sum.
+enum Phase {
+  kTileWait = 0,   // prefetch issue, then the wait for this step's codes tile
+  kStage1 = 1,     // stage 1's first block on the tensor cores and the pair list
+  kVotes = 2,      // the list barrier, the later blocks of the listed pairs, the vote
+  kSlabWait = 3,   // per checkpoint: the need vote, the slab copy and its wait
+  kStage2 = 4,     // per checkpoint: the listed pairs' products and tests
+  kDupScan = 5,    // the slab-free barriers, the pass test and the duplicate scan
+  kMerge = 6,      // the entrant vote, the window merge and its barrier
+  kOther = 7,      // the rest of the step loop (gap steps, bookkeeping)
+  kPhases = 8
+};
+
+template <bool kOn>
+struct PhaseClock {
+  long long sum[kPhases];
+  long long t;
+  __device__ __forceinline__ void start() {
+    if constexpr (kOn) {
+#pragma unroll
+      for (int p = 0; p < kPhases; ++p) sum[p] = 0;
+      t = clock64();
+    }
+  }
+  __device__ __forceinline__ void lap(int p) {
+    if constexpr (kOn) {
+      const long long now = clock64();
+      sum[p] += now - t;
+      t = now;
+    }
+  }
+  __device__ __forceinline__ void store(long long* out) const {
+    if constexpr (kOn) {
+      if (threadIdx.x == 0)
+        for (int p = 0; p < kPhases; ++p) out[static_cast<size_t>(blockIdx.x) * kPhases + p] = sum[p];
+    }
+  }
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 
 // Byte offsets of the shared-memory regions (same function on both sides).
+// The merge's candidate distances (BQ x BC f32) have a region of their own,
+// all inf between merges: the merge resets each entry it reads.
 struct Layout {
-  size_t codes, qcodes, q, slab, qn1, tqsb, eband, qn2, thr, sb, scl, rsq,
-      top_sq, top_ids, cand, ids, act, acc, total;
+  size_t codes, tids, qcodes, q, slab, cand, qn1, tqsb, eband, qn2, thr, sb, scl, rsq,
+      top_sq, top_ids, ids, pair, pval, pst, npairs, acc, total;
 };
 
-template <int BC>
-__host__ __device__ inline Layout make_layout(int D, int S, int K, int BD) {
-  constexpr int BQ = kBQ;
+template <int BC, int BQ>
+__host__ __device__ inline Layout make_layout(int D, int S, int K, int BD, int row_bytes) {
   Layout L;
   size_t o = 0;
-  L.codes = o;   o = align16(o + 2ull * BC * (D + 16));
+  L.codes = o;   o = align16(o + 1ull * BC * (D + 16));
+  L.tids = o;    o = align16(o + 4ull * BC);
   L.qcodes = o;  o = align16(o + 1ull * BQ * (D + 16));
   L.q = o;       o = align16(o + 4ull * BQ * D);
-  L.slab = o;    o = align16(o + 1ull * BC * (4 * BD + 16));
+  L.slab = o;    o = align16(o + 1ull * BC * (row_bytes * BD + 16));
+  L.cand = o;    o = align16(o + 4ull * BQ * BC);
   L.qn1 = o;     o = align16(o + 4ull * BQ * S);
   L.tqsb = o;    o = align16(o + 4ull * BQ * S);
   L.eband = o;   o = align16(o + 4ull * BQ * S);
@@ -105,9 +161,11 @@ __host__ __device__ inline Layout make_layout(int D, int S, int K, int BD) {
   L.rsq = o;     o = align16(o + 4ull * BQ);
   L.top_sq = o;  o = align16(o + 4ull * BQ * K);
   L.top_ids = o; o = align16(o + 4ull * BQ * K);
-  L.cand = o;    o = align16(o + 4ull * BQ * BC);
   L.ids = o;     o = align16(o + 4ull * BC);
-  L.act = o;     o = align16(o + 1ull * BQ * BC);
+  L.pair = o;    o = align16(o + 2ull * BQ * BC);  // the active-pair list
+  L.pval = o;    o = align16(o + 4ull * BQ * BC);
+  L.pst = o;     o = align16(o + 1ull * BQ * BC);
+  L.npairs = o;  o = align16(o + 4ull * 2);
   L.acc = o;     o = align16(o + 8ull * BQ * 3);
   L.total = o;
   return L;
@@ -116,6 +174,7 @@ __host__ __device__ inline Layout make_layout(int D, int S, int K, int BD) {
 // cp.async a (BC rows x `chunks` 16-byte chunks) block, source rows
 // `src_stride` bytes apart, into shared rows `dst_stride` bytes apart; the
 // block's threads walk the chunks in order without dividing in the loop.
+// The caller commits the group.
 template <int BC>
 __device__ __forceinline__ void issue_rows(unsigned char* dst, int dst_stride,
                                            const unsigned char* src,
@@ -131,16 +190,21 @@ __device__ __forceinline__ void issue_rows(unsigned char* dst, int dst_stride,
       ++r;
     }
   }
-  cp_async_commit();
 }
 
-// Issue the copies of codes tile `off` into `dst` (row stride D+16).
+// Issue the copies of codes tile `off` into `dst` (row stride D+16) and of
+// its BC ids into `ids_dst`, one group: the walk reads neither from device
+// memory in its critical path.
 template <int BC>
-__device__ __forceinline__ void issue_tile(const WalkArgs& a, int8_t* dst, int off) {
+__device__ __forceinline__ void issue_tile(const WalkArgs& a, int8_t* dst, int* ids_dst,
+                                           int off) {
   issue_rows<BC>(reinterpret_cast<unsigned char*>(dst), a.D + 16,
                  reinterpret_cast<const unsigned char*>(a.codes) +
                      static_cast<size_t>(off) * BC * a.D,
                  a.D, a.D / 16);
+  if (threadIdx.x < BC / 4)
+    cp_async16(ids_dst + 4 * threadIdx.x, a.ids + static_cast<size_t>(off) * BC + 4 * threadIdx.x);
+  cp_async_commit();
 }
 
 // Issue the copies of fp slab `sb` of tile `off` into `slab`, in the row
@@ -153,45 +217,49 @@ __device__ __forceinline__ void issue_slab(const WalkArgs& a, unsigned char* sla
                  static_cast<const unsigned char*>(a.rows) +
                      (static_cast<size_t>(off) * BC * a.D + sb * a.BD) * isz,
                  static_cast<size_t>(a.D) * isz, a.BD * isz / 16);
+  cp_async_commit();
 }
 
-// Stage-2 products of one slab row (this thread's candidate) with its QPT
-// query rows: cn += x·x, dot[j] += q_j·x, 16 bytes of the row at a time.
-template <bool BF16, int QPT>
-__device__ __forceinline__ void slab_dots(const unsigned char* row, const float* q_s,
-                                          int D, int BD, int sb, int g, int ngroups,
-                                          float& cn, float (&dot)[QPT]) {
-  constexpr int E = BF16 ? 8 : 4;  // values per 16-byte chunk
-  for (int w = 0; w < BD; w += E) {
-    const int4 raw = *reinterpret_cast<const int4*>(row + w * (BF16 ? 2 : 4));
-    float x[E];
-    if constexpr (BF16) {
-      const unsigned u[4] = {static_cast<unsigned>(raw.x), static_cast<unsigned>(raw.y),
-                             static_cast<unsigned>(raw.z), static_cast<unsigned>(raw.w)};
+// The 8 (bf16) or 4 (f32) values of the 16-byte chunk at `p`, as floats.
+template <bool BF16>
+__device__ __forceinline__ void load_chunk(const unsigned char* p, float (&x)[BF16 ? 8 : 4]) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  if constexpr (BF16) {
+    const unsigned u[4] = {static_cast<unsigned>(raw.x), static_cast<unsigned>(raw.y),
+                           static_cast<unsigned>(raw.z), static_cast<unsigned>(raw.w)};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[2 * i] = __uint_as_float(u[i] << 16);
-        x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-      }
-    } else {
-      x[0] = __int_as_float(raw.x);
-      x[1] = __int_as_float(raw.y);
-      x[2] = __int_as_float(raw.z);
-      x[3] = __int_as_float(raw.w);
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(u[i] << 16);
+      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
     }
+  } else {
+    x[0] = __int_as_float(raw.x);
+    x[1] = __int_as_float(raw.y);
+    x[2] = __int_as_float(raw.z);
+    x[3] = __int_as_float(raw.w);
+  }
+}
+
+// Stage-2 products of one slab row (a listed pair's candidate) with the
+// pair's BD query values: cn = x·x and dot = q·x, each summed in dimension
+// order, the two chains interleaved 16 bytes of the row at a time.
+template <bool BF16>
+__device__ __forceinline__ void slab_dot(const unsigned char* row, const float* qv, int BD,
+                                         float& cn, float& dot) {
+  constexpr int E = BF16 ? 8 : 4;  // values per 16-byte chunk
+#pragma unroll 4
+  for (int w = 0; w < BD; w += E) {
+    float x[E];
+    load_chunk<BF16>(row + w * (BF16 ? 2 : 4), x);
 #pragma unroll
     for (int e = 0; e < E; ++e) cn = __fadd_rn(cn, __fmul_rn(x[e], x[e]));
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const float* qv = q_s + (g + j * ngroups) * D + sb * BD + w;
-#pragma unroll
-      for (int e = 0; e < E; e += 4) {
-        const float4 qq = *reinterpret_cast<const float4*>(qv + e);
-        dot[j] = __fadd_rn(dot[j], __fmul_rn(qq.x, x[e]));
-        dot[j] = __fadd_rn(dot[j], __fmul_rn(qq.y, x[e + 1]));
-        dot[j] = __fadd_rn(dot[j], __fmul_rn(qq.z, x[e + 2]));
-        dot[j] = __fadd_rn(dot[j], __fmul_rn(qq.w, x[e + 3]));
-      }
+    for (int e = 0; e < E; e += 4) {
+      const float4 qq = *reinterpret_cast<const float4*>(qv + w + e);
+      dot = __fadd_rn(dot, __fmul_rn(qq.x, x[e]));
+      dot = __fadd_rn(dot, __fmul_rn(qq.y, x[e + 1]));
+      dot = __fadd_rn(dot, __fmul_rn(qq.z, x[e + 2]));
+      dot = __fadd_rn(dot, __fmul_rn(qq.w, x[e + 3]));
     }
   }
 }
@@ -215,13 +283,15 @@ __device__ inline void sort_row(float* sq, int* ids, int K) {
 
 // One warp merges row r's candidates (inf = not entering) into its sorted
 // window: each entrant, in column order, goes after every window entry
-// <= its distance — the stable order of the reference's min-extract.
-__device__ inline void merge_row(float* wsq, int* wid, const float* cand,
+// <= its distance — the stable order of the reference's min-extract.  The
+// candidate row is left all inf for the next merge.
+__device__ inline void merge_row(float* wsq, int* wid, float* cand,
                                  const int* ids, int K, int BC, int lane) {
   for (int base = 0; base < BC; base += 32) {
     const int cc = base + lane;
     const float v = cc < BC ? cand[cc] : INFINITY;
     const int id = cc < BC ? ids[cc] : -1;
+    if (cc < BC) cand[cc] = INFINITY;
     unsigned m = __ballot_sync(kFull, v < wsq[K - 1]);
     while (m) {
       const int src = __ffs(m) - 1;
@@ -269,22 +339,48 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2, int 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// The float tail of one stage-1 block for one (candidate, query) pair:
+// ps += block_sq of the dequantized block (integer dot and candidate norm
+// exact), then the lower bound's test against (1+ε_s)²r².  Returns whether
+// the pair is still active; tiles.stage1_tile's operations, in its order.
+__device__ __forceinline__ bool stage1_block(float& ps, int dot, int cn, float sb2,
+                                             float tqsb, float qn1, float eband,
+                                             float scl, float thr, float rs,
+                                             float one_minus_slack) {
+  const float cnf = __fmul_rn(static_cast<float>(cn), sb2);
+  const float dotf = __fmul_rn(static_cast<float>(dot), tqsb);
+  ps = __fadd_rn(ps, block_sq(qn1, cnf, dotf));
+  return !(lb_penalized(ps, eband, scl, one_minus_slack) > dade_threshold(thr, rs));
+}
+
 // The walk of query tile blockIdx.x over its row of a.offs; the body of
-// both kernels (launched with kThreads threads and make_layout<BC> bytes
-// of dynamic shared memory).
-template <int BC>
+// both kernels (launched with kThreads threads and make_layout<BC, BQ>
+// bytes of dynamic shared memory).  kClocks builds the timing variant,
+// which also writes each phase's cycles to a.clocks.
+//
+// Almost every pair retires at its first checkpoint, so the first block of
+// stage 1 runs for the whole (BQ, BC) tile on the tensor cores, and the
+// pairs still active after it are compacted into a list (one entry per
+// pair: its query and candidate, a float and a state byte) that the later
+// blocks, stage 2, the pass test and the duplicate scan walk one pair per
+// thread.  Each pair's arithmetic is the same whoever runs it; the list's
+// order (set by shared atomics) reaches no output.
+template <int BC, int BQ, bool kClocks = false>
 __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
   static_assert(BC % 32 == 0 && BC <= 16 * kWarps, "BC: 32..128, a multiple of 32");
-  constexpr int kQPT = kBQ * BC / kThreads;  // stage-2 queries per thread
-  constexpr int kGroups = kThreads / BC;     // stage-2 query interleave
-  constexpr int kS1Warps = BC / 16;          // warps that run stage 1
+  static_assert(BQ == 8 || BQ == 16, "BQ: 8 or 16");
+  constexpr int kS1Warps = BC / 16;          // warps that run stage 1's first block
+  constexpr int kNT = BQ / 8;                // stage-1 n-tiles per warp
+  constexpr unsigned char kActive = 0x80;    // list state: still active; low bits: slabs
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, S = a.S, K = a.K, BD = a.BD;
-  const Layout L = make_layout<BC>(D, S, K, BD);
-  int8_t* codes_buf = reinterpret_cast<int8_t*>(smem + L.codes);
+  const Layout L = make_layout<BC, BQ>(D, S, K, BD, a.rows_bf16 ? 2 : 4);
+  int8_t* tile = reinterpret_cast<int8_t*>(smem + L.codes);  // the resident codes tile
+  int* tile_ids = reinterpret_cast<int*>(smem + L.tids);     // and its ids
   int8_t* qcodes_s = reinterpret_cast<int8_t*>(smem + L.qcodes);
   float* q_s = reinterpret_cast<float*>(smem + L.q);
   unsigned char* slab_s = smem + L.slab;
+  float* cand_s = reinterpret_cast<float*>(smem + L.cand);  // inf but for this step's entrants
   float* qn1_s = reinterpret_cast<float*>(smem + L.qn1);
   float* tqsb_s = reinterpret_cast<float*>(smem + L.tqsb);
   float* eband_s = reinterpret_cast<float*>(smem + L.eband);
@@ -295,32 +391,34 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
   float* rsq_s = reinterpret_cast<float*>(smem + L.rsq);
   float* top_sq_s = reinterpret_cast<float*>(smem + L.top_sq);
   int* top_ids_s = reinterpret_cast<int*>(smem + L.top_ids);
-  float* cand_s = reinterpret_cast<float*>(smem + L.cand);
   int* ids_s = reinterpret_cast<int*>(smem + L.ids);
-  unsigned char* act_s = smem + L.act;
+  unsigned short* pair_s = reinterpret_cast<unsigned short*>(smem + L.pair);  // query << 8 | cand
+  float* pval_s = reinterpret_cast<float*>(smem + L.pval);   // stage-1 psum, then stage-2's
+  unsigned char* pst_s = smem + L.pst;                       // kActive | slabs consumed
+  int* npairs_s = reinterpret_cast<int*>(smem + L.npairs);   // list length, by real-step parity
   unsigned long long* acc_s = reinterpret_cast<unsigned long long*>(smem + L.acc);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // Stage-2 and merge ownership: candidate c, queries g + j·kGroups.
-  const int c = tid % BC;
-  const int g = tid / BC;
+  const int c = tid % BC;  // the candidate whose id this thread loads
   // Stage-1 ownership (mma fragment layout, warps < kS1Warps): candidates
-  // ca, cb = ca + 8 of warp w's 16, queries qa = 2t, qb = 2t + 1.
+  // ca, cb = ca + 8 of warp w's 16, queries 8n + qa and 8n + qb of n-tile n,
+  // qa = 2t, qb = 2t + 1.
   const bool s1 = warp < kS1Warps;
   const int fg = lane >> 2, ft = lane & 3;
   const int ca = warp * 16 + fg, cb = ca + 8;
   const int qa = 2 * ft, qb = qa + 1;
   const int CS = D + 16;   // codes row stride: conflict-free fragment reads
   const int QS = D + 16;   // query codes row stride, likewise
-  const size_t q0 = static_cast<size_t>(blockIdx.x) * kBQ;
+  const size_t q0 = static_cast<size_t>(blockIdx.x) * BQ;
+  const int slab_row = BD * (a.rows_bf16 ? 2 : 4) + 16;  // slab row stride (bytes)
 
   // ---- prologue: the query tile, its per-block constants, window, r² ----
-  for (int e = tid; e < kBQ * D; e += kThreads) {
+  for (int e = tid; e < BQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     qcodes_s[r * QS + d] = a.qcodes[q0 * D + e];
     q_s[e] = a.q[q0 * D + e];
   }
-  for (int e = tid; e < kBQ * K; e += kThreads) {
+  for (int e = tid; e < BQ * K; e += kThreads) {
     top_sq_s[e] = a.top0_sq[q0 * K + e];
     top_ids_s[e] = a.top0_ids[q0 * K + e];
   }
@@ -330,7 +428,9 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
     sb_s[s] = a.bscales[s];
     scl_s[s] = a.scale[s];
   }
-  for (int e = tid; e < kBQ * 3; e += kThreads) acc_s[e] = 0ull;
+  for (int e = tid; e < BQ * 3; e += kThreads) acc_s[e] = 0ull;
+  for (int e = tid; e < BQ * BC; e += kThreads) cand_s[e] = INFINITY;
+  if (tid < 2) npairs_s[tid] = 0;
   // The visited bitmap: this tile's row is copied in and then marked in
   // place (one bit per real step); no other CTA touches the row.
   unsigned* vis_row = nullptr;
@@ -340,7 +440,7 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
     for (int w = tid; w < a.vis_words; w += kThreads) vis_row[w] = vis0_row[w];
   }
   __syncthreads();
-  if (tid < kBQ) {
+  if (tid < BQ) {
     const int r = tid;
     rsq_s[r] = a.r0[q0 + r];
     float ec2 = 0.0f, eq2 = 0.0f;
@@ -366,188 +466,252 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
   }
   __syncthreads();
 
-  // Counters: stage-1 int8 dims per query (lane's qa, qb), stage-2 dims
-  // and passes per query (thread's kQPT queries), tile-level totals.
-  unsigned d8_acc[2] = {0u, 0u};
-  unsigned d32_acc[kQPT], pass_acc[kQPT];
+  // Counters: first-block int8 dims per query (lane's 8n + qa, 8n + qb; the
+  // later blocks, stage-2 dims and passes go to acc_s), tile totals.
+  unsigned d8_acc[2 * kNT];
 #pragma unroll
-  for (int j = 0; j < kQPT; ++j) d32_acc[j] = pass_acc[j] = 0u;
+  for (int i = 0; i < 2 * kNT; ++i) d8_acc[i] = 0u;
   unsigned long long nvalid_acc = 0, slabs_acc = 0, fresh_acc = 0;
   bool window_sorted = false;
   int last = -1;  // offset of the last tile whose copy was issued
-  int cur = 0;    // codes buffer holding (or receiving) this step's tile
+  int par = 0;    // the real steps' parity: which list count this one uses
   const int* offs = a.offs + static_cast<size_t>(blockIdx.x) * a.steps;
+  // The step table is read two steps ahead, so its loads stay out of the
+  // step's chain of dependent phases.
+  int noff = a.steps > 0 ? offs[0] : -1;
+  int nnoff = a.steps > 1 ? offs[1] : -1;
 
-  if (a.steps > 0 && offs[0] >= 0) issue_tile<BC>(a, codes_buf, offs[0]);
+  if (noff >= 0) issue_tile<BC>(a, tile, tile_ids, noff);
+  PhaseClock<kClocks> clk;
+  clk.start();
 
   for (int step = 0; step < a.steps; ++step) {
-    const int off = offs[step];
+    clk.lap(kOther);
+    const int off = noff;
+    noff = nnoff;
+    nnoff = step + 2 < a.steps ? offs[step + 2] : -1;
     const bool real = off >= 0;
     const bool fresh = real && off != last;
     const int resident = real ? off : last;
-    // Issue the next fresh tile into the other buffer before this step's
-    // work; the buffer it overwrites was last read before the previous
-    // step's stage-1 vote, a barrier every thread has passed.
-    bool prefetched = false;
-    if (step + 1 < a.steps) {
-      const int noff = offs[step + 1];
-      if (noff >= 0 && noff != resident) {
-        issue_tile<BC>(a, codes_buf + (1 - cur) * BC * CS, noff);
-        prefetched = true;
-      }
-    }
     if (fresh) {
-      if (prefetched) cp_async_wait<1>();
-      else cp_async_wait<0>();
+      cp_async_wait<0>();
       __syncthreads();
     }
+    clk.lap(kTileWait);
     last = resident;
+    // The next fresh tile is issued once this step has no more use for the
+    // buffer (and no slab copy will wait behind it).
+    bool pending = noff >= 0 && noff != resident;
+    if (pending && !real) {
+      issue_tile<BC>(a, tile, tile_ids, noff);
+      pending = false;
+    }
+    if (!real) continue;
 
-    if (real) {
-      if (vis_row != nullptr && tid == 0) {
-        const unsigned gnode = static_cast<unsigned>(off + a.vis_base);
-        vis_row[gnode >> 5] |= 1u << (gnode & 31u);
+    if (vis_row != nullptr && tid == 0) {
+      const unsigned gnode = static_cast<unsigned>(off + a.vis_base);
+      vis_row[gnode >> 5] |= 1u << (gnode & 31u);
+    }
+    const bool valid_c = tile_ids[c] >= 0;
+    if (tid < BC) ids_s[tid] = tile_ids[tid];
+    int* npairs = npairs_s + par;
+
+    // ---- stage 1, first block: the whole tile on the tensor cores ----
+    // Pair p of n-tile n: candidate (p < 2 ? ca : cb), query 8n + (p odd ?
+    // qb : qa), the mma accumulator order.  Its active valid pairs join the
+    // list, with their psum.
+    if (s1) {
+      const bool va = tile_ids[ca] >= 0, vb = tile_ids[cb] >= 0;
+      int dot[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) dot[n][p] = 0;
+      int cna = 0, cnb = 0;
+      for (int kk = 4 * ft; kk < BD; kk += 32) {
+        const int a0 = *reinterpret_cast<const int*>(tile + ca * CS + kk);
+        const int a1 = *reinterpret_cast<const int*>(tile + cb * CS + kk);
+        const int a2 = *reinterpret_cast<const int*>(tile + ca * CS + kk + 16);
+        const int a3 = *reinterpret_cast<const int*>(tile + cb * CS + kk + 16);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const int8_t* qrow = qcodes_s + (8 * n + fg) * QS + kk;
+          mma_s8(dot[n], a0, a1, a2, a3, *reinterpret_cast<const int*>(qrow),
+                 *reinterpret_cast<const int*>(qrow + 16));
+        }
+        cna = __dp4a(a0, a0, __dp4a(a2, a2, cna));
+        cnb = __dp4a(a1, a1, __dp4a(a3, a3, cnb));
       }
-      const int* tile_ids = a.ids + static_cast<size_t>(off) * BC;
-      const int cid = tile_ids[c];
-      const bool valid = cid >= 0;
-      if (g == 0) ids_s[c] = cid;
-
-      // ---- stage 1: int8 lower-bound prefilter (tiles.stage1_tile) ----
-      // Pair p of this lane: candidate (p < 2 ? ca : cb), query (p odd ? qb : qa),
-      // the mma accumulator order.
-      bool mine = false;
-      if (s1) {
-        const int8_t* tile = codes_buf + cur * BC * CS;
-        const bool va = tile_ids[ca] >= 0, vb = tile_ids[cb] >= 0;
-        const float rsa = rsq_s[qa], rsb = rsq_s[qb];  // frozen for this tile
-        float ps[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        bool act[4] = {true, true, true, true};
-        int d8[4] = {0, 0, 0, 0};
-        for (int s = 0; s < S; ++s) {
-          int dot[4] = {0, 0, 0, 0};
-          int cna = 0, cnb = 0;
-          for (int k0 = s * BD; k0 < (s + 1) * BD; k0 += 32) {
-            const int kk = k0 + 4 * ft;
-            const int a0 = *reinterpret_cast<const int*>(tile + ca * CS + kk);
-            const int a1 = *reinterpret_cast<const int*>(tile + cb * CS + kk);
-            const int a2 = *reinterpret_cast<const int*>(tile + ca * CS + kk + 16);
-            const int a3 = *reinterpret_cast<const int*>(tile + cb * CS + kk + 16);
-            const int b0 = *reinterpret_cast<const int*>(qcodes_s + fg * QS + kk);
-            const int b1 = *reinterpret_cast<const int*>(qcodes_s + fg * QS + kk + 16);
-            mma_s8(dot, a0, a1, a2, a3, b0, b1);
-            cna = __dp4a(a0, a0, __dp4a(a2, a2, cna));
-            cnb = __dp4a(a1, a1, __dp4a(a3, a3, cnb));
-          }
-          // Row norms: the four lanes of a quad hold a row's 32-dim slices.
-          cna += __shfl_xor_sync(kFull, cna, 1);
-          cna += __shfl_xor_sync(kFull, cna, 2);
-          cnb += __shfl_xor_sync(kFull, cnb, 1);
-          cnb += __shfl_xor_sync(kFull, cnb, 2);
-          const float sb = sb_s[s];
-          const float sb2 = __fmul_rn(sb, sb);
-          const float cnf[2] = {__fmul_rn(static_cast<float>(cna), sb2),
-                                __fmul_rn(static_cast<float>(cnb), sb2)};
+      // Row norms: the four lanes of a quad hold a row's 32-dim slices.
+      cna += __shfl_xor_sync(kFull, cna, 1);
+      cna += __shfl_xor_sync(kFull, cna, 2);
+      cnb += __shfl_xor_sync(kFull, cnb, 1);
+      cnb += __shfl_xor_sync(kFull, cnb, 2);
+      const float sb2 = __fmul_rn(sb_s[0], sb_s[0]);
+      float ps[kNT][4];
+      unsigned m[kNT][4];
+      int total = 0;
 #pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const int r = (p & 1) ? qb : qa;
-            const float dotf = __fmul_rn(static_cast<float>(dot[p]), tqsb_s[r * S + s]);
-            ps[p] = __fadd_rn(ps[p], block_sq(qn1_s[r * S + s], cnf[p >> 1], dotf));
-            if (act[p]) d8[p] += BD;
-            const float lb = lb_penalized(ps[p], eband_s[r * S + s], scl_s[s],
-                                          a.one_minus_slack);
-            if (lb > dade_threshold(thr_s[s], (p & 1) ? rsb : rsa)) act[p] = false;
-          }
+      for (int n = 0; n < kNT; ++n) {
+        d8_acc[2 * n] += BD * (va + vb);
+        d8_acc[2 * n + 1] += BD * (va + vb);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int r = 8 * n + ((p & 1) ? qb : qa);
+          ps[n][p] = 0.0f;
+          const bool act =
+              stage1_block(ps[n][p], dot[n][p], p < 2 ? cna : cnb, sb2, tqsb_s[r * S],
+                           qn1_s[r * S], eband_s[r * S], scl_s[0], thr_s[0], rsq_s[r],
+                           a.one_minus_slack) &&
+              (p < 2 ? va : vb);
+          m[n][p] = __ballot_sync(kFull, act);
+          total += __popc(m[n][p]);
         }
-        if (va) {
-          d8_acc[0] += d8[0];
-          d8_acc[1] += d8[1];
-        }
-        if (vb) {
-          d8_acc[0] += d8[2];
-          d8_acc[1] += d8[3];
-        }
-        act_s[qa * BC + ca] = act[0];
-        act_s[qb * BC + ca] = act[1];
-        act_s[qa * BC + cb] = act[2];
-        act_s[qb * BC + cb] = act[3];
-        mine = (va && (act[0] || act[1])) || (vb && (act[2] || act[3]));
       }
-      nvalid_acc += __syncthreads_count(g == 0 && valid);
-      fresh_acc += fresh ? 1 : 0;
-      // Every thread is past its last read of this codes buffer here, and
-      // the stage-1 masks are visible.
-      const bool alive = __syncthreads_or(mine) != 0;
-
-      if (alive) {
-        // ---- stage 2: demand-paged fp re-screen (tiles.stage2_tile) ----
-        float rs[kQPT], p2[kQPT];
-        bool a2[kQPT];
-        int d32[kQPT];
+      // One list reservation per warp, then each pair's slot by prefix count.
+      int base = 0;
+      if (lane == 0 && total) base = atomicAdd(npairs, total);
+      base = __shfl_sync(kFull, base, 0);
+      const unsigned below = (1u << lane) - 1u;
 #pragma unroll
-        for (int j = 0; j < kQPT; ++j) {
-          rs[j] = rsq_s[g + j * kGroups];
-          p2[j] = 0.0f;
-          a2[j] = act_s[(g + j * kGroups) * BC + c] != 0;
-          d32[j] = 0;
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if ((m[n][p] >> lane) & 1u) {
+            const int i = base + __popc(m[n][p] & below);
+            pair_s[i] = static_cast<unsigned short>((8 * n + ((p & 1) ? qb : qa)) << 8 |
+                                                    (p < 2 ? ca : cb));
+            pval_s[i] = ps[n][p];
+          }
+          base += __popc(m[n][p]);
         }
-        for (int s = 0; s < S; ++s) {
-          bool need = false;
-#pragma unroll
-          for (int j = 0; j < kQPT; ++j) need = need || (a2[j] && valid);
-          // Once no valid candidate is active none ever is again: every
-          // later slab is skipped too, and nothing read past here matters.
-          if (!__syncthreads_or(need)) break;
-          issue_slab<BC>(a, slab_s, off, s);
-          cp_async_wait<0>();
-          __syncthreads();
-          ++slabs_acc;
-          float cn2 = 0.0f;
-          float dt[kQPT];
-#pragma unroll
-          for (int j = 0; j < kQPT; ++j) dt[j] = 0.0f;
+      }
+    }
+    clk.lap(kStage1);
+    nvalid_acc += __syncthreads_count(tid < BC && valid_c);
+    fresh_acc += fresh ? 1 : 0;
+    // The list is complete; the other count (last read right after the
+    // previous real step's barrier here) is reset for the next real step.
+    const int n_pairs = *npairs;
+    if (tid == 0) npairs_s[par ^ 1] = 0;
+    par ^= 1;
+
+    // ---- stage 1, later blocks: the listed pairs, one per thread ----
+    bool mine = false;
+    for (int i = tid; i < n_pairs; i += kThreads) {
+      const int r = pair_s[i] >> 8, cc = pair_s[i] & 0xff;
+      const float rs = rsq_s[r];  // frozen for this tile
+      float ps = pval_s[i];
+      bool act = true;
+      unsigned d8 = 0;
+      const int8_t* crow = tile + cc * CS;
+      const int8_t* qrow = qcodes_s + r * QS;
+      for (int s = 1; s < S && act; ++s) {
+        int dot = 0, cn = 0;
+#pragma unroll 4
+        for (int k = s * BD; k < (s + 1) * BD; k += 16) {
+          const int4 cv = *reinterpret_cast<const int4*>(crow + k);
+          const int4 qv = *reinterpret_cast<const int4*>(qrow + k);
+          dot = __dp4a(cv.x, qv.x, __dp4a(cv.y, qv.y, __dp4a(cv.z, qv.z, __dp4a(cv.w, qv.w, dot))));
+          cn = __dp4a(cv.x, cv.x, __dp4a(cv.y, cv.y, __dp4a(cv.z, cv.z, __dp4a(cv.w, cv.w, cn))));
+        }
+        d8 += BD;
+        const float sb = sb_s[s];
+        act = stage1_block(ps, dot, cn, __fmul_rn(sb, sb), tqsb_s[r * S + s],
+                           qn1_s[r * S + s], eband_s[r * S + s], scl_s[s], thr_s[s], rs,
+                           a.one_minus_slack);
+      }
+      if (d8) atomicAdd(&acc_s[r * 3 + 0], static_cast<unsigned long long>(d8));
+      pst_s[i] = act ? kActive : 0;
+      mine = mine || act;
+    }
+    // Every thread is past its last read of this codes buffer here, and
+    // the list's states are visible.
+    const bool alive = __syncthreads_or(mine) != 0;
+    clk.lap(kVotes);
+    if (pending && !alive) {
+      issue_tile<BC>(a, tile, tile_ids, noff);
+      pending = false;
+    }
+
+    if (alive) {
+      // ---- stage 2: demand-paged fp re-screen (tiles.stage2_tile) ----
+      for (int s = 0; s < S; ++s) {
+        bool need = false;
+        for (int i = tid; i < n_pairs; i += kThreads) need = need || (pst_s[i] & kActive);
+        // Once no valid candidate is active none ever is again: every
+        // later slab is skipped too, and nothing read past here matters.
+        const bool any_need = __syncthreads_or(need) != 0;
+        clk.lap(kSlabWait);
+        if (!any_need) break;
+        issue_slab<BC>(a, slab_s, off, s);
+        cp_async_wait<0>();
+        __syncthreads();
+        clk.lap(kSlabWait);
+        ++slabs_acc;
+        for (int i = tid; i < n_pairs; i += kThreads) {
+          const unsigned char st = pst_s[i];
+          if (!(st & kActive)) continue;
+          const int r = pair_s[i] >> 8, cc = pair_s[i] & 0xff;
+          const unsigned char* row = slab_s + cc * slab_row;
+          const float* qv = q_s + r * D + s * BD;
+          float cn2 = 0.0f, dt = 0.0f;
           if (a.rows_bf16)
-            slab_dots<true, kQPT>(slab_s + c * (BD * 2 + 16), q_s, D, BD, s, g,
-                                  kGroups, cn2, dt);
+            slab_dot<true>(row, qv, BD, cn2, dt);
           else
-            slab_dots<false, kQPT>(slab_s + c * (BD * 4 + 16), q_s, D, BD, s, g,
-                                   kGroups, cn2, dt);
-#pragma unroll
-          for (int j = 0; j < kQPT; ++j) {
-            const int r = g + j * kGroups;
-            p2[j] = __fadd_rn(p2[j], block_sq(qn2_s[r * S + s], cn2, dt[j]));
-            if (a2[j]) d32[j] += BD;
-            const float est = __fmul_rn(p2[j], scl_s[s]);
-            if (s != S - 1 && a2[j] && est > dade_threshold(thr_s[s], rs[j]))
-              a2[j] = false;
-          }
+            slab_dot<false>(row, qv, BD, cn2, dt);
+          const float p2 = __fadd_rn(s == 0 ? 0.0f : pval_s[i], block_sq(qn2_s[r * S + s], cn2, dt));
+          pval_s[i] = p2;
+          const bool rej = s != S - 1 && __fmul_rn(p2, scl_s[s]) > dade_threshold(thr_s[s], rsq_s[r]);
+          pst_s[i] = static_cast<unsigned char>((rej ? 0 : kActive) | ((st & 0x7f) + 1));
         }
-        // ---- dup mask against the window before this merge ----
-        bool enter = false;
-#pragma unroll
-        for (int j = 0; j < kQPT; ++j) {
-          const int r = g + j * kGroups;
-          const bool ok = a2[j] && p2[j] <= rs[j] && valid;
-          if (valid) d32_acc[j] += d32[j];
-          pass_acc[j] += ok ? 1u : 0u;
-          float v = INFINITY;
-          if (ok) {
-            bool dup = false;
-            for (int kk = 0; kk < K; ++kk) {
-              const int w = top_ids_s[r * K + kk];
-              dup = dup || (w >= 0 && w == cid);
-            }
-            if (!dup) v = p2[j];
-          }
-          enter = enter || v < INFINITY;
-          cand_s[r * BC + c] = v;
+        clk.lap(kStage2);
+      }
+      if (pending) {
+        issue_tile<BC>(a, tile, tile_ids, noff);
+        pending = false;
+      }
+      // ---- pass test and dup mask against the window before this merge ----
+      // A warp checks its passing pairs one at a time, 32 window entries of
+      // the pair's query row per round.
+      bool enter = false;
+      for (int i0 = 0; i0 < n_pairs; i0 += kThreads) {
+        const int i = i0 + tid;
+        bool ok = false;
+        int r = 0, cc = 0;
+        float p2 = 0.0f;
+        if (i < n_pairs) {
+          const unsigned char st = pst_s[i];
+          r = pair_s[i] >> 8;
+          cc = pair_s[i] & 0xff;
+          if (st & 0x7f)
+            atomicAdd(&acc_s[r * 3 + 1], static_cast<unsigned long long>((st & 0x7f) * BD));
+          p2 = pval_s[i];
+          ok = (st & kActive) && p2 <= rsq_s[r];
+          if (ok) atomicAdd(&acc_s[r * 3 + 2], 1ull);
         }
-        // ---- merge into the window, then r² = min(r², top[thresh_col]) ----
-        // After the first merge the window is sorted, its empty slots carry
-        // id -1 and r² <= top[thresh_col] (or r² is frozen), so a merge
-        // with no entrant changes nothing and is skipped.
-        if (__syncthreads_or(enter) || !window_sorted) {
-          const int r = warp;  // one warp per query row
+        bool dup = false;
+        for (unsigned m = __ballot_sync(kFull, ok); m; m &= m - 1) {
+          const int src = __ffs(m) - 1;
+          const int rr = __shfl_sync(kFull, r, src);
+          const int id = ids_s[__shfl_sync(kFull, cc, src)];
+          bool hit = false;
+          for (int kk = lane; kk < K; kk += 32) hit = hit || top_ids_s[rr * K + kk] == id;
+          hit = __any_sync(kFull, hit);
+          if (lane == src) dup = hit;
+        }
+        if (ok && !dup) {
+          cand_s[r * BC + cc] = p2;
+          enter = true;
+        }
+      }
+      clk.lap(kDupScan);
+      // ---- merge into the window, then r² = min(r², top[thresh_col]) ----
+      // After the first merge the window is sorted, its empty slots carry
+      // id -1 and r² <= top[thresh_col] (or r² is frozen), so a merge with
+      // no entrant changes nothing and is skipped.
+      if (__syncthreads_or(enter) || !window_sorted) {
+        for (int r = warp; r < BQ; r += kWarps) {  // one warp per query row
           float* wsq = top_sq_s + r * K;
           int* wid = top_ids_s + r * K;
           if (!window_sorted) {
@@ -556,29 +720,30 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
           }
           merge_row(wsq, wid, cand_s + r * BC, ids_s, K, BC, lane);
           if (lane == 0 && a.tighten) rsq_s[r] = fminf(rsq_s[r], wsq[a.thresh_col]);
-          window_sorted = true;
-          __syncthreads();
         }
+        window_sorted = true;
+        __syncthreads();
       }
+      clk.lap(kMerge);
     }
-    if (prefetched) cur = 1 - cur;
   }
+  clk.lap(kOther);
+  clk.store(a.clocks);
 
   // ---- epilogue: window and counters -> global ----
-  atomicAdd(&acc_s[qa * 3 + 0], static_cast<unsigned long long>(d8_acc[0]));
-  atomicAdd(&acc_s[qb * 3 + 0], static_cast<unsigned long long>(d8_acc[1]));
+  if (s1) {
 #pragma unroll
-  for (int j = 0; j < kQPT; ++j) {
-    const int r = g + j * kGroups;
-    atomicAdd(&acc_s[r * 3 + 1], static_cast<unsigned long long>(d32_acc[j]));
-    atomicAdd(&acc_s[r * 3 + 2], static_cast<unsigned long long>(pass_acc[j]));
+    for (int n = 0; n < kNT; ++n) {
+      atomicAdd(&acc_s[(8 * n + qa) * 3 + 0], static_cast<unsigned long long>(d8_acc[2 * n]));
+      atomicAdd(&acc_s[(8 * n + qb) * 3 + 0], static_cast<unsigned long long>(d8_acc[2 * n + 1]));
+    }
   }
   __syncthreads();
-  for (int e = tid; e < kBQ * K; e += kThreads) {
+  for (int e = tid; e < BQ * K; e += kThreads) {
     a.top_sq[q0 * K + e] = top_sq_s[e];
     a.top_ids[q0 * K + e] = top_ids_s[e];
   }
-  if (tid < kBQ) {
+  if (tid < BQ) {
     float* o = a.stats + (q0 + tid) * 6;
     o[0] = static_cast<float>(acc_s[tid * 3 + 0]);
     o[1] = static_cast<float>(acc_s[tid * 3 + 1]);
@@ -589,15 +754,15 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
   }
 }
 
-// Launch kernel `fn` (a scan_walk<BC> instantiation) over q_tiles CTAs on
-// `stream`; returns the cudaError_t of the attribute call or the launch.
-template <int BC>
+// Launch kernel `fn` (a scan_walk<BC, BQ> instantiation) over q_tiles CTAs
+// on `stream`; returns the cudaError_t of the attribute call or the launch.
+template <int BC, int BQ>
 inline int launch_walk(void (*fn)(WalkArgs), int device, const WalkArgs& a,
                        int q_tiles, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (q_tiles <= 0) return 0;
-  const size_t smem = make_layout<BC>(a.D, a.S, a.K, a.BD).total;
+  const size_t smem = make_layout<BC, BQ>(a.D, a.S, a.K, a.BD, a.rows_bf16 ? 2 : 4).total;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

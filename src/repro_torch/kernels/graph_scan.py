@@ -54,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     lib.graph_scan_launch.argtypes = (
         [i] + [p] * 10 + [i] + [p] * 8 + [i] * 9 + [ctypes.c_float, p])
     lib.graph_scan_launch.restype = i
-    lib.graph_scan_smem_bytes.argtypes = [i] * 4
+    lib.graph_scan_smem_bytes.argtypes = [i] * 5
     lib.graph_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -162,7 +162,8 @@ def _launch(step_offs, qcodes, q_rot, qscales, top0_sq, top0_ids, r0_sq, vis0,
     if adj_rot.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"adj_rot must be float32 or bfloat16, got {adj_rot.dtype}")
     lib = _lib()
-    smem = lib.graph_scan_smem_bytes(dim, dim // block_d, ef, block_d)
+    smem = lib.graph_scan_smem_bytes(dim, dim // block_d, ef, block_d,
+                                     adj_rot.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"graph_scan needs {smem} B of shared memory per block "
                          f"at these shapes; the card offers {MAX_SMEM_BYTES}")
@@ -177,7 +178,7 @@ def _launch(step_offs, qcodes, q_rot, qscales, top0_sq, top0_ids, r0_sq, vis0,
         rows=adj_rot.contiguous(), ids=adj_ids.to(torch.int32).contiguous(),
         bscales=bscales.float().contiguous(), eps=eps.float().contiguous(),
         scale=scale.float().contiguous())
-    for name in ("codes", "rows"):
+    for name in ("codes", "rows", "ids"):
         if ins[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for cp.async")
     top_sq = torch.empty((qn, ef), dtype=torch.float32, device=q_rot.device)

@@ -8,7 +8,11 @@ query's threshold from an exact-verified sample (two-phase search), then
 runs the whole corpus through the fused wave-scan kernel as
 ``corpus // wave`` waves of ``wave // 128`` candidate tiles: int8 stage 1,
 demand-paged fp stage 2, and the running top-K / r² kept on the card
-between waves.  With one card there is no cross-shard merge.
+between waves.  ``shards`` cuts the waves into that many contiguous runs,
+each walked from the same seeded r² with an empty window, and merges the
+windows as the reference's ``hierarchical_topk`` does across a mesh of as
+many shards (``ivf_scan_kernel_call(segments=...)``): one launch, with
+``shards`` times as many independent walks to fill the card.
 
 The graph route serves a batch through ``index.graph.search_graph_fused``:
 one ``graph_scan`` launch per frontier wave, the host selecting the next
@@ -27,12 +31,16 @@ from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
 from repro_torch.quant.scalar import quantize_queries_block
 
 __all__ = ["build_search_step", "build_graph_engine", "seed_rsq",
-           "fused_scan_inputs", "FUSED_BLOCK_C", "FUSED_BLOCK_Q"]
+           "fused_scan_inputs", "FUSED_BLOCK_C", "FUSED_BLOCK_Q", "SHARDS"]
 
 # Query-tile rows and candidate-tile rows of the fused route (the kernel's
 # tile); serve.py's fetch report normalizes its per-wave figures with
 # FUSED_BLOCK_C.
 FUSED_BLOCK_Q, FUSED_BLOCK_C = KERNEL_TILE
+# The flat route's default shard count on one card: four segments of the
+# wave scan give 64 query tiles x 4 = 256 CTAs, two to each of an H100's 132
+# SMs, the fastest split measured at the serving shape.
+SHARDS = 4
 
 
 def seed_rsq(svc: ServiceConfig, corpus, queries, eps):
@@ -84,15 +92,18 @@ def fused_scan_inputs(svc: ServiceConfig, corpus, codes, bscales, queries,
     return args, kwargs
 
 
-def build_search_step(svc: ServiceConfig, *, with_stats: bool = False):
+def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
+                      shards: int = SHARDS):
     """Returns ``step(corpus, codes, bscales, queries, eps, scale, eps_lo)
     -> (dists, ids[, scan])`` for the int8 fused route.
 
     ``corpus`` (N, D) rotated rows (bf16 or f32), ``codes`` (N, D) int8
     per-block codes, ``bscales`` (S,), ``queries`` (Q, D) rotated, and the
-    blocked table.  The step runs on the tensors' device.  ``with_stats``
-    appends a (6,) float64 vector of the kernel's scan counters summed over
-    queries (the tile-level fetch counters 4-5 counted once per tile).
+    blocked table.  The step runs on the tensors' device.  ``shards`` is
+    the reference's shard count, run as that many segments of one scan
+    (1: the reference's one-device step).  ``with_stats`` appends a (6,)
+    float64 vector of the kernel's scan counters summed over queries and
+    shards (the tile-level fetch counters 4-5 counted once per tile).
     """
 
     def step(corpus, codes, bscales, queries, eps, scale, eps_lo):
@@ -100,7 +111,7 @@ def build_search_step(svc: ServiceConfig, *, with_stats: bool = False):
         r0 = seed_rsq(svc, corpus, queries, eps)
         args, kwargs = fused_scan_inputs(svc, corpus, codes, bscales, queries,
                                          eps, scale, r0)
-        top_sq, top_ids, stats = ivf_scan_kernel_call(*args, **kwargs)
+        top_sq, top_ids, stats = ivf_scan_kernel_call(*args, segments=shards, **kwargs)
         dists = torch.sqrt(torch.clamp_min(top_sq, 0.0))
         if not with_stats:
             return dists, top_ids

@@ -2,7 +2,8 @@
 ``repro.launch.serve``: ``--index flat|graph --quant int8 --fused on``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cuda] \
-        [--index flat] [--requests 10] [--corpus 1048576] [--batch 1024] [--k 100]
+        [--index flat] [--requests 10] [--corpus 1048576] [--batch 1024] [--k 100] \
+        [--shards G]
     PYTHONPATH=src python -m repro_torch.launch.serve --index graph \
         [--corpus 32768] [--k 10] [--ef 48] [--expand 2] [--m 16]
 
@@ -12,7 +13,9 @@ at p_s=0.02).  Builds the estimator on a corpus sample, rotates and
 encodes the corpus on the card, serves batched requests through the fused
 wave-scan kernel and prints one report line: QPS, recall@k against exact
 ground truth, the warm-up step's time (``compile_ms``; it includes the
-first kernel build) and the stage-2 fetch figures.
+first kernel build) and the fetch figures.  ``--shards`` is the
+reference's shard count (its ``--devices``), run on the one card as that
+many segments of each scan, merged as the reference merges shards.
 
 The graph route builds the NSW graph (m=16, ef_construction=max(2·ef, 64),
 f32 adjacency rows, int8 codes; the insertion loop runs on the host, so
@@ -41,8 +44,9 @@ from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
 from repro_torch.index.graph import GraphIndex, build_graph
 from repro_torch.kernels.ops import block_table
 from repro_torch.launch.annservice import (
-    FUSED_BLOCK_C, build_graph_engine, build_search_step,
+    FUSED_BLOCK_C, SHARDS, build_graph_engine, build_search_step,
 )
+from repro_torch.quant.accounting import ID_BYTES, fetched_tile_bytes
 from repro_torch.quant.accounting import stage2_fetch_report
 from repro_torch.quant.scalar import fit_block_scales, quantize_block
 from repro_torch.runtime.scheduler import BatchScheduler
@@ -79,6 +83,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="frontier expansions per query per wave (--index graph)")
     ap.add_argument("--m", type=int, default=16,
                     help="graph degree of the --index graph route")
+    ap.add_argument("--shards", type=int, default=SHARDS,
+                    help="flat route: corpus shards, walked as segments of one "
+                         "scan on the card and merged as the reference's mesh "
+                         "merges them")
     ap.add_argument("--quant", default="int8", choices=["int8"])
     ap.add_argument("--fused", default="on", choices=["on"])
     args = ap.parse_args(argv)
@@ -237,7 +245,7 @@ def main(argv=None, *, graph: GraphService | None = None) -> dict:
         return serve_graph(args, svc, dev, graph)
     srv = prepare_service(svc, args.method, dev)
     corpus, n, d_pad = srv.corpus, svc.corpus_per_device, srv.d_pad
-    step = build_search_step(svc, with_stats=True)
+    step = build_search_step(svc, with_stats=True, shards=args.shards)
     scan_totals = np.zeros((6,), np.float64)
 
     def fixed_step(batch_np):
@@ -285,10 +293,16 @@ def main(argv=None, *, graph: GraphService | None = None) -> dict:
         s1_tiles, s2_slabs, block_c=FUSED_BLOCK_C, d_pad=d_pad,
         block_d=svc.delta_d, fp_bytes=srv.rows.element_size())
     waves = max(s1_tiles / (svc.wave // FUSED_BLOCK_C), 1.0)
+    # Fetched bytes of whole batches (pad rows included) per query served.
+    fetched_q = (fetched_tile_bytes(s1_tiles, block_c=FUSED_BLOCK_C, dims=d_pad,
+                                    bytes_per_dim=1, id_bytes=ID_BYTES)
+                 + fetched) / max(sched.stats["rows"], 1)
     report = {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
-              "queries": total_q, "requests_served": served,
+              "queries": total_q, "requests_served": served, "shards": args.shards,
+              "fetched_bytes_per_query": float(fetched_q),
               "s2_skip_rate": float(skip), "device": str(dev)}
-    print(f"method={args.method} quant={args.quant} devices=1 corpus={n} "
+    print(f"method={args.method} quant={args.quant} devices=1 shards={args.shards} "
+          f"corpus={n} "
           f"requests={served}/{sched.stats['submitted']} rows={total_q} "
           f"batches={sched.stats['batches']} "
           f"pad_frac={sched.stats['padded_rows']/max(sched.stats['rows'], 1):.2f} "
@@ -296,7 +310,8 @@ def main(argv=None, *, graph: GraphService | None = None) -> dict:
           f"compile_ms={compile_ms:.0f} fused=megakernel"
           f" s2_fetched_B_per_wave={fetched/waves:.0f}"
           f" s2_skipped_B_per_wave={skipped/waves:.0f}"
-          f" s2_skip_rate={skip:.3f} device={dev}", flush=True)
+          f" s2_skip_rate={skip:.3f} fetched_B_per_q={fetched_q:.0f}"
+          f" device={dev}", flush=True)
     return report
 
 

@@ -1,7 +1,8 @@
-"""The CUDA ``ivf_scan``, ``graph_scan``, ``dade_dco``, ``quant_dco`` and
-``l2_scan`` kernels against their plain PyTorch versions on the card, and
-the repeatability of an IVF build there (needs no JAX, so it runs where
-only the port is installed).
+"""The CUDA ``ivf_scan`` (every query-tile width, split into segments),
+``graph_scan``, ``dade_dco``, ``quant_dco`` and ``l2_scan`` kernels against
+their plain PyTorch versions on the card, bit for bit, and the
+repeatability of an IVF build there (needs no JAX, so it runs where only
+the port is installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
 false, since a CUDA kernel has no CPU mode.  On the card:
@@ -13,13 +14,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.graph_scan import graph_scan_kernel_call  # noqa: E402
-from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call  # noqa: E402
+from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call, ivf_scan_plain  # noqa: E402
 from repro_torch.kernels.ref import graph_scan_ref, ivf_scan_ref  # noqa: E402
 from repro_torch.quant.scalar import (  # noqa: E402
     fit_block_scales, quantize_block, quantize_queries_block)
 
 
-def _case(k, block_q, bf16, seed=0, n_rows=2048, dim=128, block_d=32, block_c=128):
+def _case(k, block_q, bf16, seed=0, n_rows=2048, dim=128, block_d=32, block_c=128, qn=16):
     g = torch.Generator(device="cuda").manual_seed(seed)
     scales = torch.exp(-0.03 * torch.arange(dim, device="cuda"))
     rows = torch.randn((n_rows, dim), generator=g, device="cuda") * scales
@@ -27,17 +28,17 @@ def _case(k, block_q, bf16, seed=0, n_rows=2048, dim=128, block_d=32, block_c=12
     ids[-block_c:] = -1
     bs = fit_block_scales(rows, block_d)
     codes = quantize_block(rows, bs, block_d)
-    q = rows[:16] + 0.1 * torch.randn((16, dim), generator=g, device="cuda") * scales
-    starts = torch.tensor([[0, 700, 1400, 700]] * (16 // block_q), device="cuda")
-    sizes = torch.tensor([[600, 300, 500, 300]] * (16 // block_q), device="cuda")
+    q = rows[:qn] + 0.1 * torch.randn((qn, dim), generator=g, device="cuda") * scales
+    starts = torch.tensor([[0, 700, 1400, 700]] * (qn // block_q), device="cuda")
+    sizes = torch.tensor([[600, 300, 500, 300]] * (qn // block_q), device="cuda")
     cap = ops.ivf_cap_tiles(600, block_c, starts_aligned=False)
     offs = ops.build_window_offsets(starts, sizes, block_c=block_c, cap_tiles=cap,
                                     n_pad=n_rows)
     qcodes, qscales = quantize_queries_block(q, block_d)
     s = dim // block_d
-    r0 = torch.full((16,), float("inf"), device="cuda")
-    args = (offs, qcodes, q, qscales, r0, torch.full((16, k), float("inf"), device="cuda"),
-            torch.full((16, k), -1, dtype=torch.int32, device="cuda"), codes,
+    r0 = torch.full((qn,), float("inf"), device="cuda")
+    args = (offs, qcodes, q, qscales, r0, torch.full((qn, k), float("inf"), device="cuda"),
+            torch.full((qn, k), -1, dtype=torch.int32, device="cuda"), codes,
             rows.to(torch.bfloat16) if bf16 else rows, ids, bs,
             torch.linspace(0.3, 0.0, s, device="cuda"),
             torch.linspace(float(s), 1.0, s, device="cuda"))
@@ -60,6 +61,26 @@ def test_cuda_kernel_matches_plain_version(k, block_q, bf16):
     assert torch.equal(ids_k, ids_p)
     # Both round every float operation alike, in the same order.
     assert torch.equal(sq_k, sq_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments", [1, 2, 8])
+@pytest.mark.parametrize("block_q,bf16", [(8, True), (16, False), (16, True)])
+def test_cuda_split_scan_matches_plain_version(segments, block_q, bf16):
+    """The walk split into 1, 2 or 8 segments (4 probes: with 8, some
+    segments are all gaps), at each query-tile width, against the plain
+    version's split walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ivf_scan kernel has no CPU mode")
+    args, kw = _case(100, block_q, bf16, seed=segments, qn=32)
+    before = ivf_scan_kernel_call.launches
+    out_k = ivf_scan_kernel_call(*args, **kw, segments=segments)
+    out_p = ivf_scan_plain(*args, **kw, segments=segments)
+    torch.cuda.synchronize()
+    assert ivf_scan_kernel_call.launches == before + 1
+    for a, b in zip(out_k, out_p):  # window, ids, stats: bit for bit
+        assert torch.equal(a, b)
+    assert float(out_k[2][:, 3].sum()) > 0
 
 
 def _graph_case(ef, bf16, tighten, thresh_col, seed=0, n_nodes=600, dim=128,
@@ -161,17 +182,14 @@ def _bitwise(a, b):
     (64, 300, 20, 32, "dade"), (200, 333, 17, 64, "adsampling"),
     (384, 150, 5, 128, "fdscanning"), (256, 1000, 40, 64, "dade")])
 def test_cuda_screen_kernels_match_plain_versions(dim, n, qn, block_d, method):
-    """dade_dco, quant_dco and l2_scan, each bit for bit against its plain
-    version on the same padded inputs (ragged tiles, pad rows at 1e18 whose
-    sums overflow to inf at D = 384, r² = 0 and 1e30, disabled
+    """dade_dco and quant_dco, each bit for bit against its plain version on
+    the same padded inputs (ragged tiles, r² = 0 and 1e30, disabled
     checkpoints)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the flat screen kernels have no CPU mode")
     from repro_torch.kernels import ops as k_ops
     from repro_torch.kernels.dade_dco import dade_dco_kernel_call
-    from repro_torch.kernels.l2_scan import l2_scan_kernel_call
     from repro_torch.kernels.quant_dco import quant_dco_kernel_call
-    from repro_torch.kernels.ref import l2_scan_ref
 
     est, q, c, qc, r_sq = _screen_case(dim, dim, n, qn, block_d, method)
     kw = dict(block_q=8, block_c=128, block_d=block_d)
@@ -185,12 +203,32 @@ def test_cuda_screen_kernels_match_plain_versions(dim, n, qn, block_d, method):
     out_p = k_ops.quant_screen_kernel(est, q, qc.codes, qc.scales, r_sq, use_ref=True, **kw)
     assert all(_bitwise(a, b) for a, b in zip(out_k, out_p))
     assert bool(out_k[1].any()) and not bool(out_k[1].all())
-    pad = (-dim) % block_d
-    qp = torch.nn.functional.pad(q, (0, pad))
-    cp = torch.cat([torch.nn.functional.pad(c, (0, pad)),
-                    torch.full((7, dim + pad), 1e18, device="cuda")])
-    assert _bitwise(l2_scan_kernel_call(qp, cp, block_q=1, block_c=1, block_d=block_d),
-                    l2_scan_ref(qp, cp, block_d=block_d))
     torch.cuda.synchronize()
     assert (dade_dco_kernel_call.launches, quant_dco_kernel_call.launches) == (
         before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,qn,n,block_d", [
+    (64, 37, 300, 32), (256, 130, 1000, 64), (384, 5, 150, 128), (256, 200, 2001, 16)])
+def test_cuda_l2_scan_matches_plain_version(dim, qn, n, block_d):
+    """l2_scan bit for bit against l2_scan_ref: Q and N not multiples of the
+    kernel's 128 x 128 tile, pad rows at 1e18 (their sums overflow to inf at
+    D = 384), block widths from one staged chunk (16) to eight (128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the l2_scan kernel has no CPU mode")
+    from repro_torch.kernels.l2_scan import l2_scan_kernel_call
+    from repro_torch.kernels.ref import l2_scan_ref
+
+    est, q, c, _, _ = _screen_case(dim, dim, n, qn, 32, "dade")
+    cp = torch.cat([c, torch.full((7, dim), 1e18, device="cuda")])
+    before = l2_scan_kernel_call.launches
+    out = l2_scan_kernel_call(q, cp, block_q=1, block_c=1, block_d=block_d)
+    torch.cuda.synchronize()
+    assert l2_scan_kernel_call.launches == before + 1
+    ref = l2_scan_ref(q, cp, block_d=block_d)
+    assert _bitwise(out, ref)
+    assert bool(torch.isfinite(out[:, :n]).all())
+    if dim == 384:
+        assert bool(torch.isinf(out[:, n:]).all())
+

@@ -23,7 +23,7 @@ from repro_torch.index.flat import build_flat  # noqa: E402
 from repro_torch.index.graph import build_graph, search_graph_fused  # noqa: E402
 from repro_torch.index.ivf import build_ivf  # noqa: E402
 from repro_torch.index.kmeans import kmeans  # noqa: E402
-from repro_torch.kernels import _screen, graph_scan, ivf_scan, ops  # noqa: E402
+from repro_torch.kernels import _screen, graph_scan, ivf_scan, l2_scan, ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.annservice import build_graph_engine  # noqa: E402
 
@@ -153,3 +153,8 @@ def test_graph_scan_build_is_lazy():
 def test_screen_kernel_builds_are_lazy():
     """Importing the flat screen kernels' modules builds and loads nothing."""
     assert _screen._lib.cache_info().currsize == 0 or torch.cuda.is_available()
+
+
+def test_l2_scan_build_is_lazy():
+    """Importing the l2 scan's module builds and loads nothing."""
+    assert l2_scan._lib.cache_info().currsize == 0 or torch.cuda.is_available()

@@ -31,7 +31,7 @@ from repro_torch.configs.dade_ivf import ServiceConfig  # noqa: E402
 from repro_torch.kernels.graph_scan import graph_scan_kernel_call  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call  # noqa: E402
-from repro_torch.launch.annservice import build_search_step  # noqa: E402
+from repro_torch.launch.annservice import FUSED_BLOCK_Q, build_search_step  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(corpus_per_device=2048, dim=64, query_batch=16, k=10, delta_d=16,
@@ -58,18 +58,49 @@ def test_fused_search_step_matches_reference():
                               eps, scale, eps_lo)
 
     T = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
-    step = build_search_step(ServiceConfig(**SMALL), with_stats=True)
+    step = build_search_step(ServiceConfig(**SMALL), with_stats=True, shards=1)
     launches = ivf_scan_kernel_call.launches
     d, i, scan = step(T(c_rot), T(codes), T(bscales), T(q_rot), T(eps), T(scale),
                       T(eps_lo))
     assert ivf_scan_kernel_call.launches == launches  # CPU tensors: plain path
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
     np.testing.assert_allclose(d.numpy(), np.asarray(d_j), rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(scan.numpy(), np.asarray(scan_j, np.float64))
+    # Per-query counters (0-3) do not depend on the query-tile width; the
+    # tile-level fetch counters (4-5) are the reference's own at the port's
+    # width (the reference's step picks 8 off the TPU, 32 on it).
+    scan_j = np.asarray(scan_j, np.float64)
+    np.testing.assert_array_equal(scan.numpy()[:4], scan_j[:4])
+    np.testing.assert_array_equal(scan.numpy()[4:], _reference_fetch_counters(
+        c_rot, codes, bscales, q_rot, eps, scale, svc_j, FUSED_BLOCK_Q))
     _, gt = exact_knn(jnp.asarray(queries), jnp.asarray(corpus), 10)
     gt = np.asarray(gt)
     rec = np.mean([len(set(i.numpy()[r]) & set(gt[r])) / 10 for r in range(16)])
     assert rec >= 0.95
+
+
+def _reference_fetch_counters(c_rot, codes, bscales, q_rot, eps, scale, svc, block_q):
+    """Stats columns 4-5 of the step's scan counted by the reference's oracle
+    (``repro.kernels.ref.ivf_scan_ref``) at query-tile width block_q, from
+    the step's seeded r0 (whose decisions the other columns hold equal)."""
+    from repro.kernels.ref import ivf_scan_ref as j_ivf_scan_ref
+    from repro.quant.scalar import quantize_queries_block
+    from repro_torch.launch.annservice import seed_rsq
+
+    q = q_rot.shape[0]
+    T = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    r0 = seed_rsq(ServiceConfig(**SMALL), T(c_rot), T(q_rot), T(eps)).numpy()
+    qcodes, qscales = quantize_queries_block(jnp.asarray(q_rot), svc.delta_d)
+    cap = svc.wave // 128
+    waves = svc.corpus_per_device // svc.wave
+    offs = jnp.broadcast_to(jnp.arange(waves * cap, dtype=jnp.int32).reshape(1, waves, cap),
+                            (q // block_q, waves, cap))
+    _, _, st = j_ivf_scan_ref(
+        offs, qcodes, jnp.asarray(q_rot), qscales, jnp.asarray(r0),
+        jnp.full((q, svc.k), jnp.inf, jnp.float32), jnp.full((q, svc.k), -1, jnp.int32),
+        codes, jnp.asarray(c_rot), jnp.arange(svc.corpus_per_device, dtype=jnp.int32),
+        bscales, eps, scale, k=svc.k, block_q=block_q, block_c=128, block_d=svc.delta_d,
+        cap_tiles=cap)
+    return np.asarray(st, np.float64)[::block_q, 4:].sum(0)
 
 
 def _serve(*flags):
