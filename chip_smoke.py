@@ -19,7 +19,7 @@ on any fault.  Phases, one line each:
      ``search_ivf_fused`` on a 2^20 x 256 corpus, the kernel held against
      the plain version on the search's own inputs;
   4. serve: the flat serving route (``repro_torch.launch.serve``) at the
-     ``dade_ivf`` configuration, 3 requests, recall@100 >= 0.95, with one
+     ``dade_ivf`` configuration, 40 requests, recall@100 >= 0.95, with one
      shard and then (the main path) with the served shard count;
   5. ivf_scan at the serving shape as served: time beside its bound, the
      plain version's time (its output held against the kernel's at that
@@ -27,16 +27,26 @@ on any fault.  Phases, one line each:
      phase 5b: every (query-tile width, segments) pair timed in this run with its fetched bytes, slabs and recall per query, and the
      phase clocks of the timing build at the one-walk 8-query configuration
      and at the served one;
-  6. graph parity: graph_scan against its plain version on awkward waves
-     (EF 1/48/128, both threshold columns, frozen r², bf16 rows, Δd 32/64,
-     -1 gaps with repeats across them, vis_base != 0, bit 31 set);
+  6. graph parity: the one-wave graph_scan kernel against its plain
+     version on awkward waves (EF 1/48/128, both threshold columns, frozen
+     r², bf16 rows, Δd 32/64, -1 gaps with repeats across them, vis_base
+     != 0, bit 31 set); then (6b, once the graph of phase 7 is built) the
+     walk kernel, which runs a whole search in one launch, against the
+     plain walk on 203 queries of that graph: defaults, seed_r, coupled,
+     route_mult 1.2, bf16 rows and a max_waves cap, bit for bit on the
+     window, every wave's stats rows, the final bitmap and each tile's wave
+     count, the tiles converging at different waves;
   7. graph route: the NSW graph of a 32,768 x 256 corpus (m = 16,
      ef_construction 96, f32 rows, Δd = 64, DADE at p_s = 0.02) and
-     ``search_graph_fused`` for 1024 queries (k = 10, ef = 48, expand 2),
-     held against the same walk through the plain version
-     (``search_graph_beam_host``), recall@10 >= 0.80; the widest wave's
-     launch timed beside its bound and its plain version;
-  8. graph serve: ``serve --index graph`` on the same graph, 3 requests;
+     ``search_graph_fused`` for 1024 queries (k = 10, ef = 48, expand 2):
+     one walk launch per search and none of the host's per-wave selection,
+     the search's wall time, the card's busy share (``torch.profiler``) and
+     the rest on the host; the walk held against the plain walk
+     (``search_graph_beam_host``) bit for bit, recall@10 >= 0.80; the walk
+     timed beside its bound and the plain walk, and every wave of the search
+     through the one-wave kernel (the route it replaced) for comparison;
+  8. graph serve: ``serve --index graph`` on the same graph, 200 requests
+     (about 250 batches) served 3 times, one walk launch per batch;
   9. flat screen parity: dade_dco, quant_dco and l2_scan against their
      plain versions on awkward cases (D 64/200/384/256 at Δd 32/64/128/64,
      ragged N and Q, bf16 inputs, r² = 0, 1e30 and inf, DADE, ADSampling
@@ -57,9 +67,10 @@ on any fault.  Phases, one line each:
      ``use_quant``, recall@100 >= 0.95 and the same ids from both.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
-paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan, 10
-for the flat screens), its worst deviation from the plain version, its
-time, bound, plain time and library time.
+paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
+walk, 10 for the flat screens), its worst deviation from the plain
+version, its time, bound, plain time and library time; graph_scan's are
+the walk's, per 1024-query search.
 
 Kernel parity rule: the top-K ids, the squared distances, every stats
 counter, the visited bitmap and every screen output (estimates, flags,
@@ -91,6 +102,13 @@ PEAK_BYTES = 3.35e12
 # 16 x 128 screen skeleton's no-screen mode, in this script's final run on
 # the commit that shipped it.
 L2_SCAN_BEFORE_MS = 43.503
+# Requests served per run (each about 1.25 batches of 1024 queries), so
+# that a timed window lasts seconds: phase 4's flat serving (one run per
+# shard count) and phase 8's graph serving (SERVE_RUNS runs over the same
+# requests, for the spread).
+FLAT_REQUESTS = 40
+GRAPH_REQUESTS = 200
+SERVE_RUNS = 3
 
 
 def log(msg: str) -> None:
@@ -265,10 +283,10 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         f"in {time.perf_counter() - t0:.1f}s")
     qs = srv.prep(synthetic_queries(slice_queries, svc.dim, srv.corpus, seed=5))
     rows_s, codes_s = srv.rows[:slice_rows], srv.codes[:slice_rows]
-    r0 = seed_rsq(svc, rows_s, qs, srv.eps)
-    args, kw = fused_scan_inputs(svc, rows_s, codes_s, srv.bscales, qs,
-                                 srv.eps, srv.scale, r0)
     for g in dict.fromkeys([1, SHARDS]):
+        r0 = seed_rsq(svc, rows_s, qs, srv.eps, segments=g)
+        args, kw = fused_scan_inputs(svc, rows_s, codes_s, srv.bscales, qs,
+                                     srv.eps, srv.scale, r0)
         max_err = max(max_err, compare(f"full_width_{slice_queries}x{slice_rows}_G{g}",
                                        args, kw, segments=g))
 
@@ -330,7 +348,8 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     # The one-walk route first, for comparison; then the served shard count,
     # whose launches are the main path's.
     serve_argv = [
-        "--device", DEV, "--requests", "3", "--corpus", str(svc.corpus_per_device),
+        "--device", DEV, "--requests", str(FLAT_REQUESTS),
+        "--corpus", str(svc.corpus_per_device),
         "--dim", str(svc.dim), "--k", str(svc.k), "--batch", str(svc.query_batch),
         "--wave", str(svc.wave), "--delta-d", str(svc.delta_d), "--dtype", svc.dtype,
         "--p-s", str(svc.p_s)]
@@ -342,18 +361,33 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         check(report["recall"] >= 0.95, f"serving recall@{svc.k} {report['recall']} < 0.95")
         log(f"serve: ok shards={g} recall@{svc.k}={report['recall']:.4f} "
             f"qps={report['qps']:.1f} fetched_B_per_query="
-            f"{report['fetched_bytes_per_query']:.0f} launches={serve_launches}")
+            f"{report['fetched_bytes_per_query']:.0f} launches={serve_launches} over "
+            f"{report['queries']} queries, a timed window of "
+            f"{report['queries'] / report['qps']:.3f} s")
 
     # ---- 5. the kernel at the serving shape: time, bound, plain, library ----
     q_raw = synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7)
     qb = srv.prep(q_raw)
-    r0 = seed_rsq(svc, srv.rows, qb, srv.eps)
+    r0 = seed_rsq(svc, srv.rows, qb, srv.eps, segments=SHARDS)
     args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
                                  srv.eps, srv.scale, r0)
     kw = dict(kw, segments=SHARDS)
     kernel(*args, **kw)  # warm
     ms, out_k = cuda_ms(lambda: kernel(*args, **kw), 5)
     st_k = out_k[2]
+    # What the segments' own seeds change: the same split walk from the
+    # corpus's first wave alone, the seed every segment took before.
+    r0_one = seed_rsq(svc, srv.rows, qb, srv.eps)
+    st_one = kernel(*args[:4], r0_one, *args[5:], **kw)[2].double()
+    st_seg = st_k.double()
+    log(f"seed: {SHARDS} segments' own seeds are tighter for "
+        f"{int((r0 < r0_one).sum())} of {r0.shape[0]} queries (median r0 ratio "
+        f"{float((r0 / r0_one).median()):.4f}); stage-2 dims, passes, stage-2 slabs "
+        f"{float(st_seg[:, 1].sum()):.0f} / {float(st_seg[:, 3].sum()):.0f} / "
+        f"{float(st_seg[::FUSED_BLOCK_Q, 4].sum()):.0f} against "
+        f"{float(st_one[:, 1].sum()):.0f} / {float(st_one[:, 3].sum()):.0f} / "
+        f"{float(st_one[::FUSED_BLOCK_Q, 4].sum()):.0f} from the first wave's seed")
+    del st_one
     t0 = time.perf_counter()
     plain_ms, out_p = cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args, **kw), 1)
     log(f"plain: one call at the serving shape in {time.perf_counter() - t0:.1f}s")
@@ -416,24 +450,27 @@ def scan_design(svc, srv, qb, gt, card, *, widths, segment_counts, served) -> di
     from repro_torch.launch.annservice import fused_scan_inputs, seed_rsq
 
     kernel = ivf_scan.ivf_scan_kernel_call
-    r0 = seed_rsq(svc, srv.rows, qb, srv.eps)
+    # Each segment count seeds as the served step does: from the minimum
+    # of its segments' first waves.
+    r0s = {g: seed_rsq(svc, srv.rows, qb, srv.eps, segments=g) for g in segment_counts}
     args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
-                                 srv.eps, srv.scale, r0)
+                                 srv.eps, srv.scale, r0s[1])
     qn, d_pad = qb.shape
     bc, bd = kw["block_c"], kw["block_d"]
     gt_np = gt.cpu().numpy()
 
-    def inputs(bq):
+    def inputs(bq, g):
         # The flat route's step table is the same for every query tile.
-        return (args[0][:1].expand(qn // bq, -1, -1),) + args[1:], dict(kw, block_q=bq)
+        return ((args[0][:1].expand(qn // bq, -1, -1),) + args[1:4] + (r0s[g],)
+                + args[5:], dict(kw, block_q=bq))
 
     rows = {}
     for bq in widths:
-        a, k = inputs(bq)
         smem = ivf_scan.smem_bytes(dim=d_pad, block_d=bd, k=svc.k, block_q=bq,
                                    row_bytes=srv.rows.element_size())
         log(f"design: block_q={bq}: {smem} B of shared memory a CTA")
         for g in segment_counts:
+            a, k = inputs(bq, g)
             try_kw = dict(k, segments=g)
             kernel(*a, **try_kw)  # warm
             ms, out = cuda_ms(lambda: kernel(*a, **try_kw), 3)
@@ -450,7 +487,7 @@ def scan_design(svc, srv, qb, gt, card, *, widths, segment_counts, served) -> di
                 f"fetched_B_per_query={fetched:.0f} recall@{svc.k}={rec:.4f} on {card}")
     clocks = {}
     for bq, g in dict.fromkeys([(8, 1), served]):
-        a, k = inputs(bq)
+        a, k = inputs(bq, g)
         out_k = kernel(*a, segments=g, **k)
         *out_c, clk = ivf_scan.ivf_scan_phase_clocks(*a, segments=g, **k)
         sync()
@@ -541,22 +578,46 @@ def graph_case(seed, *, ef, thresh_col=None, tighten=True, bf16=False,
                       block_d=block_d, tighten=tighten)
 
 
+def agree_walk(name, out_k, out_p, block_q):
+    """Holds the walk kernel's (top_sq, top_ids, stats (max_waves, Q, 6),
+    vis, waves) against the plain walk's on the same inputs, bit for bit:
+    the window, every wave's stats rows, the final bitmap and each tile's
+    wave count; returns the largest absolute deviation of the squared
+    distances."""
+    import torch
+
+    sq_k, ids_k, st_k, vis_k, w_k = out_k
+    sq_p, ids_p, st_p, vis_p, w_p = out_p
+    err = agree(name, (sq_k, ids_k, st_k.sum(0)), (sq_p, ids_p, st_p.sum(0)), block_q)
+    rows = int((st_k != st_p).any(dim=2).sum())
+    words = int((vis_k != vis_p).sum())
+    waves = w_k.tolist()
+    log(f"parity {name}: per-wave stats rows differ={rows} of {st_k.shape[0]}x{st_k.shape[1]} "
+        f"bitmap_words_differ={words} waves per tile {min(waves)}..{max(waves)} "
+        f"({len(set(waves))} distinct) waves_differ={int((w_k != w_p).sum())}")
+    check(torch.equal(st_k, st_p), f"{name}: per-wave stats rows differ")
+    check(torch.equal(vis_k, vis_p), f"{name}: visited bitmaps differ")
+    check(torch.equal(w_k, w_p), f"{name}: wave counts differ")
+    return err
+
+
 def run_graph(card: str) -> dict:
     """Phases 6-8 on ``DEV``; returns the graph_scan kernels entry."""
-    import numpy as np
+    import dataclasses
+
     import torch
     from repro_torch.configs.dade_ivf import ServiceConfig
     from repro_torch.core.topk import exact_knn
     from repro_torch.data.pipeline import synthetic_queries
     from repro_torch.index import graph as graph_mod
-    from repro_torch.kernels.graph_scan import graph_scan_kernel_call
-    from repro_torch.kernels.ref import graph_scan_ref
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.graph_scan import graph_scan_kernel_call, graph_walk_kernel_call
     from repro_torch.launch import serve
 
-    kernel = graph_scan_kernel_call
+    wave_kernel, walk_kernel = graph_scan_kernel_call, graph_walk_kernel_call
     t_start = time.perf_counter()
 
-    # ---- 6. parity: kernel vs plain on identical inputs ----
+    # ---- 6. parity: the one-wave kernel vs plain on identical inputs ----
     max_err = 0.0
     cases = [
         ("ef1", dict(seed=11, ef=1)),
@@ -570,8 +631,8 @@ def run_graph(card: str) -> dict:
     ]
     for name, kw in cases:
         args, kkw = graph_case(**kw)
-        out_k = kernel(*args, **kkw)
-        out_p = graph_scan_ref(*args, **kkw)
+        out_k = wave_kernel(*args, **kkw)
+        out_p = ref.graph_scan_ref(*args, **kkw)
         sync()
         max_err = max(max_err, agree_graph(f"graph_{name}", out_k, out_p, 8))
 
@@ -590,75 +651,153 @@ def run_graph(card: str) -> dict:
     log(f"graph: built {nodes}x{gsvc.dim} m=16 ef_construction=96 "
         f"adj_block={gidx.adj_block} scan_block_d={gidx.scan_block_d} "
         f"adj_rot={tuple(gidx.adj_rot.shape)} {gidx.adj_rot.dtype} in {build_s:.1f}s")
+    search_kw = dict(k=10, ef=48, expand=2, block_q=8, max_waves=64, seed_r=False,
+                     decoupled=True, route_mult=1.0)
+
+    # ---- 6b. the walk kernel vs the plain walk on this graph ----
+    # 203 queries: 26 tiles, the last with 5 pad rows; every case's tiles
+    # converge at different waves but the cap's.
+    q_cases = synthetic_queries(203, gsvc.dim, gsrv.corpus, seed=3)
+    walk_cases = [("defaults", {}), ("seed_r", dict(seed_r=True)),
+                  ("coupled", dict(decoupled=False)), ("route_mult_1.2", dict(route_mult=1.2)),
+                  ("bf16_rows", dict(bf16=True)), ("max_waves_4", dict(max_waves=4))]
+    for name, extra in walk_cases:
+        kw = dict(search_kw, **extra)
+        index = gidx
+        if kw.pop("bf16", False):
+            index = dataclasses.replace(gidx, adj_rot=gidx.adj_rot.to(torch.bfloat16))
+        args, wkw, _ = graph_mod.walk_inputs(index, q_cases, **kw)
+        out_k = walk_kernel(*args, **wkw)
+        out_p = ref.graph_walk_ref(*args, **wkw)
+        sync()
+        max_err = max(max_err, agree_walk(f"walk_{name}", out_k, out_p, 8))
+        waves = out_k[4].tolist()
+        if "max_waves" in extra:
+            check(max(waves) == extra["max_waves"], f"walk_{name}: the cap did not cut the walk")
+        else:
+            check(len(set(waves)) > 1 and max(waves) < kw["max_waves"],
+                  f"walk_{name}: the tiles did not converge at different waves")
+        del index, out_k, out_p
+
     queries = synthetic_queries(1024, gsvc.dim, gsrv.corpus, seed=1)
     _, gt = exact_knn(queries, gsrv.corpus_t, 10, device=DEV)
+    fused = lambda: graph_mod.search_graph_fused(gidx, queries, k=10, ef=48,  # noqa: E731
+                                                 expand=2, device=DEV)
     # The first search in the process carries one-time costs: timed alone.
     t0 = time.perf_counter()
-    graph_mod.search_graph_fused(gidx, queries, k=10, ef=48, expand=2, device=DEV)
+    fused()
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    # The main path: launches counted, the host's two per-wave steps timed,
-    # every launch's inputs kept (for the widest wave below).
-    waves = []
-    host_ms = {"_select_wave": 0.0, "unpack_vis": 0.0}
+    # The main path: launches counted, its walk's inputs and outputs kept,
+    # and the host's per-wave selection of the old route (the plain
+    # selection, the bitmap unpacking, the per-wave plain scan) counted:
+    # none of it may run on the card's path.
+    kept, host_calls = [], {"ops.unpack_vis": 0, "ref.select_wave_ref": 0,
+                            "ref.graph_scan_ref": 0}
 
     def recording(*args, **kw):
-        waves.append((args, kw))
-        return graph_scan_kernel_call(*args, **kw)
+        out = walk_kernel(*args, **kw)
+        kept.append((args, kw, out))
+        return out
 
-    def timed(name):
-        fn = getattr(graph_mod, name)
+    def counted(mod, name):
+        fn = getattr(mod, name)
 
         def run(*args, **kw):
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            host_ms[name] += (time.perf_counter() - t) * 1e3
-            return out
+            host_calls[f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"] += 1
+            return fn(*args, **kw)
         return run
 
-    patches = {"graph_scan_kernel_call": recording, "_select_wave": timed("_select_wave"),
-               "unpack_vis": timed("unpack_vis")}
-    saved = {name: getattr(graph_mod, name) for name in patches}
-    kernel.launches = 0
+    patches = [(graph_mod, "graph_walk_kernel_call", recording),
+               (ops, "unpack_vis", counted(ops, "unpack_vis")),
+               (ref, "select_wave_ref", counted(ref, "select_wave_ref")),
+               (ref, "graph_scan_ref", counted(ref, "graph_scan_ref"))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    walk_kernel.launches = wave_kernel.launches = 0
     try:
-        for name, fn in patches.items():
-            setattr(graph_mod, name, fn)
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
         t0 = time.perf_counter()
-        d, ids, st = graph_mod.search_graph_fused(gidx, queries, k=10, ef=48, expand=2,
-                                                  device=DEV)
+        d, ids, st = fused()
         sync()
         fused_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        for name, fn in saved.items():
-            setattr(graph_mod, name, fn)
-    route_launches = kernel.launches
-    check(route_launches > 0 and route_launches == st.waves,
-          f"search_graph_fused launched {route_launches} graph_scan kernels "
-          f"over {st.waves} waves")
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    route_launches = walk_kernel.launches
+    check(route_launches == 1 and wave_kernel.launches == 0,
+          f"search_graph_fused launched {route_launches} walk and "
+          f"{wave_kernel.launches} one-wave kernels, not one walk")
+    check(not any(host_calls.values()),
+          f"the card's path ran the host's per-wave selection: {host_calls}")
+    (args, wkw, out_k), = kept
+    del kept
     # The card's share of a search: a profiler trace of the same search, its
     # device activities (kernels and copies) summed against the wall time.
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        graph_mod.search_graph_fused(gidx, queries, k=10, ef=48, expand=2, device=DEV)
+        fused()
         sync()
         prof_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     kernel_ms = sum(e.self_device_time_total for e in device
-                    if "graph_scan_kernel" in e.key) / 1e3
-    log(f"graph: search_ms(first)={first_ms:.1f} search_ms(counted)={fused_ms:.1f} over "
-        f"{route_launches} waves; host per search: _select_wave "
-        f"{host_ms['_select_wave']:.1f} ms, unpack_vis {host_ms['unpack_vis']:.1f} ms; "
-        f"profiled search {prof_ms:.1f} ms: card busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / prof_ms:.2f} %, idle {100 - 100 * busy_ms / prof_ms:.2f} %), "
-        f"graph_scan {kernel_ms:.3f} ms ({100 * kernel_ms / prof_ms:.2f} %)")
+                    if "graph_walk_kernel" in e.key) / 1e3
+    log(f"graph: search_ms(first)={first_ms:.1f} search_ms(counted)={fused_ms:.1f}, "
+        f"launches per search {route_launches} (one-wave kernel {wave_kernel.launches}); "
+        f"host per-wave selection calls {host_calls}; profiled search {prof_ms:.1f} ms: "
+        f"card busy {busy_ms:.3f} ms ({100 * busy_ms / prof_ms:.2f} %, idle "
+        f"{100 - 100 * busy_ms / prof_ms:.2f} %), graph_walk {kernel_ms:.3f} ms "
+        f"({100 * kernel_ms / prof_ms:.2f} %), the rest of the search on the host "
+        f"{prof_ms - busy_ms:.1f} ms")
+
+    # The host's share, part by part: the prologue (rotation, tile sort,
+    # seeds, padding and query codes), the one launch, and the readback with
+    # the ledger (the rest of the search).
     t0 = time.perf_counter()
-    d_p, ids_p, st_p = graph_mod.search_graph_beam_host(gidx, queries, k=10, ef=48,
-                                                        expand=2, device=DEV)
+    p_args, p_kw, _ = graph_mod.walk_inputs(gidx, queries, **search_kw)
     sync()
-    plain_walk_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    walk_kernel(*p_args, **p_kw)
+    sync()
+    t2 = time.perf_counter()
+    fused()
+    sync()
+    t3 = time.perf_counter()
+    del p_args
+    log(f"graph: host parts of a search: prologue {(t1 - t0) * 1e3:.2f} ms, the walk "
+        f"launch to its end {(t2 - t1) * 1e3:.2f} ms, the whole search {(t3 - t2) * 1e3:.2f} "
+        f"ms, so readback and ledger {(t3 - t2 - (t2 - t0)) * 1e3:.2f} ms")
+
+    # The plain walk of the same search: its outputs held against the
+    # kernel's bit for bit, its waves' inputs kept (for the widest wave).
+    waves_in, plain_out = [], []
+
+    def plain_walk(*a, **k):
+        out = ref.graph_walk_ref(*a, **k)
+        plain_out.append(out)
+        return out
+
+    def plain_wave(*a, **k):
+        waves_in.append((a, k))
+        return scan_ref(*a, **k)
+
+    scan_ref = ref.graph_scan_ref
+    saved = [(graph_mod, "graph_walk_ref", graph_mod.graph_walk_ref),
+             (ref, "graph_scan_ref", scan_ref)]
+    try:
+        graph_mod.graph_walk_ref, ref.graph_scan_ref = plain_walk, plain_wave
+        t0 = time.perf_counter()
+        d_p, ids_p, st_p = graph_mod.search_graph_beam_host(gidx, queries, k=10, ef=48,
+                                                            expand=2, device=DEV)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    max_err = max(max_err, agree_walk("walk_main_path_1024q", out_k, plain_out[0], 8))
     check(torch.equal(ids, ids_p), "fused and plain walks return different ids")
     check(torch.equal(d, d_p), "fused and plain walks return different distances")
     check(st == st_p, f"fused and plain walks book different ledgers: {st} vs {st_p}")
@@ -676,55 +815,100 @@ def run_graph(card: str) -> dict:
         f"expansions_per_q={st.expansions_per_query:.1f} "
         f"fetched_B_per_query={st.fetched_bytes_per_query:.0f} "
         f"bytes_per_query={st.bytes_per_query:.0f} s2_skip_rate={st.s2_skip_rate:.3f} "
-        f"search_ms(fused)={fused_ms:.1f} search_ms(plain walk)={plain_walk_ms:.1f}; "
+        f"search_ms(fused)={fused_ms:.1f} search_ms(plain walk)={plain_ms:.1f}; "
         f"fused and plain walks equal (ids, distances, every ledger field)")
     check(rec >= 0.80, f"graph recall@10 {rec} < 0.80")
 
-    # The widest wave: its launch timed, held against the plain version.
-    real, args, kw = max(((int((a[0] >= 0).sum()), a, k) for a, k in waves),
-                         key=lambda w: w[0])
-    del waves
-    kernel(*args, **kw)  # warm
-    ms, out_k = cuda_ms(lambda: kernel(*args, **kw), 21)
-    plain_ms, out_p = cuda_ms(lambda: graph_scan_ref(*args, **kw), 3)
-    max_err = max(max_err, agree_graph(f"graph_widest_wave_{real}_steps", out_k, out_p, 8))
+    # The walk alone, at the main path's inputs, against its bound.
+    walk_kernel(*args, **wkw)  # warm
+    ms, out_t = cuda_ms(lambda: walk_kernel(*args, **wkw), 11)
+    check(all(torch.equal(a, b) for a, b in zip(out_t, out_k)),
+          "the walk kernel's repeated runs differ")
+    del out_t
     stw = out_k[2].double()
-    qn, dim = args[2].shape
-    bq, bc, bd = kw["block_q"], kw["block_c"], kw["block_d"]
-    offs = args[0]
-    distinct = int(torch.unique(offs[offs >= 0]).numel())
-    # Operations this wave's data needs: one multiply-add per int8 dim each
+    qp, dim = args[1].shape
+    bq, bc, bd, ef = wkw["block_q"], wkw["block_c"], wkw["block_d"], wkw["ef"]
+    vis0, vis = args[6], out_k[3]
+    words = vis.shape[1]
+    # Operations this walk's data needs: one multiply-add per int8 dim each
     # (query, row) pair consumed (stats column 0) and per fp dim stage 2
     # consumed (column 1), the latter in float32 outside the tensor cores.
-    ops_s = (2.0 * float(stw[:, 0].sum()) / PEAK_INT8_OPS
-             + 2.0 * float(stw[:, 1].sum()) / PEAK_FP32_FLOPS)
-    # Bytes: each distinct neighbour block's int8 tile and ids once, the fp
-    # slabs of the busiest query tile (a lower bound on the distinct slabs),
-    # the queries with their codes and scales, the window, r² and bitmap in
-    # and out, the step table and the stats.
-    ef, words = kw["ef"], args[7].shape[1]
-    slab_bytes = float(stw[::bq, 4].max()) * bc * bd * args[9].element_size()
-    in_bytes = (distinct * bc * (dim + 4) + slab_bytes + qn * dim * 5
-                + qn * (dim // bd) * 4 + qn * ef * 8 + qn * 4
-                + (qn // bq) * words * 4 + offs.numel() * 4)
-    out_bytes = qn * ef * 8 + qn * 6 * 4 + (qn // bq) * words * 4
+    ops_s = (2.0 * float(stw[..., 0].sum()) / PEAK_INT8_OPS
+             + 2.0 * float(stw[..., 1].sum()) / PEAK_FP32_FLOPS)
+    # Bytes: each neighbour block some tile expanded (the union of the final
+    # bitmaps) read once as int8 codes and ids, the fp slabs of the busiest
+    # query tile over the walk (a lower bound on the distinct slabs), the
+    # queries with their codes and scales, seeds, window and bitmap in and
+    # out, the per-wave stats and the wave counts.
+    union = vis[0].clone()
+    for row in vis[1:]:
+        union |= row
+    distinct = int(sum(bin(w & 0xffffffff).count("1") for w in union.tolist()))
+    slab_bytes = float(stw[:, ::bq, 4].sum(0).max()) * bc * bd * args[8].element_size()
+    in_bytes = (distinct * bc * (dim + 4) + slab_bytes + qp * dim * 5
+                + qp * (dim // bd) * 4 + qp * ef * 8 + qp * 4 + vis0.numel() * 4)
+    out_bytes = qp * ef * 8 + stw.numel() * 4 + vis.numel() * 4 + (qp // bq) * 4
     bytes_s = (in_bytes + out_bytes) / PEAK_BYTES
-    log("library: none — no single PyTorch call computes a graph wave (a "
-        "data-dependent walk of seeded windows, two-stage screens and bitmap "
-        "marks), so library_ms is null")
+    log(f"graph walk: {ms:.4f} ms per {len(queries)}-query search (one launch, "
+        f"{int(out_k[4].max())} waves, {distinct} distinct blocks expanded, "
+        f"{words} bitmap words a tile) against a bound of "
+        f"{max(ops_s, bytes_s) * 1e3:.5f} ms "
+        f"({'operations' if ops_s >= bytes_s else 'bytes'}); the plain walk "
+        f"{plain_ms:.1f} ms")
+    log("library: none — no single PyTorch call computes a graph walk (a "
+        "data-dependent walk of seeded windows, two-stage screens, bitmap "
+        "marks and frontier picks), so library_ms is null")
+
+    # The route the walk replaced launched the one-wave kernel once per
+    # wave: every wave of the same search through it, timed alone, gives
+    # that route's kernel time per search; the widest wave is also held
+    # against its plain version.
+    wave_times = []
+    for a, k in waves_in:
+        wave_kernel(*a, **k)  # warm
+        wave_times.append(cuda_ms(lambda: wave_kernel(*a, **k), 5)[0])
+    waves_sum_ms = sum(wave_times)
+    real, wargs, wkw1 = max(((int((a[0] >= 0).sum()), a, k) for a, k in waves_in),
+                            key=lambda w: w[0])
+    del waves_in
+    wave_kernel(*wargs, **wkw1)  # warm
+    wave_ms, out_wk = cuda_ms(lambda: wave_kernel(*wargs, **wkw1), 21)
+    wave_plain_ms, out_wp = cuda_ms(lambda: ref.graph_scan_ref(*wargs, **wkw1), 3)
+    max_err = max(max_err, agree_graph(f"graph_widest_wave_{real}_steps", out_wk, out_wp, 8))
+    log(f"graph wave: the search's {len(wave_times)} waves through the one-wave kernel, "
+        f"a launch each, {waves_sum_ms:.4f} ms summed (per wave "
+        f"{' '.join(f'{t:.4f}' for t in wave_times)}) against the walk's {ms:.4f} ms in "
+        f"one launch; the widest wave ({real} real steps) {wave_ms:.4f} ms, its plain "
+        f"version {wave_plain_ms:.1f} ms")
 
     # ---- 8. graph serving route on the same graph ----
-    kernel.launches = 0
-    report = serve.main(["--index", "graph", "--device", DEV, "--requests", "3",
-                         "--corpus", str(nodes), "--dim", str(gsvc.dim),
-                         "--k", "10", "--batch", "1024", "--delta-d", "64",
-                         "--p-s", "0.02", "--ef", "48", "--expand", "2", "--m", "16"],
-                        graph=gsrv)
-    serve_launches = kernel.launches
-    check(serve_launches > 0, "the graph serving route launched no graph_scan kernel")
-    check(report["requests_served"] == 3, "the graph serving route did not answer 3 requests")
-    log(f"graph serve: ok recall@10={report['recall']:.4f} qps={report['qps']:.1f} "
-        f"waves={report['waves']:.0f} launches={serve_launches}")
+    walk_kernel.launches = 0
+    reports = []
+    for _ in range(SERVE_RUNS):
+        before = walk_kernel.launches
+        report = serve.main(["--index", "graph", "--device", DEV,
+                             "--requests", str(GRAPH_REQUESTS),
+                             "--corpus", str(nodes), "--dim", str(gsvc.dim),
+                             "--k", "10", "--batch", "1024", "--delta-d", "64",
+                             "--p-s", "0.02", "--ef", "48", "--expand", "2", "--m", "16"],
+                            graph=gsrv)
+        check(report["requests_served"] == GRAPH_REQUESTS,
+              f"the graph serving route did not answer {GRAPH_REQUESTS} requests")
+        run_launches = walk_kernel.launches - before
+        check(run_launches == report["batches"] + 1,  # the warm-up batch's search too
+              f"graph serving launched {run_launches} walks for {report['batches']} "
+              f"batches and the warm-up")
+        reports.append(report)
+    serve_launches = walk_kernel.launches
+    qps = sorted(r["qps"] for r in reports)
+    runs_qps = " ".join(f"{r['qps']:.1f}" for r in reports)
+    windows_s = " ".join(f"{r['queries'] / r['qps']:.3f}" for r in reports)
+    log(f"graph serve: ok {SERVE_RUNS} runs of {GRAPH_REQUESTS} requests "
+        f"({reports[0]['queries']} queries, {reports[0]['batches']} batches each): "
+        f"qps {runs_qps} (median {statistics.median(qps):.1f}, spread "
+        f"{100 * (qps[-1] - qps[0]) / qps[0]:.1f} %), timed windows {windows_s} s; "
+        f"recall@10={reports[0]['recall']:.4f} waves={reports[0]['waves']:.0f} "
+        f"launches={serve_launches}")
     entry = {
         "name": "graph_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/graph_scan.cu",
@@ -734,11 +918,13 @@ def run_graph(card: str) -> dict:
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "library_ms": None,
     }
-    log(f"kernels: graph_scan launches={entry['launches']} (route={route_launches} "
-        f"serve={serve_launches}) max_abs_err={max_err:.3e} ms={ms:.4f} "
-        f"(widest wave: {real} real steps, {distinct} distinct blocks) "
-        f"plain_ms={plain_ms:.1f} bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}) "
-        f"on {card}; phases 6-8 took {time.perf_counter() - t_start:.0f}s")
+    log(f"kernels: graph_scan (the walk) launches={entry['launches']} "
+        f"(route={route_launches} serve={serve_launches}) max_abs_err={max_err:.3e} "
+        f"ms={ms:.4f} per search plain_ms={plain_ms:.1f} "
+        f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); the search's waves "
+        f"through the one-wave kernel {waves_sum_ms:.4f} ms summed, the widest "
+        f"{wave_ms:.4f} ms; on {card}; phases 6-8 took "
+        f"{time.perf_counter() - t_start:.0f}s")
     return entry
 
 

@@ -1,35 +1,76 @@
 #!/usr/bin/env python3
-"""Phase clocks of the dense fused-scan walk, beside the pair-list walk's.
+"""The flat route's ``ivf_scan`` of another tree, run beside this tree's.
 
-    mkdir -p build/dense_tree && git archive f95b08e | tar -x -C build/dense_tree
-    python3 scripts/dense_walk_clocks.py build/dense_tree
+    mkdir -p build/other && git archive <commit> | tar -x -C build/other
+    python3 scripts/ivf_scan_trees.py ab build/other
+    python3 scripts/ivf_scan_trees.py dense-clocks build/other   # <commit> f95b08e
 
-Commit f95b08e holds the dense walk of ``csrc/scan_walk.cuh``: one CTA per
-8-query tile, in which every thread screens its share of all 8 x 128 pairs
-of a candidate tile at every step, whether or not they have retired.  The
-pair-list walk that replaced it keeps a timing build
-(``csrc/ivf_scan_clocks.cu``); the dense walk has none, so this script
-stamps the dense walk's phases with ``clock64()`` at the same boundaries
-(the tile wait, stage 1, the stage-1 votes, stage 2's slab round trips and
-products, the duplicate scan, the merge, the rest), builds it with the
-port's compiler flags into the ignored ``src/repro_torch/kernels/build/``,
-and runs it at the flat serving shape: the 1024 queries and the 2^20 x 256
-``dade_ivf`` corpus of ``chip_smoke.py``'s phase 5, one walk of 8-query
-tiles (128 CTAs x 8,192 steps).  Its output is held against the served
-kernel's at the same configuration, bit for bit, and then the pair-list
-walk's timing build runs at that configuration and as served.  Each run
-prints cycles per step and each phase's share of the cycles.  Needs one
-CUDA card and ``nvcc``.
+Both modes build the other tree's kernel with this tree's compiler flags
+into the ignored ``src/repro_torch/kernels/build/`` and run it on the
+inputs of ``chip_smoke.py``'s phase 5: 1024 queries over the 2^20 x 256
+``dade_ivf`` corpus.  Each prints the card's name and power limit first.
+Needs one CUDA card and ``nvcc``.
+
+``ab``: the served ``ivf_scan`` (16-query tiles in 4 segments, seeded as
+the served step seeds them) of both trees through this tree's binding
+(``ivf_scan_launch`` keeps one C interface), in rounds of other, this,
+this, other; each run is the median of 5 launches timed with CUDA events,
+and every run's outputs must equal the first's bit for bit.  Prints each
+run and each library's median over its runs.
+
+``dense-clocks``: commit f95b08e holds the dense walk of
+``csrc/scan_walk.cuh``: one CTA per 8-query tile, in which every thread
+screens its share of all 8 x 128 pairs of a candidate tile at every step,
+whether or not they have retired.  The pair-list walk that replaced it
+keeps a timing build (``csrc/ivf_scan_clocks.cu``); the dense walk has
+none, so this mode stamps the dense walk's phases with ``clock64()`` at the
+same boundaries (the tile wait, stage 1, the stage-1 votes, stage 2's slab
+round trips and products, the duplicate scan, the merge, the rest) and
+runs it as one walk of 8-query tiles (128 CTAs x 8,192 steps).  Its output
+is held against the served kernel's at the same configuration, bit for
+bit, and then the pair-list walk's timing build runs at that configuration
+and as served.  Each run prints cycles per step and each phase's share of
+the cycles.
 """
 
 from __future__ import annotations
 
 import ctypes
+import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+ROUNDS = 4
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """``path``'s ``ivf_scan_launch`` and ``ivf_scan_smem_bytes``, typed as
+    ``ivf_scan._lib`` types them."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ivf_scan_launch.argtypes = [i] + [p] * 8 + [p, i] + [p] * 8 + [i] * 6 + [
+        ctypes.c_float, p]
+    lib.ivf_scan_launch.restype = i
+    lib.ivf_scan_smem_bytes.argtypes = [i] * 6
+    lib.ivf_scan_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def build_other(tree: Path) -> Path:
+    from repro_torch.kernels import _build
+
+    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / "ivf_scan.cu"
+    out = _build.CSRC.parent / "build" / "ivf_scan_other.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc("ivf_scan"), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise SystemExit(f"ivf_scan_trees: nvcc failed on {src}:\n{proc.stderr}")
+    return out
+
+
 PHASES = ("tile_wait", "stage1", "votes", "slab_wait", "stage2", "dup_scan",
           "merge", "other")
 
@@ -117,13 +158,13 @@ def stamp(walk: str) -> str:
     is not the dense walk's (each anchor must occur exactly once)."""
     for old, new in _STAMPS:
         if walk.count(old) != 1:
-            raise SystemExit(f"dense_walk_clocks: anchor found {walk.count(old)} "
+            raise SystemExit(f"ivf_scan_trees: anchor found {walk.count(old)} "
                              f"times, need 1 (not the dense walk?):\n{old}")
         walk = walk.replace(old, new)
     return walk
 
 
-def build(tree: Path) -> ctypes.CDLL:
+def build_dense(tree: Path) -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
     csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
@@ -137,7 +178,7 @@ def build(tree: Path) -> ctypes.CDLL:
            str(out / "launch.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise SystemExit(f"dense_walk_clocks: nvcc failed:\n{proc.stderr}")
+        raise SystemExit(f"ivf_scan_trees: nvcc failed:\n{proc.stderr}")
     print("build: " + " | ".join(ln.strip() for ln in proc.stderr.splitlines()
                                  if "registers" in ln or "spill" in ln), flush=True)
     dll = ctypes.CDLL(str(lib))
@@ -174,7 +215,7 @@ def dense_walk(dll, args, *, k, block_d, slack=1e-4):
         q_tiles, offs.shape[1], dim, k, block_d, float(1.0 - slack),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise SystemExit(f"dense_walk_clocks: launch failed: cudaError {err}")
+        raise SystemExit(f"ivf_scan_trees: launch failed: cudaError {err}")
     return (top_sq, top_ids, stats), clk
 
 
@@ -187,35 +228,41 @@ def report(name, clk, steps, phases):
                      for i, p in enumerate(phases)), flush=True)
 
 
-def main() -> int:
-    import torch
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("dense_walk_clocks: no CUDA device", file=sys.stderr)
-        return 2
-    tree = Path(sys.argv[1]).resolve()
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(0, str(ROOT))
+def run_ab(tree: Path, args, kw) -> None:
     import chip_smoke
-    from repro_torch.configs.dade_ivf import CONFIG as svc
-    from repro_torch.data.pipeline import synthetic_queries
+    import torch
     from repro_torch.kernels import ivf_scan
-    from repro_torch.launch import serve
-    from repro_torch.launch.annservice import FUSED_BLOCK_Q, SHARDS, fused_scan_inputs, seed_rsq
+    from repro_torch.launch.annservice import SHARDS
 
-    dll = build(tree)
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
-    srv = serve.prepare_service(svc, "dade", "cuda")
-    # phase 5's queries: the same seed, the same r0
-    qb = srv.prep(synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7))
-    r0 = seed_rsq(svc, srv.rows, qb, srv.eps)
-    args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
-                                 srv.eps, srv.scale, r0)
-    qn = qb.shape[0]
+    kw = dict(kw, segments=SHARDS)
+    libs = {"other": bind(build_other(tree)), "this": bind(ivf_scan.build()[0])}
+    first = None
+    times = {name: [] for name in libs}
+    for rnd in range(ROUNDS):
+        for name in ("other", "this", "this", "other"):
+            ivf_scan._lib = lambda clocks=False, lib=libs[name]: lib
+            ivf_scan.ivf_scan_kernel_call(*args, **kw)  # warm
+            ms, out = chip_smoke.cuda_ms(lambda: ivf_scan.ivf_scan_kernel_call(*args, **kw), 5)
+            if first is None:
+                first = out
+            chip_smoke.check(all(torch.equal(a, b) for a, b in zip(out, first)),
+                             f"round {rnd}: the {name} library's outputs differ")
+            times[name].append(ms)
+            print(f"ab: round {rnd} {name} {ms:.3f} ms", flush=True)
+    for name, ts in times.items():
+        print(f"ab: {name} ({tree if name == 'other' else ROOT}) median "
+              f"{statistics.median(ts):.3f} ms over {len(ts)} runs, min {min(ts):.3f}, "
+              f"max {max(ts):.3f}; outputs bit for bit equal", flush=True)
+
+
+def run_dense_clocks(tree: Path, args, kw) -> None:
+    import chip_smoke
+    import torch
+    from repro_torch.kernels import ivf_scan
+    from repro_torch.launch.annservice import FUSED_BLOCK_Q, SHARDS
+
+    dll = build_dense(tree)
+    qn = args[2].shape[0]
 
     def inputs(bq):
         return (args[0][:1].expand(qn // bq, -1, -1),) + args[1:], dict(kw, block_q=bq)
@@ -233,6 +280,37 @@ def main() -> int:
         torch.cuda.synchronize()
         report(f"pair-list walk block_q={bq} segments={g}", clk, -(-waves // g) * cap,
                ivf_scan.PHASES)
+
+
+def main() -> int:
+    import torch
+    modes = {"ab": run_ab, "dense-clocks": run_dense_clocks}
+    if len(sys.argv) != 3 or sys.argv[1] not in modes:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("ivf_scan_trees: no CUDA device", file=sys.stderr)
+        return 2
+    tree = Path(sys.argv[2]).resolve()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from repro_torch.configs.dade_ivf import CONFIG as svc
+    from repro_torch.data.pipeline import synthetic_queries
+    from repro_torch.launch import serve
+    from repro_torch.launch.annservice import SHARDS, fused_scan_inputs, seed_rsq
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    srv = serve.prepare_service(svc, "dade", "cuda")
+    # phase 5's queries: the same seed; r0 as the served step seeds it for
+    # the A/B, from the corpus's first wave for the one-segment dense walk
+    qb = srv.prep(synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7))
+    segments = SHARDS if sys.argv[1] == "ab" else 1
+    r0 = seed_rsq(svc, srv.rows, qb, srv.eps, segments=segments)
+    args, kw = fused_scan_inputs(svc, srv.rows, srv.codes, srv.bscales, qb,
+                                 srv.eps, srv.scale, r0)
+    modes[sys.argv[1]](tree, args, kw)
     return 0
 
 

@@ -16,13 +16,16 @@ Search (``search_graph_fused``): a wave-synchronous frontier expansion over
 the whole query batch.  Queries are sorted along the leading PCA
 coordinate and grouped into tiles of 8; each wave, every tile's frontier —
 the best unexpanded entries of its queries' beam windows that still beat
-the routing radius — becomes one row of a step table, and ONE launch of
-the ``graph_scan`` kernel screens every row (int8 stage 1, demand-paged fp
-stage 2, the ef-sized window, r² and the packed visited bitmap carried on
-the card from wave to wave).  The host selects the next frontier from the
-returned windows and bitmap, and never marks an expansion itself.
+the routing radius — is screened (int8 stage 1, demand-paged fp stage 2,
+the ef-sized window, r² and the packed visited bitmap carried from wave to
+wave).  A tile's walk depends on nothing outside the tile, so on the card
+ONE launch of the ``graph_walk`` kernel runs the whole search, each tile's
+CTA picking its own frontier between waves; the host does the prologue
+(rotation, tile sort, seeds) and reads the results back once.
 ``search_graph_beam_host`` runs the identical schedule through the plain
-version ``ref.graph_scan_ref``; the two return the same results.
+version ``ref.graph_walk_ref`` (``ref.graph_scan_ref`` waves with the
+frontier picked by ``ref.select_wave_ref``); the two return the same
+results.
 
 Not ported here: the per-query greedy ``search_graph``, sharded walks,
 tombstones and delete filters, tracing and chaos hooks.
@@ -41,11 +44,9 @@ from repro_torch.core.estimators import (
     SEED_SLACK, Estimator, build_estimator, kernel_spec,
 )
 from repro_torch.core.transforms import as_tensor
-from repro_torch.kernels.graph_scan import KERNEL_TILE, graph_scan_kernel_call
-from repro_torch.kernels.ops import (
-    fused_fetch_totals, graph_scan_inputs, unpack_vis,
-)
-from repro_torch.kernels.ref import graph_scan_ref
+from repro_torch.kernels.graph_scan import KERNEL_TILE, graph_walk_kernel_call
+from repro_torch.kernels.ops import fused_fetch_totals, graph_walk_inputs
+from repro_torch.kernels.ref import graph_walk_ref
 from repro_torch.quant.accounting import (
     ID_BYTES, fetched_tile_bytes, row_gather_bytes, stage2_fetch_report,
     two_stage_bytes,
@@ -56,7 +57,7 @@ from repro_torch.quant.scalar import (
 
 __all__ = ["GraphIndex", "build_graph", "graph_from_rotated",
            "search_graph_fused", "search_graph_beam_host", "GraphScanStats",
-           "SENTINEL"]
+           "walk_inputs", "SENTINEL"]
 
 SENTINEL = 1e18  # pad rows of a neighbour block: masked by id, never read as data
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -388,50 +389,16 @@ def _beam_seed_rsq(index: GraphIndex, q_rot: torch.Tensor, k: int) -> torch.Tens
     return kth if enough else torch.full_like(kth, float("inf"))
 
 
-def _select_wave(top_sq, top_ids, expanded, route_sq, *, q_tiles, block_q,
-                 qn, expand, ef):
-    """One wave's frontier: per query, its ``expand`` best unexpanded beam
-    entries *that still beat the query's DCO threshold* — the batched
-    analogue of the greedy walk's termination (a window entry whose exact
-    distance exceeds r cannot improve the result, and under the decoupled
-    screen its neighbours would all be pruned anyway; entries are sorted
-    ascending, so the first miss ends the query's scan).  Per tile, the
-    deduplicated union: a node any tile query proposes is screened for the
-    WHOLE tile, at tile granularity (the decision record in
-    docs/ARCHITECTURE.md §3).  Pure selection — ``expanded`` (unpacked
-    from the device-owned visited bitmap the previous wave returned) is
-    only read; the KERNEL marks this wave's picks as it streams them.
-    Returns a list of node lists, one per tile (empty = tile converged)."""
-    picked = []
-    for t in range(q_tiles):
-        sel: list[int] = []
-        seen: set[int] = set()
-        exp_t = expanded[t]
-        for qi in range(t * block_q, min((t + 1) * block_q, qn)):
-            budget = expand
-            for j in range(ef):
-                v = int(top_ids[qi, j])
-                if v < 0 or not np.isfinite(top_sq[qi, j]):
-                    break
-                if top_sq[qi, j] > route_sq[qi]:
-                    break  # sorted ascending: nothing below can qualify
-                if exp_t[v]:
-                    continue
-                if v not in seen:
-                    seen.add(v)
-                    sel.append(v)
-                budget -= 1
-                if budget == 0:
-                    break
-        picked.append(sel)
-    return picked
-
-
-def _prep_wave_state(index: GraphIndex, queries, *, k: int, ef: int,
-                     block_q: int, seed_r: bool):
-    """Rotate and tile-sort the queries, seed each window with the entry
-    point and (optionally) the threshold floor.  Returns the sorted queries
-    on the device and the rest host-side."""
+def walk_inputs(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
+                block_q: int, max_waves: int, seed_r: bool, decoupled: bool,
+                route_mult: float):
+    """The prologue of a search: ``(args, kwargs, inv)`` of the
+    ``graph_walk_kernel_call`` (or ``ref.graph_walk_ref``) that walks these
+    queries, rotated, sorted into tiles (``inv`` undoes the sort) and
+    seeded with the entry point and, with ``seed_r``, the threshold floor
+    (the padding gives pad rows an empty window and r² = 0)."""
+    if not 1 <= k <= ef:
+        raise ValueError(f"need 1 <= k <= ef, got k={k} ef={ef}")
     dev = index.device
     q_rot = index.estimator.rotate(as_tensor(queries, dev))
     qn = q_rot.shape[0]
@@ -440,97 +407,57 @@ def _prep_wave_state(index: GraphIndex, queries, *, k: int, ef: int,
     # the per-tile frontier union stays small.  Stable, as jnp.argsort.
     order = torch.argsort(q_rot[:, 0], stable=True)
     inv = torch.argsort(order, stable=True).cpu().numpy()
-    q_tiles = (qn + block_q - 1) // block_q
-    q_pad = q_tiles * block_q
-    q_sorted = torch.nn.functional.pad(q_rot[order], (0, 0, 0, q_pad - qn))
-
+    q_sorted = q_rot[order]
     entry = index.entry
-    d_entry = torch.sum((index.corpus_rot[entry][None, :] - q_sorted[:qn]) ** 2, dim=1)
-    top_sq = np.full((q_pad, ef), np.inf, np.float32)
-    top_ids = np.full((q_pad, ef), -1, np.int32)
-    top_sq[:qn, 0] = d_entry.cpu().numpy()
-    top_ids[:qn, 0] = entry
-
-    # Pad rows carry r²=0 (everything prunes, window never fills); real
-    # rows floor the threshold with the optional seeded r².
-    seed_vec = np.zeros((q_pad,), np.float32)
-    if seed_r:
-        seed_vec[:qn] = _beam_seed_rsq(index, q_sorted[:qn], k).cpu().numpy()
-    else:
-        seed_vec[:qn] = np.inf
-    return inv, q_sorted, q_tiles, qn, entry, top_sq, top_ids, seed_vec
+    top_sq = torch.full((qn, ef), float("inf"), device=dev)
+    top_ids = torch.full((qn, ef), -1, dtype=torch.int32, device=dev)
+    top_sq[:, 0] = torch.sum((index.corpus_rot[entry][None, :] - q_sorted) ** 2, dim=1)
+    top_ids[:, 0] = entry
+    seed = (_beam_seed_rsq(index, q_sorted, k) if seed_r
+            else torch.full((qn,), float("inf"), device=dev))
+    args, kw = graph_walk_inputs(
+        index.estimator, q_sorted, top_sq, top_ids, seed, index.adj_rot,
+        index.adj_codes, index.adj_ids, index.gscales, entry=entry, ef=ef,
+        thresh_col=(k - 1) if decoupled else (ef - 1), expand=expand,
+        max_waves=max_waves, route_mult=route_mult, block_q=block_q,
+        block_c=index.adj_block, block_d=index.scan_block_d)
+    return args, kw, inv
 
 
 def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
                    block_q: int, max_waves: int, seed_r: bool, decoupled: bool,
                    route_mult: float, use_ref: bool):
-    """The single-shard wave loop: host frontier selection between waves,
-    one ``graph_scan`` launch per wave (or its plain version when
-    ``use_ref``), the window, r² and visited bitmap carried from wave to
-    wave.  Wave step counts are rounded up to powers of two (the kernel
-    skips -1 steps).  Returns ``(dists, ids, acc)`` with ``acc`` the raw
-    accounting ``_graph_stats`` turns into ``GraphScanStats``."""
-    if not 1 <= k <= ef:
-        raise ValueError(f"need 1 <= k <= ef, got k={k} ef={ef}")
-    thresh_col = (k - 1) if decoupled else (ef - 1)
-    n = index.corpus_rot.shape[0]
-    dev = index.device
-    inv, q_sorted, q_tiles, qn, entry, top_sq, top_ids, seed_vec = \
-        _prep_wave_state(index, queries, k=k, ef=ef, block_q=block_q,
-                         seed_r=seed_r)
-    # The per-launch inputs that do not change between waves (padded and
-    # quantized queries, blocked table) are prepared once; each wave swaps
-    # in its step table and the carried window, r² and bitmap.
-    args, kw = graph_scan_inputs(
-        index.estimator, q_sorted, torch.full((q_tiles, 1), -1, dtype=torch.int32),
-        torch.as_tensor(top_sq), torch.as_tensor(top_ids),
-        torch.as_tensor(seed_vec), index.adj_rot, index.adj_codes,
-        index.adj_ids, index.gscales, ef=ef, thresh_col=thresh_col,
-        block_q=block_q, block_c=index.adj_block, block_d=index.scan_block_d)
-    (_, qcodes, q, qscales, _, _, _, vis, adj_codes, adj_rot, adj_ids, bscales,
-     eps, scale, vis_base) = args
-    scan = graph_scan_ref if use_ref else graph_scan_kernel_call
-
+    """The single-shard wave loop of the reference, run as one walk: up to
+    ``max_waves`` waves, each from r² = min(seed, window[thresh_col]), the
+    first expanding the entry point, every later one the frontier the
+    reference's ``_select_wave`` picks (``ref.select_wave_ref``), until no
+    tile has a frontier left.  On CUDA tensors one ``graph_walk_kernel_call``
+    runs the whole walk, each tile picking its own frontiers on the card;
+    on CPU tensors (or with ``use_ref``) the plain ``ref.graph_walk_ref``
+    runs it.  The host does the prologue and reads the results back once.
+    Returns ``(dists, ids, acc)`` with ``acc`` the raw accounting
+    ``_graph_stats`` turns into ``GraphScanStats``."""
+    args, kw, inv = walk_inputs(
+        index, queries, k=k, ef=ef, expand=expand, block_q=block_q,
+        max_waves=max_waves, seed_r=seed_r, decoupled=decoupled,
+        route_mult=route_mult)
+    qn = kw["qn"]
+    walk = graph_walk_ref if use_ref else graph_walk_kernel_call
+    t_sq, t_ids, st, _, tile_waves = walk(*args, **kw)
+    waves = int(tile_waves.max()) if tile_waves.numel() else 0
+    top_sq, top_ids = t_sq[:qn].cpu().numpy(), t_ids[:qn].cpu().numpy()
+    st = st[:waves].cpu().numpy()
+    # The ledger of a launch per wave: each wave's fp32 column sums, added
+    # into float64 wave by wave.
     sem = np.zeros((4,), np.float64)  # stats cols 0-3 summed over waves
     s1_tiles = s2_slabs = 0.0
-    waves = 0
-    while waves < max_waves:
-        r0 = np.minimum(seed_vec, top_sq[:, thresh_col])
-        if waves == 0:
-            # Bootstrap: the entry point is expanded unconditionally (its
-            # own distance may exceed a seeded threshold, but its
-            # neighbourhood is what fills the window).
-            picked = [[entry] for _ in range(q_tiles)]
-        else:
-            # The routing radius widens the proposal gate beyond the DCO
-            # threshold (squared-distance multiplier): entries past r
-            # cannot enter the result, but expanding them reaches
-            # neighbourhoods the tight walk would miss.
-            picked = _select_wave(top_sq, top_ids, unpack_vis(vis, n),
-                                  r0 * route_mult, q_tiles=q_tiles,
-                                  block_q=block_q, qn=qn, expand=expand, ef=ef)
-        width = max(len(s) for s in picked)
-        if width == 0:
-            break  # no window entry can improve any query's result
-        steps = 1 << (width - 1).bit_length()  # pow2 shapes
-        offs = np.full((q_tiles, steps), -1, np.int32)
-        for t, sel in enumerate(picked):
-            offs[t, : len(sel)] = sel  # node id == tile offset
-        t_sq, t_ids, st, vis = scan(
-            torch.as_tensor(offs, device=dev), qcodes, q, qscales,
-            torch.as_tensor(top_sq, device=dev), torch.as_tensor(top_ids, device=dev),
-            torch.as_tensor(r0, device=dev), vis, adj_codes, adj_rot, adj_ids,
-            bscales, eps, scale, vis_base, **kw)
-        top_sq = t_sq.cpu().numpy()
-        top_ids = t_ids.cpu().numpy()
-        st = st.cpu().numpy()
-        sem += st[:qn, :4].sum(axis=0)
-        w1, w2 = fused_fetch_totals(st, block_q)
+    for w in range(waves):
+        sem += st[w, :qn, :4].sum(axis=0)
+        w1, w2 = fused_fetch_totals(st[w], block_q)
         s1_tiles += w1
         s2_slabs += w2
-        waves += 1
-    dists = np.sqrt(np.maximum(top_sq[:qn], 0.0))[inv][:, :k]
-    ids = top_ids[:qn][inv][:, :k]
+    dists = np.sqrt(np.maximum(top_sq, 0.0))[inv][:, :k]
+    ids = top_ids[inv][:, :k]
     acc = dict(waves=waves, sem=sem, s1_tiles=s1_tiles, s2_slabs=s2_slabs, qn=qn)
     return dists, ids, acc
 
@@ -595,10 +522,10 @@ def search_graph_fused(index: GraphIndex, queries, *, k: int = 10, ef: int = 48,
                        max_waves: int = 64, seed_r: bool = False,
                        decoupled: bool = True, route_mult: float = 1.0,
                        device: str | torch.device = "cuda"):
-    """Batched graph search through the fused beam-scan kernel on
-    ``device`` (the index's): each wave, every query tile's ``expand`` best
-    unexpanded beam entries become one row of a step table and one kernel
-    launch screens every row.  Returns (dists (Q, k), ids (Q, k),
+    """Batched graph search through the fused beam-scan walk on ``device``
+    (the index's): each wave, every query tile's ``expand`` best unexpanded
+    beam entries per query are screened for the whole tile, the waves of a
+    search in one kernel launch.  Returns (dists (Q, k), ids (Q, k),
     GraphScanStats).
 
     Expansion is per *tile*: a node any of the tile's queries proposes is
@@ -621,7 +548,7 @@ def search_graph_beam_host(index: GraphIndex, queries, *, k: int = 10,
                            route_mult: float = 1.0,
                            device: str | torch.device = "cuda"):
     """The identical wave schedule run through the plain version
-    ``ref.graph_scan_ref``: the same results and ledgers as
+    ``ref.graph_walk_ref``: the same results and ledgers as
     :func:`search_graph_fused`."""
     return _beam_scan(index, queries, k=k, ef=ef, expand=expand,
                       block_q=block_q, max_waves=max_waves, seed_r=seed_r,

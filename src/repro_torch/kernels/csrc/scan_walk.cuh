@@ -47,7 +47,14 @@
 //     reference's tie order (window first, then lower column), and
 //     r² = min(r², top[thresh_col]) unless the threshold is frozen.
 // Counters are kept in 32/64-bit integers and converted to float once at
-// the end, so columns 0 and 2 of stats stay exact past 2^24.
+// the end of a step list, so columns 0 and 2 of stats stay exact past 2^24.
+//
+// The walk comes in parts: walk_prologue (the query tile, its constants,
+// the window, r² and the bitmap row), walk_steps (one step list),
+// walk_stats and walk_window (the outputs).  A one-launch kernel calls them
+// in sequence (scan_walk); graph_scan.cu's persistent walk calls the
+// prologue once and then walk_steps and walk_stats once per wave, on the
+// step list it picks in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -353,10 +360,136 @@ __device__ __forceinline__ bool stage1_block(float& ps, int dot, int cn, float s
   return !(lb_penalized(ps, eband, scl, one_minus_slack) > dade_threshold(thr, rs));
 }
 
-// The walk of query tile blockIdx.x over its row of a.offs; the body of
-// both kernels (launched with kThreads threads and make_layout<BC, BQ>
-// bytes of dynamic shared memory).  kClocks builds the timing variant,
-// which also writes each phase's cycles to a.clocks.
+// The shared-memory regions of one CTA's walk (make_layout's offsets as
+// pointers), and this tile's row of the visited bitmap in device memory.
+template <int BC, int BQ>
+struct WalkSmem {
+  int8_t* tile;            // the resident codes tile
+  int* tile_ids;           // and its ids
+  int8_t* qcodes;
+  float* q;
+  unsigned char* slab;
+  float* cand;             // inf but for this step's entrants
+  float *qn1, *tqsb, *eband, *qn2, *thr, *sb, *scl, *rsq, *top_sq;
+  int* top_ids;
+  int* ids;
+  unsigned short* pair;    // the active-pair list: query << 8 | cand
+  float* pval;             // stage-1 psum, then stage-2's
+  unsigned char* pst;      // kActive | slabs consumed
+  int* npairs;             // list length, by real-step parity
+  unsigned long long* acc;
+  unsigned* vis_row;       // null without a bitmap
+  __device__ __forceinline__ WalkSmem(unsigned char* smem, const WalkArgs& a) {
+    const Layout L = make_layout<BC, BQ>(a.D, a.S, a.K, a.BD, a.rows_bf16 ? 2 : 4);
+    tile = reinterpret_cast<int8_t*>(smem + L.codes);
+    tile_ids = reinterpret_cast<int*>(smem + L.tids);
+    qcodes = reinterpret_cast<int8_t*>(smem + L.qcodes);
+    q = reinterpret_cast<float*>(smem + L.q);
+    slab = smem + L.slab;
+    cand = reinterpret_cast<float*>(smem + L.cand);
+    qn1 = reinterpret_cast<float*>(smem + L.qn1);
+    tqsb = reinterpret_cast<float*>(smem + L.tqsb);
+    eband = reinterpret_cast<float*>(smem + L.eband);
+    qn2 = reinterpret_cast<float*>(smem + L.qn2);
+    thr = reinterpret_cast<float*>(smem + L.thr);
+    sb = reinterpret_cast<float*>(smem + L.sb);
+    scl = reinterpret_cast<float*>(smem + L.scl);
+    rsq = reinterpret_cast<float*>(smem + L.rsq);
+    top_sq = reinterpret_cast<float*>(smem + L.top_sq);
+    top_ids = reinterpret_cast<int*>(smem + L.top_ids);
+    ids = reinterpret_cast<int*>(smem + L.ids);
+    pair = reinterpret_cast<unsigned short*>(smem + L.pair);
+    pval = reinterpret_cast<float*>(smem + L.pval);
+    pst = smem + L.pst;
+    npairs = reinterpret_cast<int*>(smem + L.npairs);
+    acc = reinterpret_cast<unsigned long long*>(smem + L.acc);
+    vis_row = a.vis == nullptr ? nullptr : a.vis + static_cast<size_t>(blockIdx.x) * a.vis_words;
+  }
+};
+
+// The counters a thread keeps in registers over one walk of a step list:
+// first-block int8 dims per query (lane's 8n + qa, 8n + qb of the mma
+// layout; the later blocks, stage-2 dims and passes go to acc), tile totals.
+template <int BQ>
+struct WalkCounters {
+  unsigned d8[2 * (BQ / 8)];
+  unsigned long long nvalid, slabs, fresh;
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int i = 0; i < 2 * (BQ / 8); ++i) d8[i] = 0u;
+    nvalid = slabs = fresh = 0ull;
+  }
+};
+
+// The walk, in three parts a kernel calls in sequence (scan_walk below) or,
+// for a walk of many step lists, prologue once, then steps and stats per
+// list (csrc/graph_scan.cu's persistent graph walk).
+//
+// Prologue: the query tile, its per-block constants, the window, r² from
+// a.r0, the accumulators, and this tile's bitmap row copied from a.vis0.
+template <int BC, int BQ>
+__device__ __forceinline__ void walk_prologue(const WalkArgs& a, const WalkSmem<BC, BQ>& ws) {
+  const int D = a.D, S = a.S, K = a.K, BD = a.BD;
+  const int tid = threadIdx.x;
+  const int QS = D + 16;   // query codes row stride: conflict-free fragment reads
+  const size_t q0 = static_cast<size_t>(blockIdx.x) * BQ;
+  for (int e = tid; e < BQ * D; e += kThreads) {
+    const int r = e / D, d = e - r * D;
+    ws.qcodes[r * QS + d] = a.qcodes[q0 * D + e];
+    ws.q[e] = a.q[q0 * D + e];
+  }
+  for (int e = tid; e < BQ * K; e += kThreads) {
+    ws.top_sq[e] = a.top0_sq[q0 * K + e];
+    ws.top_ids[e] = a.top0_ids[q0 * K + e];
+  }
+  for (int s = tid; s < S; s += kThreads) {
+    const float t = __fadd_rn(1.0f, a.eps[s]);
+    ws.thr[s] = __fmul_rn(t, t);
+    ws.sb[s] = a.bscales[s];
+    ws.scl[s] = a.scale[s];
+  }
+  for (int e = tid; e < BQ * 3; e += kThreads) ws.acc[e] = 0ull;
+  for (int e = tid; e < BQ * BC; e += kThreads) ws.cand[e] = INFINITY;
+  // The visited bitmap: this tile's row is copied in and then marked in
+  // place (one bit per real step); no other CTA touches the row.
+  if (ws.vis_row != nullptr) {
+    const unsigned* vis0_row = a.vis0 + static_cast<size_t>(blockIdx.x) * a.vis_words;
+    for (int w = tid; w < a.vis_words; w += kThreads) ws.vis_row[w] = vis0_row[w];
+  }
+  __syncthreads();
+  if (tid < BQ) {
+    const int r = tid;
+    ws.rsq[r] = a.r0[q0 + r];
+    float ec2 = 0.0f, eq2 = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      const float t = a.qscales[(q0 + r) * S + s];
+      const float sb = ws.sb[s];
+      int qn_i = 0;
+      float qn2 = 0.0f;
+      for (int d = 0; d < BD; ++d) {
+        const int v = ws.qcodes[r * QS + s * BD + d];
+        qn_i += v * v;
+        const float x = ws.q[r * D + s * BD + d];
+        qn2 = __fadd_rn(qn2, __fmul_rn(x, x));
+      }
+      ws.qn1[r * S + s] = __fmul_rn(static_cast<float>(qn_i), __fmul_rn(t, t));
+      ws.tqsb[r * S + s] = __fmul_rn(t, sb);
+      ws.qn2[r * S + s] = qn2;
+      const float hb = __fmul_rn(sb, 0.5f), hq = __fmul_rn(t, 0.5f);
+      ec2 = __fadd_rn(ec2, __fmul_rn(static_cast<float>(BD), __fmul_rn(hb, hb)));
+      eq2 = __fadd_rn(eq2, __fmul_rn(static_cast<float>(BD), __fmul_rn(hq, hq)));
+      ws.eband[r * S + s] = __fadd_rn(sqrtf(ec2), sqrtf(eq2));
+    }
+  }
+  __syncthreads();
+}
+
+// Steps: the walk over `steps` tile offsets at `offs` (device or shared
+// memory; -1 = gap step), from r² in ws.rsq and the window in shared memory,
+// as one launch walks its row of the step table.  The reuse cursor, the
+// window's sortedness and the pair list's parity start afresh; the caller
+// resets the counters and the acc words between lists.  kClocks: the timing
+// build's phase stamps, written to a.clocks.
 //
 // Almost every pair retires at its first checkpoint, so the first block of
 // stage 1 runs for the whole (BQ, BC) tile on the tensor cores, and the
@@ -366,38 +499,14 @@ __device__ __forceinline__ bool stage1_block(float& ps, int dot, int cn, float s
 // thread.  Each pair's arithmetic is the same whoever runs it; the list's
 // order (set by shared atomics) reaches no output.
 template <int BC, int BQ, bool kClocks = false>
-__device__ __forceinline__ void scan_walk(const WalkArgs& a) {
+__device__ __forceinline__ void walk_steps(const WalkArgs& a, const WalkSmem<BC, BQ>& ws,
+                                           const int* offs, int steps, WalkCounters<BQ>& ctr) {
   static_assert(BC % 32 == 0 && BC <= 16 * kWarps, "BC: 32..128, a multiple of 32");
   static_assert(BQ == 8 || BQ == 16, "BQ: 8 or 16");
   constexpr int kS1Warps = BC / 16;          // warps that run stage 1's first block
   constexpr int kNT = BQ / 8;                // stage-1 n-tiles per warp
   constexpr unsigned char kActive = 0x80;    // list state: still active; low bits: slabs
-  extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, S = a.S, K = a.K, BD = a.BD;
-  const Layout L = make_layout<BC, BQ>(D, S, K, BD, a.rows_bf16 ? 2 : 4);
-  int8_t* tile = reinterpret_cast<int8_t*>(smem + L.codes);  // the resident codes tile
-  int* tile_ids = reinterpret_cast<int*>(smem + L.tids);     // and its ids
-  int8_t* qcodes_s = reinterpret_cast<int8_t*>(smem + L.qcodes);
-  float* q_s = reinterpret_cast<float*>(smem + L.q);
-  unsigned char* slab_s = smem + L.slab;
-  float* cand_s = reinterpret_cast<float*>(smem + L.cand);  // inf but for this step's entrants
-  float* qn1_s = reinterpret_cast<float*>(smem + L.qn1);
-  float* tqsb_s = reinterpret_cast<float*>(smem + L.tqsb);
-  float* eband_s = reinterpret_cast<float*>(smem + L.eband);
-  float* qn2_s = reinterpret_cast<float*>(smem + L.qn2);
-  float* thr_s = reinterpret_cast<float*>(smem + L.thr);
-  float* sb_s = reinterpret_cast<float*>(smem + L.sb);
-  float* scl_s = reinterpret_cast<float*>(smem + L.scl);
-  float* rsq_s = reinterpret_cast<float*>(smem + L.rsq);
-  float* top_sq_s = reinterpret_cast<float*>(smem + L.top_sq);
-  int* top_ids_s = reinterpret_cast<int*>(smem + L.top_ids);
-  int* ids_s = reinterpret_cast<int*>(smem + L.ids);
-  unsigned short* pair_s = reinterpret_cast<unsigned short*>(smem + L.pair);  // query << 8 | cand
-  float* pval_s = reinterpret_cast<float*>(smem + L.pval);   // stage-1 psum, then stage-2's
-  unsigned char* pst_s = smem + L.pst;                       // kActive | slabs consumed
-  int* npairs_s = reinterpret_cast<int*>(smem + L.npairs);   // list length, by real-step parity
-  unsigned long long* acc_s = reinterpret_cast<unsigned long long*>(smem + L.acc);
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % BC;  // the candidate whose id this thread loads
   // Stage-1 ownership (mma fragment layout, warps < kS1Warps): candidates
@@ -409,87 +518,28 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
   const int qa = 2 * ft, qb = qa + 1;
   const int CS = D + 16;   // codes row stride: conflict-free fragment reads
   const int QS = D + 16;   // query codes row stride, likewise
-  const size_t q0 = static_cast<size_t>(blockIdx.x) * BQ;
   const int slab_row = BD * (a.rows_bf16 ? 2 : 4) + 16;  // slab row stride (bytes)
 
-  // ---- prologue: the query tile, its per-block constants, window, r² ----
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    qcodes_s[r * QS + d] = a.qcodes[q0 * D + e];
-    q_s[e] = a.q[q0 * D + e];
-  }
-  for (int e = tid; e < BQ * K; e += kThreads) {
-    top_sq_s[e] = a.top0_sq[q0 * K + e];
-    top_ids_s[e] = a.top0_ids[q0 * K + e];
-  }
-  for (int s = tid; s < S; s += kThreads) {
-    const float t = __fadd_rn(1.0f, a.eps[s]);
-    thr_s[s] = __fmul_rn(t, t);
-    sb_s[s] = a.bscales[s];
-    scl_s[s] = a.scale[s];
-  }
-  for (int e = tid; e < BQ * 3; e += kThreads) acc_s[e] = 0ull;
-  for (int e = tid; e < BQ * BC; e += kThreads) cand_s[e] = INFINITY;
-  if (tid < 2) npairs_s[tid] = 0;
-  // The visited bitmap: this tile's row is copied in and then marked in
-  // place (one bit per real step); no other CTA touches the row.
-  unsigned* vis_row = nullptr;
-  if (a.vis != nullptr) {
-    vis_row = a.vis + static_cast<size_t>(blockIdx.x) * a.vis_words;
-    const unsigned* vis0_row = a.vis0 + static_cast<size_t>(blockIdx.x) * a.vis_words;
-    for (int w = tid; w < a.vis_words; w += kThreads) vis_row[w] = vis0_row[w];
-  }
-  __syncthreads();
-  if (tid < BQ) {
-    const int r = tid;
-    rsq_s[r] = a.r0[q0 + r];
-    float ec2 = 0.0f, eq2 = 0.0f;
-    for (int s = 0; s < S; ++s) {
-      const float t = a.qscales[(q0 + r) * S + s];
-      const float sb = sb_s[s];
-      int qn_i = 0;
-      float qn2 = 0.0f;
-      for (int d = 0; d < BD; ++d) {
-        const int v = qcodes_s[r * QS + s * BD + d];
-        qn_i += v * v;
-        const float x = q_s[r * D + s * BD + d];
-        qn2 = __fadd_rn(qn2, __fmul_rn(x, x));
-      }
-      qn1_s[r * S + s] = __fmul_rn(static_cast<float>(qn_i), __fmul_rn(t, t));
-      tqsb_s[r * S + s] = __fmul_rn(t, sb);
-      qn2_s[r * S + s] = qn2;
-      const float hb = __fmul_rn(sb, 0.5f), hq = __fmul_rn(t, 0.5f);
-      ec2 = __fadd_rn(ec2, __fmul_rn(static_cast<float>(BD), __fmul_rn(hb, hb)));
-      eq2 = __fadd_rn(eq2, __fmul_rn(static_cast<float>(BD), __fmul_rn(hq, hq)));
-      eband_s[r * S + s] = __fadd_rn(sqrtf(ec2), sqrtf(eq2));
-    }
-  }
-  __syncthreads();
-
-  // Counters: first-block int8 dims per query (lane's 8n + qa, 8n + qb; the
-  // later blocks, stage-2 dims and passes go to acc_s), tile totals.
-  unsigned d8_acc[2 * kNT];
-#pragma unroll
-  for (int i = 0; i < 2 * kNT; ++i) d8_acc[i] = 0u;
-  unsigned long long nvalid_acc = 0, slabs_acc = 0, fresh_acc = 0;
+  // Both list counts start at zero; the first real step is fresh, and its
+  // tile wait's barrier orders this before the first reservation.
+  if (tid < 2) ws.npairs[tid] = 0;
   bool window_sorted = false;
   int last = -1;  // offset of the last tile whose copy was issued
   int par = 0;    // the real steps' parity: which list count this one uses
-  const int* offs = a.offs + static_cast<size_t>(blockIdx.x) * a.steps;
   // The step table is read two steps ahead, so its loads stay out of the
   // step's chain of dependent phases.
-  int noff = a.steps > 0 ? offs[0] : -1;
-  int nnoff = a.steps > 1 ? offs[1] : -1;
+  int noff = steps > 0 ? offs[0] : -1;
+  int nnoff = steps > 1 ? offs[1] : -1;
 
-  if (noff >= 0) issue_tile<BC>(a, tile, tile_ids, noff);
+  if (noff >= 0) issue_tile<BC>(a, ws.tile, ws.tile_ids, noff);
   PhaseClock<kClocks> clk;
   clk.start();
 
-  for (int step = 0; step < a.steps; ++step) {
+  for (int step = 0; step < steps; ++step) {
     clk.lap(kOther);
     const int off = noff;
     noff = nnoff;
-    nnoff = step + 2 < a.steps ? offs[step + 2] : -1;
+    nnoff = step + 2 < steps ? offs[step + 2] : -1;
     const bool real = off >= 0;
     const bool fresh = real && off != last;
     const int resident = real ? off : last;
@@ -503,25 +553,25 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
     // buffer (and no slab copy will wait behind it).
     bool pending = noff >= 0 && noff != resident;
     if (pending && !real) {
-      issue_tile<BC>(a, tile, tile_ids, noff);
+      issue_tile<BC>(a, ws.tile, ws.tile_ids, noff);
       pending = false;
     }
     if (!real) continue;
 
-    if (vis_row != nullptr && tid == 0) {
+    if (ws.vis_row != nullptr && tid == 0) {
       const unsigned gnode = static_cast<unsigned>(off + a.vis_base);
-      vis_row[gnode >> 5] |= 1u << (gnode & 31u);
+      ws.vis_row[gnode >> 5] |= 1u << (gnode & 31u);
     }
-    const bool valid_c = tile_ids[c] >= 0;
-    if (tid < BC) ids_s[tid] = tile_ids[tid];
-    int* npairs = npairs_s + par;
+    const bool valid_c = ws.tile_ids[c] >= 0;
+    if (tid < BC) ws.ids[tid] = ws.tile_ids[tid];
+    int* npairs = ws.npairs + par;
 
     // ---- stage 1, first block: the whole tile on the tensor cores ----
     // Pair p of n-tile n: candidate (p < 2 ? ca : cb), query 8n + (p odd ?
     // qb : qa), the mma accumulator order.  Its active valid pairs join the
     // list, with their psum.
     if (s1) {
-      const bool va = tile_ids[ca] >= 0, vb = tile_ids[cb] >= 0;
+      const bool va = ws.tile_ids[ca] >= 0, vb = ws.tile_ids[cb] >= 0;
       int dot[kNT][4];
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
@@ -529,13 +579,13 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
         for (int p = 0; p < 4; ++p) dot[n][p] = 0;
       int cna = 0, cnb = 0;
       for (int kk = 4 * ft; kk < BD; kk += 32) {
-        const int a0 = *reinterpret_cast<const int*>(tile + ca * CS + kk);
-        const int a1 = *reinterpret_cast<const int*>(tile + cb * CS + kk);
-        const int a2 = *reinterpret_cast<const int*>(tile + ca * CS + kk + 16);
-        const int a3 = *reinterpret_cast<const int*>(tile + cb * CS + kk + 16);
+        const int a0 = *reinterpret_cast<const int*>(ws.tile + ca * CS + kk);
+        const int a1 = *reinterpret_cast<const int*>(ws.tile + cb * CS + kk);
+        const int a2 = *reinterpret_cast<const int*>(ws.tile + ca * CS + kk + 16);
+        const int a3 = *reinterpret_cast<const int*>(ws.tile + cb * CS + kk + 16);
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
-          const int8_t* qrow = qcodes_s + (8 * n + fg) * QS + kk;
+          const int8_t* qrow = ws.qcodes + (8 * n + fg) * QS + kk;
           mma_s8(dot[n], a0, a1, a2, a3, *reinterpret_cast<const int*>(qrow),
                  *reinterpret_cast<const int*>(qrow + 16));
         }
@@ -547,21 +597,21 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
       cna += __shfl_xor_sync(kFull, cna, 2);
       cnb += __shfl_xor_sync(kFull, cnb, 1);
       cnb += __shfl_xor_sync(kFull, cnb, 2);
-      const float sb2 = __fmul_rn(sb_s[0], sb_s[0]);
+      const float sb2 = __fmul_rn(ws.sb[0], ws.sb[0]);
       float ps[kNT][4];
       unsigned m[kNT][4];
       int total = 0;
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
-        d8_acc[2 * n] += BD * (va + vb);
-        d8_acc[2 * n + 1] += BD * (va + vb);
+        ctr.d8[2 * n] += BD * (va + vb);
+        ctr.d8[2 * n + 1] += BD * (va + vb);
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
           const int r = 8 * n + ((p & 1) ? qb : qa);
           ps[n][p] = 0.0f;
           const bool act =
-              stage1_block(ps[n][p], dot[n][p], p < 2 ? cna : cnb, sb2, tqsb_s[r * S],
-                           qn1_s[r * S], eband_s[r * S], scl_s[0], thr_s[0], rsq_s[r],
+              stage1_block(ps[n][p], dot[n][p], p < 2 ? cna : cnb, sb2, ws.tqsb[r * S],
+                           ws.qn1[r * S], ws.eband[r * S], ws.scl[0], ws.thr[0], ws.rsq[r],
                            a.one_minus_slack) &&
               (p < 2 ? va : vb);
           m[n][p] = __ballot_sync(kFull, act);
@@ -579,33 +629,33 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
         for (int p = 0; p < 4; ++p) {
           if ((m[n][p] >> lane) & 1u) {
             const int i = base + __popc(m[n][p] & below);
-            pair_s[i] = static_cast<unsigned short>((8 * n + ((p & 1) ? qb : qa)) << 8 |
+            ws.pair[i] = static_cast<unsigned short>((8 * n + ((p & 1) ? qb : qa)) << 8 |
                                                     (p < 2 ? ca : cb));
-            pval_s[i] = ps[n][p];
+            ws.pval[i] = ps[n][p];
           }
           base += __popc(m[n][p]);
         }
       }
     }
     clk.lap(kStage1);
-    nvalid_acc += __syncthreads_count(tid < BC && valid_c);
-    fresh_acc += fresh ? 1 : 0;
+    ctr.nvalid += __syncthreads_count(tid < BC && valid_c);
+    ctr.fresh += fresh ? 1 : 0;
     // The list is complete; the other count (last read right after the
     // previous real step's barrier here) is reset for the next real step.
     const int n_pairs = *npairs;
-    if (tid == 0) npairs_s[par ^ 1] = 0;
+    if (tid == 0) ws.npairs[par ^ 1] = 0;
     par ^= 1;
 
     // ---- stage 1, later blocks: the listed pairs, one per thread ----
     bool mine = false;
     for (int i = tid; i < n_pairs; i += kThreads) {
-      const int r = pair_s[i] >> 8, cc = pair_s[i] & 0xff;
-      const float rs = rsq_s[r];  // frozen for this tile
-      float ps = pval_s[i];
+      const int r = ws.pair[i] >> 8, cc = ws.pair[i] & 0xff;
+      const float rs = ws.rsq[r];  // frozen for this tile
+      float ps = ws.pval[i];
       bool act = true;
       unsigned d8 = 0;
-      const int8_t* crow = tile + cc * CS;
-      const int8_t* qrow = qcodes_s + r * QS;
+      const int8_t* crow = ws.tile + cc * CS;
+      const int8_t* qrow = ws.qcodes + r * QS;
       for (int s = 1; s < S && act; ++s) {
         int dot = 0, cn = 0;
 #pragma unroll 4
@@ -616,13 +666,13 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
           cn = __dp4a(cv.x, cv.x, __dp4a(cv.y, cv.y, __dp4a(cv.z, cv.z, __dp4a(cv.w, cv.w, cn))));
         }
         d8 += BD;
-        const float sb = sb_s[s];
-        act = stage1_block(ps, dot, cn, __fmul_rn(sb, sb), tqsb_s[r * S + s],
-                           qn1_s[r * S + s], eband_s[r * S + s], scl_s[s], thr_s[s], rs,
+        const float sb = ws.sb[s];
+        act = stage1_block(ps, dot, cn, __fmul_rn(sb, sb), ws.tqsb[r * S + s],
+                           ws.qn1[r * S + s], ws.eband[r * S + s], ws.scl[s], ws.thr[s], rs,
                            a.one_minus_slack);
       }
-      if (d8) atomicAdd(&acc_s[r * 3 + 0], static_cast<unsigned long long>(d8));
-      pst_s[i] = act ? kActive : 0;
+      if (d8) atomicAdd(&ws.acc[r * 3 + 0], static_cast<unsigned long long>(d8));
+      ws.pst[i] = act ? kActive : 0;
       mine = mine || act;
     }
     // Every thread is past its last read of this codes buffer here, and
@@ -630,7 +680,7 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
     const bool alive = __syncthreads_or(mine) != 0;
     clk.lap(kVotes);
     if (pending && !alive) {
-      issue_tile<BC>(a, tile, tile_ids, noff);
+      issue_tile<BC>(a, ws.tile, ws.tile_ids, noff);
       pending = false;
     }
 
@@ -638,37 +688,37 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
       // ---- stage 2: demand-paged fp re-screen (tiles.stage2_tile) ----
       for (int s = 0; s < S; ++s) {
         bool need = false;
-        for (int i = tid; i < n_pairs; i += kThreads) need = need || (pst_s[i] & kActive);
+        for (int i = tid; i < n_pairs; i += kThreads) need = need || (ws.pst[i] & kActive);
         // Once no valid candidate is active none ever is again: every
         // later slab is skipped too, and nothing read past here matters.
         const bool any_need = __syncthreads_or(need) != 0;
         clk.lap(kSlabWait);
         if (!any_need) break;
-        issue_slab<BC>(a, slab_s, off, s);
+        issue_slab<BC>(a, ws.slab, off, s);
         cp_async_wait<0>();
         __syncthreads();
         clk.lap(kSlabWait);
-        ++slabs_acc;
+        ++ctr.slabs;
         for (int i = tid; i < n_pairs; i += kThreads) {
-          const unsigned char st = pst_s[i];
+          const unsigned char st = ws.pst[i];
           if (!(st & kActive)) continue;
-          const int r = pair_s[i] >> 8, cc = pair_s[i] & 0xff;
-          const unsigned char* row = slab_s + cc * slab_row;
-          const float* qv = q_s + r * D + s * BD;
+          const int r = ws.pair[i] >> 8, cc = ws.pair[i] & 0xff;
+          const unsigned char* row = ws.slab + cc * slab_row;
+          const float* qv = ws.q + r * D + s * BD;
           float cn2 = 0.0f, dt = 0.0f;
           if (a.rows_bf16)
             slab_dot<true>(row, qv, BD, cn2, dt);
           else
             slab_dot<false>(row, qv, BD, cn2, dt);
-          const float p2 = __fadd_rn(s == 0 ? 0.0f : pval_s[i], block_sq(qn2_s[r * S + s], cn2, dt));
-          pval_s[i] = p2;
-          const bool rej = s != S - 1 && __fmul_rn(p2, scl_s[s]) > dade_threshold(thr_s[s], rsq_s[r]);
-          pst_s[i] = static_cast<unsigned char>((rej ? 0 : kActive) | ((st & 0x7f) + 1));
+          const float p2 = __fadd_rn(s == 0 ? 0.0f : ws.pval[i], block_sq(ws.qn2[r * S + s], cn2, dt));
+          ws.pval[i] = p2;
+          const bool rej = s != S - 1 && __fmul_rn(p2, ws.scl[s]) > dade_threshold(ws.thr[s], ws.rsq[r]);
+          ws.pst[i] = static_cast<unsigned char>((rej ? 0 : kActive) | ((st & 0x7f) + 1));
         }
         clk.lap(kStage2);
       }
       if (pending) {
-        issue_tile<BC>(a, tile, tile_ids, noff);
+        issue_tile<BC>(a, ws.tile, ws.tile_ids, noff);
         pending = false;
       }
       // ---- pass test and dup mask against the window before this merge ----
@@ -681,27 +731,27 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
         int r = 0, cc = 0;
         float p2 = 0.0f;
         if (i < n_pairs) {
-          const unsigned char st = pst_s[i];
-          r = pair_s[i] >> 8;
-          cc = pair_s[i] & 0xff;
+          const unsigned char st = ws.pst[i];
+          r = ws.pair[i] >> 8;
+          cc = ws.pair[i] & 0xff;
           if (st & 0x7f)
-            atomicAdd(&acc_s[r * 3 + 1], static_cast<unsigned long long>((st & 0x7f) * BD));
-          p2 = pval_s[i];
-          ok = (st & kActive) && p2 <= rsq_s[r];
-          if (ok) atomicAdd(&acc_s[r * 3 + 2], 1ull);
+            atomicAdd(&ws.acc[r * 3 + 1], static_cast<unsigned long long>((st & 0x7f) * BD));
+          p2 = ws.pval[i];
+          ok = (st & kActive) && p2 <= ws.rsq[r];
+          if (ok) atomicAdd(&ws.acc[r * 3 + 2], 1ull);
         }
         bool dup = false;
         for (unsigned m = __ballot_sync(kFull, ok); m; m &= m - 1) {
           const int src = __ffs(m) - 1;
           const int rr = __shfl_sync(kFull, r, src);
-          const int id = ids_s[__shfl_sync(kFull, cc, src)];
+          const int id = ws.ids[__shfl_sync(kFull, cc, src)];
           bool hit = false;
-          for (int kk = lane; kk < K; kk += 32) hit = hit || top_ids_s[rr * K + kk] == id;
+          for (int kk = lane; kk < K; kk += 32) hit = hit || ws.top_ids[rr * K + kk] == id;
           hit = __any_sync(kFull, hit);
           if (lane == src) dup = hit;
         }
         if (ok && !dup) {
-          cand_s[r * BC + cc] = p2;
+          ws.cand[r * BC + cc] = p2;
           enter = true;
         }
       }
@@ -712,14 +762,14 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
       // no entrant changes nothing and is skipped.
       if (__syncthreads_or(enter) || !window_sorted) {
         for (int r = warp; r < BQ; r += kWarps) {  // one warp per query row
-          float* wsq = top_sq_s + r * K;
-          int* wid = top_ids_s + r * K;
+          float* wsq = ws.top_sq + r * K;
+          int* wid = ws.top_ids + r * K;
           if (!window_sorted) {
             if (lane == 0) sort_row(wsq, wid, K);
             __syncwarp();
           }
-          merge_row(wsq, wid, cand_s + r * BC, ids_s, K, BC, lane);
-          if (lane == 0 && a.tighten) rsq_s[r] = fminf(rsq_s[r], wsq[a.thresh_col]);
+          merge_row(wsq, wid, ws.cand + r * BC, ws.ids, K, BC, lane);
+          if (lane == 0 && a.tighten) ws.rsq[r] = fminf(ws.rsq[r], wsq[a.thresh_col]);
         }
         window_sorted = true;
         __syncthreads();
@@ -729,29 +779,60 @@ __device__ __forceinline__ void scan_walk(const WalkArgs& a) {
   }
   clk.lap(kOther);
   clk.store(a.clocks);
+}
 
-  // ---- epilogue: window and counters -> global ----
-  if (s1) {
+// Stats: the counters of the step lists walked since the last reset, as
+// (BQ, 6) float rows of this tile at `stats` ((Q, 6) rows, this tile's from
+// row blockIdx.x * BQ).
+template <int BC, int BQ>
+__device__ __forceinline__ void walk_stats(const WalkArgs& a, const WalkSmem<BC, BQ>& ws,
+                                           const WalkCounters<BQ>& ctr, float* stats) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qa = 2 * (lane & 3), qb = qa + 1;
+  if (warp < BC / 16) {
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      atomicAdd(&acc_s[(8 * n + qa) * 3 + 0], static_cast<unsigned long long>(d8_acc[2 * n]));
-      atomicAdd(&acc_s[(8 * n + qb) * 3 + 0], static_cast<unsigned long long>(d8_acc[2 * n + 1]));
+    for (int n = 0; n < BQ / 8; ++n) {
+      atomicAdd(&ws.acc[(8 * n + qa) * 3 + 0], static_cast<unsigned long long>(ctr.d8[2 * n]));
+      atomicAdd(&ws.acc[(8 * n + qb) * 3 + 0], static_cast<unsigned long long>(ctr.d8[2 * n + 1]));
     }
   }
   __syncthreads();
-  for (int e = tid; e < BQ * K; e += kThreads) {
-    a.top_sq[q0 * K + e] = top_sq_s[e];
-    a.top_ids[q0 * K + e] = top_ids_s[e];
-  }
   if (tid < BQ) {
-    float* o = a.stats + (q0 + tid) * 6;
-    o[0] = static_cast<float>(acc_s[tid * 3 + 0]);
-    o[1] = static_cast<float>(acc_s[tid * 3 + 1]);
-    o[2] = static_cast<float>(nvalid_acc);
-    o[3] = static_cast<float>(acc_s[tid * 3 + 2]);
-    o[4] = static_cast<float>(slabs_acc);
-    o[5] = static_cast<float>(fresh_acc);
+    float* o = stats + (static_cast<size_t>(blockIdx.x) * BQ + tid) * 6;
+    o[0] = static_cast<float>(ws.acc[tid * 3 + 0]);
+    o[1] = static_cast<float>(ws.acc[tid * 3 + 1]);
+    o[2] = static_cast<float>(ctr.nvalid);
+    o[3] = static_cast<float>(ws.acc[tid * 3 + 2]);
+    o[4] = static_cast<float>(ctr.slabs);
+    o[5] = static_cast<float>(ctr.fresh);
   }
+}
+
+// The window in shared memory -> a.top_sq / a.top_ids.
+template <int BC, int BQ>
+__device__ __forceinline__ void walk_window(const WalkArgs& a, const WalkSmem<BC, BQ>& ws) {
+  const size_t q0 = static_cast<size_t>(blockIdx.x) * BQ;
+  for (int e = threadIdx.x; e < BQ * a.K; e += kThreads) {
+    a.top_sq[q0 * a.K + e] = ws.top_sq[e];
+    a.top_ids[q0 * a.K + e] = ws.top_ids[e];
+  }
+}
+
+// The walk of query tile blockIdx.x over its row of a.offs: the body of
+// both one-launch kernels (launched with kThreads threads and
+// make_layout<BC, BQ> bytes of dynamic shared memory).  kClocks builds the
+// timing variant, which also writes each phase's cycles to a.clocks.
+template <int BC, int BQ, bool kClocks = false>
+__device__ __forceinline__ void scan_walk(const WalkArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WalkSmem<BC, BQ> ws(smem, a);
+  walk_prologue<BC, BQ>(a, ws);
+  WalkCounters<BQ> ctr;
+  ctr.reset();
+  walk_steps<BC, BQ, kClocks>(a, ws, a.offs + static_cast<size_t>(blockIdx.x) * a.steps,
+                              a.steps, ctr);
+  walk_stats<BC, BQ>(a, ws, ctr, a.stats);
+  walk_window<BC, BQ>(a, ws);
 }
 
 // Launch kernel `fn` (a scan_walk<BC, BQ> instantiation) over q_tiles CTAs

@@ -32,7 +32,7 @@ from repro_torch.quant.scalar import cum_err_sq, quantize_queries_block
 __all__ = [
     "dco_screen_kernel", "quant_screen_kernel", "ivf_scan_kernel", "ivf_scan_inputs", "ivf_cap_tiles", "build_window_offsets",
     "block_table", "fused_fetch_totals", "graph_vis_words", "unpack_vis",
-    "graph_scan_inputs", "graph_scan_kernel",
+    "graph_scan_inputs", "graph_scan_kernel", "graph_walk_inputs",
 ]
 
 
@@ -359,3 +359,49 @@ def graph_scan_kernel(estimator: Estimator, q_rot: torch.Tensor, *args, **kwargs
         *call_args, **call_kwargs)
     qn = q_rot.shape[0]
     return top_sq[:qn], top_ids[:qn], stats[:qn], vis
+
+
+def graph_walk_inputs(
+    estimator: Estimator,
+    q_rot: torch.Tensor,  # (Q, D) rotated fp32 queries, tile-grouped by caller
+    top0_sq: torch.Tensor,  # (Q, EF) f32 seeded window
+    top0_ids: torch.Tensor,  # (Q, EF) int32
+    seed_sq: torch.Tensor,  # (Q,) f32 threshold floor (inf: none)
+    adj_rot: torch.Tensor,  # (N_adj, D_pad) f32/bf16 adjacency-flat rows
+    adj_codes: torch.Tensor,  # (N_adj, D_pad) int8 per-block codes
+    adj_ids: torch.Tensor,  # (N_adj,) int32, -1 per-block padding
+    bscales: torch.Tensor,  # (S,) f32 corpus per-block scales
+    *,
+    entry: int,
+    ef: int,
+    thresh_col: int,
+    expand: int,
+    max_waves: int,
+    route_mult: float = 1.0,
+    block_q: int = graph_scan.KERNEL_TILE[0],
+    block_c: int = graph_scan.KERNEL_TILE[1],
+    block_d: int = 32,
+    slack: float = 1e-4,
+):
+    """The padded ``(args, kwargs)`` of the ``graph_walk_kernel_call`` (or
+    ``ref.graph_walk_ref``) that walks these queries through the whole
+    single-shard graph, on the device of ``adj_rot``: the
+    :func:`graph_scan_inputs` padding (pad rows carry an empty window and a
+    threshold floor of 0, and pick nothing), an all-clear bitmap, and the
+    walk's schedule — the entry point, ``expand`` picks per query and wave,
+    the gate r² · ``route_mult``, at most ``max_waves`` waves."""
+    qn = q_rot.shape[0]
+    q_tiles = -(-qn // block_q)
+    args, kw = graph_scan_inputs(
+        estimator, q_rot, torch.full((q_tiles, 1), -1, dtype=torch.int32),
+        top0_sq, top0_ids, seed_sq, adj_rot, adj_codes, adj_ids, bscales,
+        ef=ef, thresh_col=thresh_col, block_q=block_q, block_c=block_c,
+        block_d=block_d, slack=slack)
+    (_, qcodes, q, qscales, t_sq, t_ids, seed, vis0, codes, rows, ids, bs, eps,
+     scale, _) = args
+    walk_args = (qcodes, q, qscales, t_sq, t_ids, seed, vis0, codes, rows, ids,
+                 bs, eps, scale)
+    return walk_args, dict(entry=int(entry), qn=qn, ef=ef, thresh_col=thresh_col,
+                           expand=expand, max_waves=max_waves,
+                           route_mult=float(route_mult), block_q=block_q,
+                           block_c=block_c, block_d=block_d, slack=slack)

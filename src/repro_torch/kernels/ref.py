@@ -4,7 +4,10 @@
 contract) for ``csrc/dade_dco.cu``, ``csrc/quant_dco.cu`` and
 ``csrc/l2_scan.cu``, and the fused scans ``ivf_scan_ref`` and
 ``graph_scan_ref`` (ports of ``repro.kernels.ref``'s) for
-``csrc/ivf_scan.cu`` and ``csrc/graph_scan.cu``.
+``csrc/ivf_scan.cu`` and ``csrc/graph_scan.cu``'s one-wave kernel, and the
+whole single-shard graph walk ``graph_walk_ref`` (``graph_scan_ref`` waves
+with the frontier picked between them by ``select_wave_ref``, the tensor
+form of ``repro.index.graph._select_wave``) for its persistent walk kernel.
 
 The flat screens walk the dimension blocks in order over all (Q, N) pairs
 at once, with ``tiles.mxu_block_sq``'s per-dimension sums: a pair retires
@@ -43,7 +46,7 @@ from repro_torch.kernels.tiles import (
 )
 
 __all__ = ["dade_dco_ref", "quant_dco_ref", "l2_scan_ref", "ivf_scan_ref",
-           "graph_scan_ref", "STATS_COLS"]
+           "graph_scan_ref", "select_wave_ref", "graph_walk_ref", "STATS_COLS"]
 
 
 def _blocks(q, c, s_count, block_d):
@@ -333,3 +336,113 @@ def graph_scan_ref(
     for rec in trace:
         rec["marked"] = rec["row_start"] // block_c + int(vis_base)
     return tuple(out) + (trace,)
+
+
+def select_wave_ref(top_sq, top_ids, vis, route_sq, *, block_q: int, qn: int,
+                    expand: int, ef: int):
+    """One wave's frontier, the reference's ``_select_wave`` in tensor form.
+
+    Per query row ``r < qn`` (pad rows pick nothing), the first ``expand``
+    entries of its sorted window that are not yet expanded in its tile's
+    packed bitmap ``vis`` (q_tiles, W), scanning in window order and
+    stopping at the first entry whose id is < 0, whose distance is not
+    finite or exceeds ``route_sq[r]``; expanded entries are skipped without
+    using up the budget.  Per tile, the picks of its queries in query order,
+    a node that an earlier query of the tile already proposed used up the
+    later query's budget but is not listed again.  Returns the
+    (q_tiles, block_q * expand) int32 step table, -1 padded (an all -1 row:
+    the tile has converged)."""
+    qp = top_sq.shape[0]
+    q_tiles = qp // block_q
+    dev = top_sq.device
+    sq = top_sq[:, :ef].float()
+    ids = top_ids[:, :ef].to(torch.int64)
+    stop = (ids < 0) | ~torch.isfinite(sq) | (sq > route_sq.float()[:, None])
+    open_ = torch.cumsum(stop.to(torch.int32), dim=1) == 0  # before the first stop
+    node = ids.clamp_min(0)
+    rows = torch.arange(qp, device=dev)
+    words = vis.to(torch.int32)[(rows // block_q)[:, None], node >> 5]
+    expanded = ((words >> (node & 31).to(torch.int32)) & 1) != 0
+    qual = open_ & ~expanded & (rows < qn)[:, None]
+    pick = qual & (torch.cumsum(qual.to(torch.int32), dim=1) <= expand)
+    # Each row's picks in window order, compacted into `expand` slots.
+    order = torch.argsort((~pick).to(torch.int8), dim=1, stable=True)[:, :expand]
+    cand = torch.where(torch.gather(pick, 1, order), torch.gather(ids, 1, order),
+                       torch.full_like(order, -1))
+    cand = torch.nn.functional.pad(cand, (0, expand - cand.shape[1]), value=-1)
+    # Per tile, in query order: keep the first proposal of each node.
+    lst = cand.reshape(q_tiles, block_q * expand)
+    width = lst.shape[1]
+    earlier = torch.tril(torch.ones((width, width), dtype=torch.bool, device=dev), -1)
+    dup = ((lst[:, :, None] == lst[:, None, :]) & earlier).any(dim=2)
+    keep = (lst >= 0) & ~dup
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    out = torch.where(torch.gather(keep, 1, order), torch.gather(lst, 1, order),
+                      torch.full_like(lst, -1))
+    return out.to(torch.int32)
+
+
+def graph_walk_ref(
+    qcodes: torch.Tensor,  # (Q, D) int8
+    q_rot: torch.Tensor,  # (Q, D) f32
+    qscales: torch.Tensor,  # (Q, S) f32
+    top0_sq: torch.Tensor,  # (Q, EF) f32 seeded window (the entry point)
+    top0_ids: torch.Tensor,  # (Q, EF) int32
+    seed_sq: torch.Tensor,  # (Q,) f32 threshold floor (inf: none; 0: pad rows)
+    vis0: torch.Tensor,  # (q_tiles, W) int32 packed visited bitmap
+    adj_codes: torch.Tensor,  # (N_adj, D) int8 adjacency-flat
+    adj_rot: torch.Tensor,  # (N_adj, D) f32 or bf16
+    adj_ids: torch.Tensor,  # (N_adj,) int32, -1 per-block padding
+    bscales: torch.Tensor,  # (S,) f32
+    eps: torch.Tensor,  # (S,) f32
+    scale: torch.Tensor,  # (S,) f32
+    *,
+    entry: int,
+    qn: int,
+    ef: int,
+    thresh_col: int,
+    expand: int,
+    max_waves: int,
+    route_mult: float,
+    block_q: int,
+    block_c: int,
+    block_d: int,
+    slack: float = 1e-4,
+):
+    """The single-shard graph walk: up to ``max_waves`` waves of
+    ``graph_scan_ref``, each from r² = min(seed, window[thresh_col]) per
+    query, the first the entry point alone, every later one the frontier
+    ``select_wave_ref`` picks with the gate r² · ``route_mult`` (fp32).  A
+    tile whose frontier is empty has converged: its window, r² and bitmap
+    no longer change, so it runs no later wave; the walk ends when every
+    tile has.
+
+    Returns (top_sq (Q, EF) f32, top_ids (Q, EF) int32, stats (max_waves,
+    Q, 6) f32 — each wave's ``STATS_COLS``, zero where a tile ran no wave,
+    vis (q_tiles, W) int32, waves (q_tiles,) int32 — the waves each tile
+    ran)."""
+    qp = q_rot.shape[0]
+    q_tiles = qp // block_q
+    dev = q_rot.device
+    top_sq, top_ids, vis = top0_sq.float(), top0_ids.to(torch.int32), vis0
+    seed = seed_sq.float()
+    mult = torch.tensor(route_mult, dtype=torch.float32, device=dev)
+    stats = torch.zeros((max_waves, qp, len(STATS_COLS)), dtype=torch.float32,
+                        device=dev)
+    waves = torch.zeros((q_tiles,), dtype=torch.int32, device=dev)
+    for w in range(max_waves):
+        r0 = torch.minimum(seed, top_sq[:, thresh_col])
+        if w == 0:
+            offs = torch.full((q_tiles, 1), int(entry), dtype=torch.int32, device=dev)
+        else:
+            offs = select_wave_ref(top_sq, top_ids, vis, r0 * mult, block_q=block_q,
+                                   qn=qn, expand=expand, ef=ef)
+        live = (offs >= 0).any(dim=1)
+        if not bool(live.any()):
+            break
+        waves += live.to(torch.int32)
+        top_sq, top_ids, stats[w], vis = graph_scan_ref(
+            offs, qcodes, q_rot, qscales, top_sq, top_ids, r0, vis, adj_codes,
+            adj_rot, adj_ids, bscales, eps, scale, 0, ef=ef, thresh_col=thresh_col,
+            block_q=block_q, block_c=block_c, block_d=block_d, slack=slack)
+    return top_sq, top_ids, stats, vis, waves

@@ -12,11 +12,13 @@ between waves.  ``shards`` cuts the waves into that many contiguous runs,
 each walked from the same seeded r² with an empty window, and merges the
 windows as the reference's ``hierarchical_topk`` does across a mesh of as
 many shards (``ivf_scan_kernel_call(segments=...)``): one launch, with
-``shards`` times as many independent walks to fill the card.
+``shards`` times as many independent walks to fill the card.  Each segment
+seeds from the first wave of its own run and the seeds' minimum starts them
+all, the reference's ``pmin`` over its shards' seeds.
 
 The graph route serves a batch through ``index.graph.search_graph_fused``:
-one ``graph_scan`` launch per frontier wave, the host selecting the next
-frontier between waves.
+one launch of the ``graph_walk`` kernel walks every wave of the batch, each
+query tile selecting its next frontier on the card.
 """
 
 from __future__ import annotations
@@ -43,21 +45,35 @@ FUSED_BLOCK_Q, FUSED_BLOCK_C = KERNEL_TILE
 SHARDS = 4
 
 
-def seed_rsq(svc: ServiceConfig, corpus, queries, eps):
-    """Two-phase threshold seed: first-block estimates over the first wave
-    pick k candidates per query, verified exactly; the k-th exact distance
-    bounds the final k-th from above.  Runs in float32 on the upcast rows,
-    the arithmetic the kernel uses."""
-    k, block_d = svc.k, svc.delta_d
-    sample = corpus[: svc.wave].float()
+def seed_rsq(svc: ServiceConfig, corpus, queries, eps, segments: int = 1):
+    """Two-phase threshold seed: first-block estimates over a segment's first
+    wave pick k candidates per query, verified exactly; the k-th exact
+    distance bounds the final k-th from above.  With ``segments`` G > 1 the
+    corpus's waves are walked as G runs of ``ceil(waves / G)`` waves
+    (``ivf_scan.split_segments``), and segment g seeds from the first wave of
+    its own run, rows ``g * ceil(waves / G) * wave`` onward; the seed is the
+    elementwise minimum of the G k-th distances, widened once, as the
+    reference's G-shard step takes the ``pmin`` over its shards' seeds.
+    Where ``waves % G != 0`` the runs are not the reference's shards (it has
+    no such split); the rule is kept, and a segment whose run holds no wave
+    adds nothing to the minimum.  Runs in float32 on the upcast rows, the
+    arithmetic the kernel uses."""
+    k, block_d, wave = svc.k, svc.delta_d, svc.wave
+    n = corpus.shape[0]
+    waves = -(-n // wave)
+    per = -(-waves // segments)  # waves in each segment's run
     q = queries.float()
     qb = q[:, :block_d]
-    cb = sample[:, :block_d]
-    est0 = (torch.sum(qb * qb, 1)[:, None] + torch.sum(cb * cb, 1)[None, :]
-            - 2.0 * (qb @ cb.T))
-    idx = torch.topk(est0, k, dim=1, largest=False).indices
-    diff = sample[idx] - q[:, None, :]
-    kth = torch.amax(torch.sum(diff * diff, dim=-1), dim=1)
+    kth = None
+    for start in range(0, n, per * wave):
+        sample = corpus[start: start + wave].float()
+        cb = sample[:, :block_d]
+        est0 = (torch.sum(qb * qb, 1)[:, None] + torch.sum(cb * cb, 1)[None, :]
+                - 2.0 * (qb @ cb.T))
+        idx = torch.topk(est0, k, dim=1, largest=False).indices
+        diff = sample[idx] - q[:, None, :]
+        kth_g = torch.amax(torch.sum(diff * diff, dim=-1), dim=1)
+        kth = kth_g if kth is None else torch.minimum(kth, kth_g)
     # Widen by the first ENABLED checkpoint's overshoot band; SEED_SLACK
     # keeps the zero-widening case sound under float reassociation.
     t = 1.0 + first_enabled_eps(eps)
@@ -108,7 +124,7 @@ def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
 
     def step(corpus, codes, bscales, queries, eps, scale, eps_lo):
         del eps_lo  # the fused route widens from eps alone
-        r0 = seed_rsq(svc, corpus, queries, eps)
+        r0 = seed_rsq(svc, corpus, queries, eps, segments=shards)
         args, kwargs = fused_scan_inputs(svc, corpus, codes, bscales, queries,
                                          eps, scale, r0)
         top_sq, top_ids, stats = ivf_scan_kernel_call(*args, segments=shards, **kwargs)

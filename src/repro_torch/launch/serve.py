@@ -211,7 +211,8 @@ def serve_graph(args, svc: ServiceConfig, dev, prepared: GraphService | None) ->
     skip = float(np.mean([st.s2_skip_rate for st in g_stats]))
     report = {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
               "queries": total_q,
-              "requests_served": sched.stats["served"], "waves": float(waves),
+              "requests_served": sched.stats["served"],
+              "batches": sched.stats["batches"], "waves": float(waves),
               "fetched_bytes_per_query": fetched, "s2_skip_rate": skip,
               "device": str(dev)}
     print(f"method={args.method} index=graph quant={args.quant} devices=1 corpus={n} "

@@ -1,6 +1,7 @@
 """The CUDA ``ivf_scan`` (every query-tile width, split into segments),
-``graph_scan``, ``dade_dco``, ``quant_dco`` and ``l2_scan`` kernels against
-their plain PyTorch versions on the card, bit for bit, and the
+``graph_scan`` (one wave, and the whole walk of a search), ``dade_dco``,
+``quant_dco`` and ``l2_scan`` kernels against their plain PyTorch versions
+on the card, bit for bit, and the
 repeatability of an IVF build there (needs no JAX, so it runs where only
 the port is installed).
 
@@ -138,6 +139,62 @@ def test_cuda_graph_kernel_matches_plain_version(ef, bf16, tighten, thresh_col, 
     for a, b in zip(out_k, out_p):  # window, ids, stats, bitmap: bit for bit
         assert torch.equal(a, b)
     assert float(out_k[2][:, 3].sum()) > 0
+
+
+# The walk cases: search settings beside (k=10, ef=48, expand=2, no seed,
+# decoupled, route_mult 1, at most 64 waves), on f32 or bf16 rows.
+_WALK_CASES = {
+    "defaults": {}, "seed_r": dict(seed_r=True), "coupled": dict(decoupled=False, ef=32),
+    "route_mult": dict(route_mult=1.2), "bf16": dict(bf16=True),
+    "max_waves": dict(max_waves=3),
+}
+
+
+@pytest.fixture(scope="module")
+def walk_graph():
+    """An NSW graph of 1500 rows x 64 dims on the card (Δd 32) and 77
+    queries: 10 query tiles, the last with 3 pad rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graph_walk kernel has no CPU mode")
+    from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
+    from repro_torch.index.graph import build_graph
+
+    corpus = synthetic_vectors(1500, 64, seed=0)
+    index = build_graph(corpus, m=12, ef_construction=48, delta_d=32, device="cuda")
+    return index, synthetic_queries(77, 64, corpus, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_WALK_CASES))
+def test_cuda_graph_walk_matches_plain_walk(walk_graph, case):
+    """One launch walks the whole search as ``ref.graph_walk_ref`` does:
+    the window, every wave's stats rows, the bitmap and each tile's wave
+    count, bit for bit."""
+    import dataclasses
+
+    from repro_torch.index.graph import walk_inputs
+    from repro_torch.kernels.graph_scan import graph_walk_kernel_call
+    from repro_torch.kernels.ref import graph_walk_ref
+
+    index, queries = walk_graph
+    kw = dict(k=10, ef=48, expand=2, block_q=8, max_waves=64, seed_r=False,
+              decoupled=True, route_mult=1.0)
+    kw.update(_WALK_CASES[case])
+    if kw.pop("bf16", False):
+        index = dataclasses.replace(index, adj_rot=index.adj_rot.to(torch.bfloat16))
+    args, wkw, _ = walk_inputs(index, queries, **kw)
+    before = graph_walk_kernel_call.launches
+    out_k = graph_walk_kernel_call(*args, **wkw)
+    out_p = graph_walk_ref(*args, **wkw)
+    torch.cuda.synchronize()
+    assert graph_walk_kernel_call.launches == before + 1
+    for a, b in zip(out_k, out_p):  # window, ids, stats, bitmap, waves
+        assert torch.equal(a, b)
+    waves = out_k[4].tolist()
+    if case == "max_waves":
+        assert max(waves) == 3
+    else:  # the tiles converge at different waves, well before the cap
+        assert len(set(waves)) > 1 and max(waves) < 64
 
 
 @pytest.mark.gpu

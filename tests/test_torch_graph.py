@@ -19,7 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.index.graph as j_graph  # noqa: E402
-import repro_torch.index.graph as t_graph  # noqa: E402
+import repro_torch.kernels.ref as t_ref  # noqa: E402
 from _torch_carry import carry_estimator, carry_graph, recall  # noqa: E402
 from repro.core import build_estimator, exact_knn  # noqa: E402
 from repro.data.pipeline import synthetic_queries, synthetic_vectors  # noqa: E402
@@ -30,7 +30,10 @@ from repro.kernels.ref import graph_scan_ref as j_graph_scan_ref  # noqa: E402
 from repro.quant.scalar import quantize_queries_block  # noqa: E402
 from repro_torch.index.graph import (  # noqa: E402
     graph_from_rotated, search_graph_beam_host, search_graph_fused)
-from repro_torch.kernels.graph_scan import graph_scan_kernel_call  # noqa: E402
+from repro_torch.kernels.graph_scan import (  # noqa: E402
+    graph_scan_kernel_call, graph_walk_kernel_call)
+from repro_torch.kernels.ops import graph_vis_words  # noqa: E402
+from repro_torch.kernels.ref import graph_scan_ref, select_wave_ref  # noqa: E402
 
 
 def test_graph_build_matches_reference(graph_idx):
@@ -72,17 +75,22 @@ def bf16_graph(aniso_corpus):
     dict(seed_r=True),
     dict(decoupled=False, ef=32),
     dict(route_mult=1.2, ef=32),
-], ids=["defaults", "seed_r", "coupled", "route_mult"])
+    dict(max_waves=3),
+], ids=["defaults", "seed_r", "coupled", "route_mult", "max_waves"])
 def test_walk_matches_reference(graph_idx, queries, kw):
     sub, g = graph_idx
     port = carry_graph(g)
     q = np.asarray(queries)
     ref = j_search(g, jnp.asarray(q), k=10, use_ref=True, **kw)
-    before = graph_scan_kernel_call.launches
+    before = graph_scan_kernel_call.launches, graph_walk_kernel_call.launches
     out = search_graph_fused(port, q, k=10, device="cpu", **kw)
-    assert graph_scan_kernel_call.launches == before  # CPU tensors: plain path
+    # CPU tensors: the plain walk, no kernel launch.
+    assert (graph_scan_kernel_call.launches, graph_walk_kernel_call.launches) == before
     _assert_same_walk(out, ref)
     assert out[2].waves > 1 and out[2].s1_tiles_fetched > 0
+    if "max_waves" in kw:  # the cap cuts the walk short
+        assert out[2].waves == kw["max_waves"]
+        return
     _, gt = exact_knn(jnp.asarray(q), jnp.asarray(sub), 10)
     assert recall(out[1].numpy(), gt) >= 0.85
 
@@ -109,8 +117,8 @@ def test_coupled_walk_near_tie_at_threshold(graph_idx, queries, monkeypatch):
     waves_j, waves_t = [], []
     monkeypatch.setattr(j_graph, "graph_scan_kernel",
                         _recording(j_graph.graph_scan_kernel, waves_j))
-    monkeypatch.setattr(t_graph, "graph_scan_ref",
-                        _recording(t_graph.graph_scan_ref, waves_t))
+    monkeypatch.setattr(t_ref, "graph_scan_ref",
+                        _recording(t_ref.graph_scan_ref, waves_t))
     kw = dict(k=10, ef=32, decoupled=False)
     dj, ij, stj = j_search(g, jnp.asarray(q), use_ref=True, **kw)
     d, i, st = search_graph_beam_host(port, q, device="cpu", **kw)
@@ -124,7 +132,7 @@ def test_coupled_walk_near_tie_at_threshold(graph_idx, queries, monkeypatch):
     (w, row), = [(w, r) for w, (a, b) in enumerate(zip(waves_j, waves_t))
                  for r in np.nonzero(np.asarray(a[2][2])[:, 3] != b[2][2][:, 3].numpy())[0]]
     (j_args, _, _), (t_args, t_kw, _) = waves_j[w], waves_t[w]
-    *_, trace_t = t_graph.graph_scan_ref(*t_args, **t_kw, return_trace=True)
+    *_, trace_t = t_ref.graph_scan_ref(*t_args, **t_kw, return_trace=True)
     eps, scale, d_pad, _ = block_table(g.estimator.table, q.shape[1], g.scan_block_d)
     qcodes, qscales = quantize_queries_block(j_args[1], g.scan_block_d)
     *_, trace_j = j_graph_scan_ref(
@@ -190,3 +198,107 @@ def test_fig8_fetched_bytes_reproduced():
     out = search_graph_fused(carry_graph(g), q, device="cpu", **kw)
     _assert_same_walk(out, ref)
     assert out[2].fetched_bytes_per_query == pytest.approx(134008, rel=0.08)
+
+
+def _selection_case(seed, *, ef, n=200, qn=29, block_q=8):
+    """Sorted windows over a small node pool (so a tile's queries propose
+    the same nodes), each row cut by a -1 id with a finite distance, an inf
+    distance with a real id, or nothing; a gate inside the window or past
+    it; a random bitmap with bit 31 of some words set; pad rows from qn."""
+    rng = np.random.default_rng(seed)
+    q_tiles = -(-qn // block_q)
+    qp = q_tiles * block_q
+    top_sq = np.sort(rng.random((qp, ef)).astype(np.float32) * 10, axis=1)
+    top_ids = rng.integers(0, 24, (qp, ef)).astype(np.int32)
+    for r in range(qp):
+        cut = int(rng.integers(1, ef + 1))
+        kind = r % 3
+        if kind == 0 and cut < ef:
+            top_ids[r, cut] = -1
+        elif kind == 1 and cut < ef:
+            top_sq[r, cut:] = np.inf
+        if r % 5 == 0:
+            top_sq[r, cut:], top_ids[r, cut:] = np.inf, -1
+    top_ids[qn:], top_sq[qn:] = top_ids[0], top_sq[0]  # pad rows must still pick nothing
+    route = np.where(rng.random(qp) < 0.5, top_sq[np.arange(qp), rng.integers(0, 4, qp)],
+                     np.float32(np.inf)).astype(np.float32)
+    words = graph_vis_words(n)
+    vis = rng.integers(0, 2**32, (q_tiles, words), dtype=np.uint64)
+    vis &= rng.integers(0, 2**32, (q_tiles, words), dtype=np.uint64)  # ~1/4 of the bits
+    vis = vis.astype(np.uint32)
+    vis[:, 0] |= np.uint32(1 << 31)
+    return top_sq, top_ids, vis.view(np.int32), route, q_tiles
+
+
+@pytest.mark.parametrize("seed,expand,ef", [(0, 1, 16), (1, 2, 16), (2, 2, 48), (3, 1, 48)])
+def test_select_wave_matches_reference(seed, expand, ef):
+    """The tensor-form selection picks the reference's ``_select_wave``
+    frontier, in its order, tile by tile."""
+    from repro.kernels.ops import unpack_vis as j_unpack_vis
+
+    qn, block_q = 29, 8
+    top_sq, top_ids, vis, route, q_tiles = _selection_case(seed, ef=ef, qn=qn)
+    picked = j_graph._select_wave(top_sq, top_ids, j_unpack_vis(vis, 200), route,
+                                  q_tiles=q_tiles, block_q=block_q, qn=qn,
+                                  expand=expand, ef=ef)
+    table = select_wave_ref(torch.as_tensor(top_sq), torch.as_tensor(top_ids),
+                            torch.as_tensor(vis), torch.as_tensor(route),
+                            block_q=block_q, qn=qn, expand=expand, ef=ef)
+    assert tuple(table.shape) == (q_tiles, block_q * expand)
+    got = [[v for v in row if v >= 0] for row in table.tolist()]
+    assert got == picked
+    assert all(row[len(sel):] == [-1] * (len(row) - len(sel))
+               for row, sel in zip(table.tolist(), picked))
+    # The case exercises what it is for: a node proposed twice in a tile,
+    # a converged tile or a short list, and every pick unexpanded.
+    lists = [sum(1 for v in row if v >= 0) for row in table.tolist()]
+    assert max(lists) > 0 and min(lists) < block_q * expand
+
+
+def test_empty_step_row_changes_nothing(graph_idx, queries):
+    """An all -1 step row leaves its tile's window, r² and bitmap as they
+    were and books zero stats: the premise of a converged tile running no
+    later wave."""
+    from repro_torch.index.graph import walk_inputs
+
+    port = carry_graph(graph_idx[1])
+    args, kw, _ = walk_inputs(port, np.asarray(queries), k=10, ef=48, expand=2,
+                              block_q=8, max_waves=4, seed_r=False, decoupled=True,
+                              route_mult=1.0)
+    t_sq, t_ids, _, vis, _ = graph_walk_kernel_call(*args, **kw)
+    q_tiles = vis.shape[0]
+    offs = torch.full((q_tiles, 4), -1, dtype=torch.int32)
+    offs[0, :2] = torch.tensor([port.entry, 3])  # one tile walks, the others do not
+    (qcodes, q, qscales, _, _, seed, _, codes, rows, ids, bs, eps, scale) = args
+    r0 = torch.minimum(seed, t_sq[:, kw["thresh_col"]])
+    out_sq, out_ids, st, out_vis = graph_scan_ref(
+        offs, qcodes, q, qscales, t_sq, t_ids, r0, vis, codes, rows, ids, bs, eps,
+        scale, 0, ef=48, thresh_col=kw["thresh_col"], block_q=8,
+        block_c=port.adj_block, block_d=port.scan_block_d)
+    rest = slice(8, None)
+    assert torch.equal(out_sq[rest], t_sq[rest]) and torch.equal(out_ids[rest], t_ids[rest])
+    assert torch.equal(out_vis[1:], vis[1:])
+    assert not bool(st[rest].any())
+    assert bool(st[:8].any()) and not torch.equal(out_vis[0], vis[0])
+
+
+def test_walk_tiles_converge_and_stay_converged(graph_idx, queries):
+    """Tiles of one batch converge at different waves, and a tile's
+    frontier on its final state is empty: its later waves would change
+    nothing, so it runs none (its stats rows stay zero)."""
+    from repro_torch.index.graph import walk_inputs
+
+    port = carry_graph(graph_idx[1])
+    args, kw, _ = walk_inputs(port, np.asarray(queries), k=10, ef=48, expand=2,
+                              block_q=8, max_waves=64, seed_r=False, decoupled=True,
+                              route_mult=1.0)
+    t_sq, t_ids, st, vis, waves = graph_walk_kernel_call(*args, **kw)
+    assert len(set(waves.tolist())) > 1 and int(waves.max()) < 64
+    seed = args[5]
+    gate = torch.minimum(seed, t_sq[:, kw["thresh_col"]]) * torch.tensor(1.0)
+    table = select_wave_ref(t_sq, t_ids, vis, gate, block_q=8, qn=kw["qn"],
+                            expand=2, ef=48)
+    assert bool((table == -1).all())
+    for t, w in enumerate(waves.tolist()):
+        assert bool(st[w:, 8 * t: 8 * t + 8].eq(0).all())
+        assert bool(st[w - 1, 8 * t: 8 * t + 8, 5].gt(0).all())

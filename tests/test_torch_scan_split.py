@@ -18,9 +18,20 @@ into segments (``ivf_scan_kernel_call(segments=G)``,
     order, the stats summed; same tolerances, with ROADMAP queue 3's
     near-tie rule for the ids (an id may differ only where the two
     distances at that position agree to that tolerance);
-  * (d) the one-walk step (shards = 1) is the reference's one-device step:
-    ``tests/test_torch_serve.py::test_fused_search_step_matches_reference``.
+  * (d) ``build_search_step(shards=G)`` is the reference's G-shard step,
+    run on a G-device CPU mesh in a subprocess at the serving test's
+    size (G = 1, 2, 4): each segment seeds from the first wave of its own
+    run and the seeds' minimum starts them all, as the reference takes
+    the ``pmin`` of its shards' seeds; ids, stats columns 0-3 and (from
+    the reference's oracle at the port's width) 4-5 equal, distances to
+    fp32 rounding.
 """
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,7 +50,11 @@ from repro.quant.scalar import quantize_queries_block as j_quantize_queries  # n
 from repro_torch.configs.dade_ivf import ServiceConfig  # noqa: E402
 from repro_torch.kernels.ivf_scan import (  # noqa: E402
     KERNEL_BLOCK_QS, KERNEL_TILE, ivf_scan_kernel_call, merge_segments, split_segments)
-from repro_torch.launch.annservice import build_search_step  # noqa: E402
+from repro_torch.core.estimators import SEED_SLACK, first_enabled_eps  # noqa: E402
+from repro_torch.launch.annservice import (  # noqa: E402
+    FUSED_BLOCK_Q, build_search_step, seed_rsq)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 N, DIM, BD, WAVE, BC, K, Q = 4096, 64, 16, 512, 128, 10, 32
 P, CAP = N // WAVE, WAVE // BC
@@ -184,23 +199,137 @@ def test_split_refuses_a_seeded_window(flat):
                              cap_tiles=CAP, segments=2)
 
 
-@pytest.mark.parametrize("shards", [1, 2])
-def test_search_step_shards_match_split_scan(flat, shards):
-    """``build_search_step(shards=G)`` returns the split scan's merged
-    window (as distances) and its stats, summed as the reference's psum."""
-    svc = ServiceConfig(corpus_per_device=N, dim=DIM, query_batch=Q, k=K, delta_d=BD,
-                        wave=WAVE, p_s=0.02, dtype="float32")
+# The reference's G-shard step, run on a G-device CPU mesh in a subprocess
+# (the test process keeps one device): the inputs come in and the results
+# go out as .npz files.
+_REF_SHARDS = textwrap.dedent("""
+    import os
+    import sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    import numpy as np
+    from repro.configs.dade_ivf import ServiceConfig
+    from repro.launch.annservice import build_search_step, search_input_specs
+
+    a = dict(np.load(sys.argv[1]))
+    small = {small!r}
+    out = {{}}
+    kw = ({{"axis_types": (jax.sharding.AxisType.Auto,)}}
+          if hasattr(jax.sharding, "AxisType") else {{}})
+    for g in {shards!r}:
+        mesh = jax.make_mesh((g,), ("data",), devices=jax.devices()[:g], **kw)
+        svc = ServiceConfig(quant="int8", **dict(
+            small, corpus_per_device=small["corpus_per_device"] // g))
+        _, sh = search_input_specs(svc, mesh, quant="int8", fused=True)
+        step = jax.jit(build_search_step(svc, mesh, quant="int8", fused=True,
+                                         with_stats=True), in_shardings=sh)
+        d, i, scan = step(jax.device_put(a["c_rot"], sh[0]),
+                          jax.device_put(a["codes"], sh[1]),
+                          jax.device_put(a["bscales"], sh[2]), a["q_rot"],
+                          a["eps"], a["scale"], a["eps_lo"])
+        out[f"d{{g}}"], out[f"i{{g}}"], out[f"scan{{g}}"] = (
+            np.asarray(d), np.asarray(i), np.asarray(scan, np.float64))
+    np.savez(sys.argv[2], **out)
+""")
+SMALL = dict(corpus_per_device=2048, dim=64, query_batch=16, k=10, delta_d=16,
+             wave=256, p_s=0.02, dtype="float32")
+SHARD_COUNTS = (1, 2, 4)
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """The serving test's inputs (``tests/test_torch_serve.py``'s SMALL
+    size) and the reference's step on them at every shard count."""
+    corpus = synthetic_vectors(SMALL["corpus_per_device"], SMALL["dim"], seed=0)
+    queries = synthetic_queries(SMALL["query_batch"], SMALL["dim"], corpus, seed=1)
+    est = build_estimator("dade", corpus, jax.random.PRNGKey(0), p_s=0.02, delta_d=16)
+    eps, scale, _, eps_lo = block_table(est.table, SMALL["dim"], 16)
+    c_rot = np.asarray(est.rotate(jnp.asarray(corpus)))
+    q_rot = np.asarray(est.rotate(jnp.asarray(queries)))
+    bscales = fit_block_scales(jnp.asarray(c_rot), 16)
+    codes = quantize_block(jnp.asarray(c_rot), bscales, 16)
+    arrays = {name: np.asarray(a) for name, a in dict(
+        c_rot=c_rot, codes=codes, bscales=bscales, q_rot=q_rot, eps=eps,
+        scale=scale, eps_lo=eps_lo).items()}
+    tmp = tmp_path_factory.mktemp("shards")
+    np.savez(tmp / "in.npz", **arrays)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    script = _REF_SHARDS.format(small=SMALL, shards=SHARD_COUNTS)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp / "in.npz"),
+                           str(tmp / "out.npz")], capture_output=True, text=True,
+                          env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return arrays, dict(np.load(tmp / "out.npz"))
+
+
+def _reference_fetch_counters(arrays, r0, shards, block_q):
+    """Stats columns 4-5 of the G-shard step counted by the reference's
+    oracle at query-tile width ``block_q``: each shard's run of waves from
+    ``r0`` with an empty window, the counters summed over shards."""
+    svc = ServiceConfig(**SMALL)
+    q = svc.query_batch
+    qcodes, qscales = j_quantize_queries(jnp.asarray(arrays["q_rot"]), svc.delta_d)
+    cap = svc.wave // BC
+    per = svc.corpus_per_device // svc.wave // shards
+    total = np.zeros(2)
+    for g in range(shards):
+        tiles = np.arange(g * per * cap, (g + 1) * per * cap, dtype=np.int32)
+        offs = np.broadcast_to(tiles.reshape(1, per, cap), (q // block_q, per, cap))
+        _, _, st = j_ivf_scan_ref(
+            jnp.asarray(offs), qcodes, jnp.asarray(arrays["q_rot"]), qscales,
+            jnp.asarray(r0), jnp.full((q, svc.k), jnp.inf, jnp.float32),
+            jnp.full((q, svc.k), -1, jnp.int32), jnp.asarray(arrays["codes"]),
+            jnp.asarray(arrays["c_rot"]),
+            jnp.arange(svc.corpus_per_device, dtype=jnp.int32),
+            jnp.asarray(arrays["bscales"]), jnp.asarray(arrays["eps"]),
+            jnp.asarray(arrays["scale"]), k=svc.k, block_q=block_q, block_c=BC,
+            block_d=svc.delta_d, cap_tiles=cap)
+        total += np.asarray(st, np.float64)[::block_q, 4:].sum(0)
+    return total
+
+
+@pytest.mark.parametrize("shards", SHARD_COUNTS)
+def test_search_step_shards_match_split_scan(served, shards):
+    """``build_search_step(shards=G)`` is the reference's G-shard step: the
+    same ids, stats columns 0-3 summed over shards equal, distances to fp32
+    rounding; the fetch counters (4-5) equal the reference's oracle's at the
+    port's query-tile width over the same shards from the same seed."""
+    arrays, ref = served
     T = torch.as_tensor
-    step = build_search_step(svc, with_stats=True, shards=shards)
-    d, ids, scan = step(T(flat["c_rot"]), T(flat["codes"]), T(flat["bscales"]),
-                        T(flat["q_rot"]), T(flat["eps"]), T(flat["scale"]), None)
-    assert tuple(ids.shape) == (Q, K) and bool(torch.isfinite(d).all())
-    one = build_search_step(svc, with_stats=True, shards=1)
-    d1, ids1, scan1 = one(T(flat["c_rot"]), T(flat["codes"]), T(flat["bscales"]),
-                          T(flat["q_rot"]), T(flat["eps"]), T(flat["scale"]), None)
-    # Exact top-K either way: both windows hold every row within the seeded
-    # r², and the split only screens more.
-    recall = np.mean([len(set(a) & set(b)) / K
-                      for a, b in zip(ids.tolist(), ids1.tolist())])
-    assert recall >= 0.99
-    assert float(scan[1]) >= float(scan1[1])
+    step = build_search_step(ServiceConfig(**SMALL), with_stats=True, shards=shards)
+    d, ids, scan = step(*(T(arrays[n]) for n in ("c_rot", "codes", "bscales", "q_rot",
+                                                 "eps", "scale", "eps_lo")))
+    np.testing.assert_array_equal(ids.numpy(), ref[f"i{shards}"])
+    np.testing.assert_allclose(d.numpy(), ref[f"d{shards}"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(scan.numpy()[:4], ref[f"scan{shards}"][:4])
+    r0 = seed_rsq(ServiceConfig(**SMALL), T(arrays["c_rot"]), T(arrays["q_rot"]),
+                  T(arrays["eps"]), segments=shards).numpy()
+    np.testing.assert_array_equal(scan.numpy()[4:], _reference_fetch_counters(
+        arrays, r0, shards, FUSED_BLOCK_Q))
+    assert float(scan[3]) > 0
+
+
+def test_seed_takes_the_segments_minimum(served):
+    """One segment seeds as the step always did (from the corpus's first
+    wave, bit for bit); G segments take the minimum of their own first
+    waves' seeds, so their r0 is never looser."""
+    arrays, _ = served
+    svc = ServiceConfig(**SMALL)
+    c, q, eps = (torch.as_tensor(arrays[n]) for n in ("c_rot", "q_rot", "eps"))
+    sample = c[: svc.wave]
+    qb, cb = q[:, : svc.delta_d], sample[:, : svc.delta_d]
+    est0 = (torch.sum(qb * qb, 1)[:, None] + torch.sum(cb * cb, 1)[None, :]
+            - 2.0 * (qb @ cb.T))
+    idx = torch.topk(est0, svc.k, dim=1, largest=False).indices
+    diff = sample[idx] - q[:, None, :]
+    t = 1.0 + first_enabled_eps(eps)
+    before = torch.amax(torch.sum(diff * diff, -1), 1) * (t * t) * (1.0 + SEED_SLACK)
+    one = seed_rsq(svc, c, q, eps)
+    assert torch.equal(one, before)
+    for g in SHARD_COUNTS[1:]:
+        per = svc.corpus_per_device // svc.wave // g
+        parts = [seed_rsq(svc, c[s * per * svc.wave:], q, eps)
+                 for s in range(g)]
+        split = seed_rsq(svc, c, q, eps, segments=g)
+        assert torch.equal(split, torch.stack(parts).amin(0))
+        assert bool((split <= one).all()) and bool((split < one).any())
