@@ -50,19 +50,27 @@ on any fault.  Phases, one line each:
   9. flat screen parity: dade_dco, quant_dco and l2_scan against their
      plain versions on awkward cases (D 64/200/384/256 at Δd 32/64/128/64,
      ragged N and Q, bf16 inputs, r² = 0, 1e30 and inf, DADE, ADSampling
-     and FDScanning tables, a query tile that retires after one block),
-     then at the full shape (1024 x 2^20 x 256, Δd = 64): the main path's
-     outputs of phase 10 against the plain versions run over 64 Ki-row
-     chunks of the corpus;
+     and FDScanning tables, a query tile that retires after one block);
+     the two screens on each path of their kernel (``_screen.PATH_CASES``:
+     a 128 x 64 tile with exactly the list's capacity of block-1 survivors
+     and with one more, every pair surviving every block at r² = 1e30, Q
+     and N ragged against the tile at D 384 / Δd 128 and at Δd 16), the
+     path each tile took read off dims (``_screen.screen_work``); then at
+     the full shape (1024 x 2^20 x 256, Δd = 64): the main path's outputs
+     of phase 10 against the plain versions run over 64 Ki-row chunks of
+     the corpus;
  10. the flat DCO screen (the paper's Fig. 3 workload): ``build_flat``
      (DADE, Δd = 64, p_s = 0.02, int8) of the 2^20 x 256 corpus, the
      1024 queries of phase 3 and r² = the squared 100th exact distance;
      ``ops.dco_screen_kernel``, ``ops.quant_screen_kernel`` and
      ``l2_scan_kernel_call`` once each: l2's top-100 is the exact top-100,
      the fp32 screen passes >= 0.95 of it, the int8 prefilter prunes no
-     row inside r² and nothing the fp32 screen passes; each kernel timed
+     row inside r² and nothing the fp32 screen passes; the dense (tile,
+     block) steps and list entries each screen ran; each kernel timed
      beside its bound, its plain version and (l2_scan) ``torch.cdist``,
-     timed in the same run;
+     timed in the same run, the screens also beside the instruction floor (a
+     separate rounded multiply and add per product) and their time before
+     the redesign;
  11. the flat index: ``search_flat`` (k = 100, wave 8192), fp32 and
      ``use_quant``, recall@100 >= 0.95 and the same ids from both.
 
@@ -102,6 +110,16 @@ PEAK_BYTES = 3.35e12
 # 16 x 128 screen skeleton's no-screen mode, in this script's final run on
 # the commit that shipped it.
 L2_SCAN_BEFORE_MS = 43.503
+# dade_dco's and quant_dco's times at 1024 x 2^20 x 256 before their
+# redesign (one CTA per 16 x 128 tile walking every block while any pair
+# of the tile survived): this script's final run on the commit that
+# shipped the redesign's parent, on an NVIDIA H100 80GB HBM3 at 700.00 W.
+DADE_DCO_BEFORE_MS = 25.741
+QUANT_DCO_BEFORE_MS = 35.322
+# fp32 instructions a second of one H100 SXM at its 1.98 GHz boost clock
+# (128 lanes x 132 SMs): the rate of the screens' separate rounded
+# multiplies and adds, half the FMA-counted PEAK_FP32_FLOPS.
+PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 # Requests served per run (each about 1.25 batches of 1024 queries), so
 # that a timed window lasts seconds: phase 4's flat serving (one run per
 # shard count) and phase 8's graph serving (SERVE_RUNS runs over the same
@@ -981,7 +999,8 @@ def run_flat(svc, card: str) -> list:
     from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
     from repro_torch.index.flat import build_flat, search_flat
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels._screen import KERNEL_TILE
+    from repro_torch.kernels._screen import KERNEL_TILE, LIST_CAP, PATH_CASES, path_case, \
+        screen_work
     from repro_torch.kernels.tiles import sqrt_rn
     from repro_torch.quant.scalar import cum_err_sq
     from repro_torch.kernels.dade_dco import dade_dco_kernel_call
@@ -1025,6 +1044,36 @@ def run_flat(svc, card: str) -> list:
             f"mean_dims={float(dims.float().mean()):.1f} "
             f"tile_16_31_dims_max={int(dims[16:32].max())} inf_l2={int(torch.isinf(dk).sum())}")
         check(int(dims[16:32].max()) == bd, f"{name}: the r²=0 tile did not retire at block 1")
+    # Each path of the kernel's design, bit for bit, the path read off dims.
+    for case in PATH_CASES:
+        fp_args, q_args, bd, survivors = path_case(case, DEV)
+        kw = dict(block_q=1, block_c=1, block_d=bd)
+        s_count = q_args[0].shape[1] // bd
+        works = []
+        for name, kern, plain, args in (
+                ("dade_dco", dade_dco_kernel_call, ref.dade_dco_ref, fp_args),
+                ("quant_dco", quant_dco_kernel_call, ref.quant_dco_ref, q_args)):
+            out_k = kern(*args, **kw)
+            errs[name] = max(errs[name], agree_screen(f"{name} {case}", out_k,
+                                                      plain(*args, block_d=bd)))
+            dims = out_k[2]
+            work = screen_work(dims, bd)
+            works.append(f"{name} dense_steps={work['dense_steps']} "
+                         f"list_entries={work['list_entries']} tiles={work['tiles']}")
+            if survivors is not None:
+                check(int((dims > bd).sum()) == survivors,
+                      f"{name} {case}: {int((dims > bd).sum())} block-1 survivors")
+                check(work["dense_steps"] == (1 if case == "cap" else 2)
+                      and work["list_entries"] > 0, f"{name} {case}: path {work}")
+            elif case == "all_survive":
+                check(work["dense_steps"] == work["tiles"] * s_count
+                      and work["list_entries"] == 0, f"{name} {case}: path {work}")
+            else:
+                check(work["list_entries"] > 0, f"{name} {case}: no list ran")
+        sync()
+        log(f"parity flat path {case} {tuple(q_args[0].shape)} x {q_args[1].shape[0]} "
+            f"block_d {bd}: bit for bit; {'; '.join(works)} (tile {KERNEL_TILE}, "
+            f"list capacity {LIST_CAP})")
 
     # ---- 10. the flat DCO screen at full width ----
     n, dim, qn, k, bd = svc.corpus_per_device, svc.dim, svc.query_batch, svc.k, svc.delta_d
@@ -1070,23 +1119,20 @@ def run_flat(svc, card: str) -> list:
     check(false_prunes == 0, f"quant_screen_kernel pruned {false_prunes} rows inside r²")
     both = int((pruned & passed).sum())
     check(both == 0, f"quant_screen_kernel pruned {both} rows the fp32 screen passed")
-    bq, bc = KERNEL_TILE
     s_count = dim // bd
-
-    def tile_work(d):
-        tiles = d.reshape(qn // bq, bq, n // bc, bc).amax(dim=(1, 3))
-        return float(torch.ceil(tiles.double() / bd).sum() / (tiles.numel() * s_count))
-
     pass_rate = float(passed.double().mean())
     dims_frac = float(dims.double().mean()) / dim
     prune_rate = float(pruned.double().mean())
-    work, work_q = tile_work(dims), tile_work(lb_dims)
+    # The kernel's paths, read off dims: (tile, block) steps run dense and
+    # list entries (a survivor per later block).
+    work = {"dade_dco": screen_work(dims, bd), "quant_dco": screen_work(lb_dims, bd)}
+    work_s = "; ".join(f"{name} dense_steps={w['dense_steps']} (of {w['tiles'] * s_count}) "
+                       f"list_entries={w['list_entries']}" for name, w in work.items())
     log(f"flat screen: launches {launches} in {path_s:.2f}s; l2 top-{k} recall={l2_rec:.4f}; "
         f"fp32 screen keeps {kept:.4f} of the exact top-{k}, pass_rate={pass_rate:.6f} "
-        f"dims_frac={dims_frac:.4f} tile_work_frac={work:.4f} "
-        f"(tile {bq}x{bc}); int8 prefilter prune_rate={prune_rate:.6f} "
-        f"lb_dims_frac={float(lb_dims.double().mean()) / dim:.4f} tile_work_frac={work_q:.4f}; "
-        f"false prunes 0, pruned∧passed 0")
+        f"dims_frac={dims_frac:.4f}; int8 prefilter prune_rate={prune_rate:.6f} "
+        f"lb_dims_frac={float(lb_dims.double().mean()) / dim:.4f}; false prunes 0, "
+        f"pruned∧passed 0; paths (tile {KERNEL_TILE}, list capacity {LIST_CAP}): {work_s}")
 
     # ---- 9 (full shape). the main path's outputs against the plain versions ----
     chunk = 1 << 16
@@ -1117,6 +1163,10 @@ def run_flat(svc, card: str) -> list:
     # scales, and the three (Q, N) outputs once.
     need_rows = dims.amax(dim=0).double().sum()
     need_codes = lb_dims.amax(dim=0).double().sum()
+    # The instruction floor: the products at the dims the data consumes, each a
+    # separate rounded multiply and add (exactness rules out the FMA).
+    instr_ms = {"dade_dco": 2e3 * float(dims.double().sum()) / PEAK_FP32_INSTR,
+                "quant_dco": 2e3 * float(lb_dims.double().sum()) / PEAK_FP32_INSTR}
     out_b = 3 * 4 * qn * n
     bounds = {
         "dade_dco": (2.0 * (float(dims.double().sum()) + float(need_rows) + qn * dim)
@@ -1128,7 +1178,7 @@ def run_flat(svc, card: str) -> list:
         "l2_scan": (2.0 * (qn * n * dim + n * dim + qn * dim) / PEAK_FP32_FLOPS,
                     (4 * qn * dim + 4 * n * dim + 4 * qn * n) / PEAK_BYTES),
     }
-    screen_stats = (pass_rate, dims_frac, work, prune_rate)
+    screen_stats = (pass_rate, dims_frac, prune_rate)
     del est_sq, passed, dims, lb_sq, pruned, lb_dims, dist_sq, inside, top
     torch.cuda.empty_cache()
 
@@ -1157,6 +1207,14 @@ def run_flat(svc, card: str) -> list:
     log("library: dade_dco and quant_dco null — no single PyTorch call computes a "
         "checkpointed early-exit screen; l2_scan against torch.cdist "
         "(use_mm_for_euclid_dist, TF32 off) squared")
+    for name, before in (("dade_dco", DADE_DCO_BEFORE_MS), ("quant_dco", QUANT_DCO_BEFORE_MS)):
+        ops_s, bytes_s = bounds[name]
+        log(f"{name} {qn}x{n}x{dim} (block_d {bd}): {ms[name]:.3f} ms; the 16 x 128 "
+            f"skeleton it replaced took {before} ms on an NVIDIA H100 80GB HBM3 at 700.00 W "
+            f"({before / ms[name]:.2f}x); bound {max(ops_s, bytes_s) * 1e3:.4f} ms "
+            f"({ms[name] / (max(ops_s, bytes_s) * 1e3):.2f}x: bytes {bytes_s * 1e3:.4f}, "
+            f"FMA-counted operations {ops_s * 1e3:.4f}); instruction floor with separate "
+            f"multiplies and adds {instr_ms[name]:.4f} ms")
     log(f"l2_scan {qn}x{n}x{dim} (block_d {bd}): {ms['l2_scan']:.3f} ms against "
         f"torch.cdist {library_ms:.3f} ms in this run "
         f"({'faster' if ms['l2_scan'] < library_ms else 'SLOWER'}, "
@@ -1200,7 +1258,7 @@ def run_flat(svc, card: str) -> list:
             f"ms={e['ms']:.3f} plain_ms={e['plain_ms']:.1f} bound_ms={e['bound_ms']:.4f} "
             f"({e['bound_by']}) library_ms={e['library_ms']} on {card}")
     log(f"flat screen: pass_rate={screen_stats[0]:.6f} dims_frac={screen_stats[1]:.4f} "
-        f"tile_work_frac={screen_stats[2]:.4f} prune_rate={screen_stats[3]:.6f}; "
+        f"prune_rate={screen_stats[2]:.6f}; {work_s}; "
         f"phases 9-11 took {time.perf_counter() - t_start:.0f}s")
     return entries
 

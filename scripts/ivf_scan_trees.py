@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""The flat route's ``ivf_scan`` of another tree, run beside this tree's.
+"""Kernels of another tree, run beside this tree's: the flat route's
+``ivf_scan`` and the flat DCO screens.
 
     mkdir -p build/other && git archive <commit> | tar -x -C build/other
     python3 scripts/ivf_scan_trees.py ab build/other
     python3 scripts/ivf_scan_trees.py dense-clocks build/other   # <commit> f95b08e
+    python3 scripts/ivf_scan_trees.py screens-ab build/other
+    python3 scripts/ivf_scan_trees.py screen-clocks .            # or another tree
 
-Both modes build the other tree's kernel with this tree's compiler flags
-into the ignored ``src/repro_torch/kernels/build/`` and run it on the
-inputs of ``chip_smoke.py``'s phase 5: 1024 queries over the 2^20 x 256
-``dade_ivf`` corpus.  Each prints the card's name and power limit first.
+Every mode builds the other tree's kernel with this tree's compiler flags
+into the ignored ``src/repro_torch/kernels/build/``.  ``ab`` and
+``dense-clocks`` run on the inputs of ``chip_smoke.py``'s phase 5: 1024
+queries over the 2^20 x 256 ``dade_ivf`` corpus; ``screens-ab`` and
+``screen-clocks`` on those of its phase 10.  Each prints the card's name and power limit first.
 Needs one CUDA card and ``nvcc``.
 
 ``ab``: the served ``ivf_scan`` (16-query tiles in 4 segments, seeded as
@@ -31,6 +35,24 @@ is held against the served kernel's at the same configuration, bit for
 bit, and then the pair-list walk's timing build runs at that configuration
 and as served.  Each run prints cycles per step and each phase's share of
 the cycles.
+
+``screens-ab``: ``dade_dco`` and ``quant_dco`` of both trees (both keep the
+C interface ``<name>_launch``) at the flat screen's shape: ``build_flat``
+(DADE, Δd = 64, p_s = 0.02, int8) of the 2^20 x 256 corpus, 1024 queries,
+r² the squared 100th exact distance.  Per kernel, rounds of other, this,
+this, other; each run is the median of 5 launches timed with CUDA events,
+and every run's (est, flag, dims) must equal the first run's bit for bit.
+Prints each run and each library's median over its runs.
+
+``screen-clocks``: where a screen's time goes, from text edits of the
+tree's ``csrc/dco_screen.cuh`` (each anchor must occur once).  A timing
+build stamps ``clock64()`` at the phase boundaries of each CTA (the dense
+blocks; the checkpoints with their stores, the survivor count and the list
+build; the list) and prints thread 0's cycles per CTA; three diagnostic
+builds each drop one part (the output stores, the list blocks, the
+products), so their outputs are wrong by design and only their times
+count.  All five builds of each kernel are timed in two rounds, the second
+in reverse order (median of 5 launches each).
 """
 
 from __future__ import annotations
@@ -58,13 +80,13 @@ def bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def build_other(tree: Path) -> Path:
+def build_other(tree: Path, name: str = "ivf_scan") -> Path:
     from repro_torch.kernels import _build
 
-    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / "ivf_scan.cu"
-    out = _build.CSRC.parent / "build" / "ivf_scan_other.so"
+    src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+    out = _build.CSRC.parent / "build" / f"{name}_other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc("ivf_scan"), *_build.NVCC_FLAGS, "-o", str(out),
+    proc = subprocess.run([_build._nvcc(name), *_build.NVCC_FLAGS, "-o", str(out),
                            str(src)], capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise SystemExit(f"ivf_scan_trees: nvcc failed on {src}:\n{proc.stderr}")
@@ -282,9 +304,208 @@ def run_dense_clocks(tree: Path, args, kw) -> None:
                ivf_scan.PHASES)
 
 
+def screen_inputs(svc):
+    """Phase 10's inputs: the index, rotated queries and r²."""
+    import torch
+    from repro_torch.core.topk import exact_knn
+    from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
+    from repro_torch.index.flat import build_flat
+
+    corpus = synthetic_vectors(svc.corpus_per_device, svc.dim, seed=0)
+    queries = synthetic_queries(svc.query_batch, svc.dim, corpus, seed=1)
+    corpus = torch.as_tensor(corpus, device="cuda")
+    idx = build_flat(corpus, method="dade", delta_d=svc.delta_d, p_s=svc.p_s, quant="int8",
+                     generator=torch.Generator().manual_seed(0), device="cuda")
+    gt_d, _ = exact_knn(queries, corpus, svc.k, device="cuda")
+    q_rot = idx.estimator.rotate(torch.as_tensor(queries, device="cuda")).contiguous()
+    return idx, q_rot, (gt_d[:, -1] ** 2).contiguous()
+
+
+def screen_calls(svc) -> dict:
+    """The two screens' kernel calls on phase 10's inputs, by name."""
+    import torch
+    from repro_torch.core.estimators import kernel_spec
+    from repro_torch.kernels import dade_dco, quant_dco
+    from repro_torch.kernels.tiles import sqrt_rn
+    from repro_torch.quant.scalar import cum_err_sq
+
+    idx, q_rot, r_sq = screen_inputs(svc)
+    bd, dim = svc.delta_d, svc.dim
+    spec = kernel_spec(idx.estimator, dim, bd)
+    eps, scale = spec.eps.cuda(), spec.scale.cuda()
+    ecum = sqrt_rn(cum_err_sq(idx.qscales, (torch.arange(dim // bd, device="cuda") + 1) * bd))
+    return {
+        "dade_dco": lambda: dade_dco.dade_dco_kernel_call(q_rot, idx.corpus_rot, eps, scale,
+                                                          r_sq, block_d=bd),
+        "quant_dco": lambda: quant_dco.quant_dco_kernel_call(
+            q_rot, idx.corpus_q, idx.qscales, eps, scale, ecum, r_sq, block_d=bd),
+    }
+
+
+def run_screens_ab(tree: Path, svc) -> None:
+    import chip_smoke
+    import torch
+    from repro_torch.kernels import _screen
+
+    calls = screen_calls(svc)
+    cached = _screen._lib
+    for name, fn in calls.items():
+        libs = {"other": bind_screen(build_other(tree, name), name), "this": cached(name)}
+        first, times = None, {k: [] for k in libs}
+        for rnd in range(ROUNDS):
+            for which in ("other", "this", "this", "other"):
+                _screen._lib = lambda _name, lib=libs[which]: lib
+                fn()  # warm
+                ms, out = chip_smoke.cuda_ms(fn, 5)
+                if first is None:
+                    first = out
+                chip_smoke.check(all(torch.equal(a, b) for a, b in zip(out, first)),
+                                 f"{name} round {rnd}: the {which} library's outputs differ")
+                del out
+                times[which].append(ms)
+                print(f"screens-ab: {name} round {rnd} {which} {ms:.3f} ms", flush=True)
+        del first
+        torch.cuda.empty_cache()
+        for which, ts in times.items():
+            print(f"screens-ab: {name} {which} ({tree if which == 'other' else ROOT}) median "
+                  f"{statistics.median(ts):.3f} ms over {len(ts)} runs, min {min(ts):.3f}, "
+                  f"max {max(ts):.3f}; outputs bit for bit equal", flush=True)
+    _screen._lib = cached
+
+
+def bind_screen(path: Path, name: str) -> ctypes.CDLL:
+    """``path``'s ``<name>_launch`` and ``<name>_smem_bytes``, typed as
+    ``_screen._lib`` types them."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [i] + [p] * 10 + [i] * 4 + [ctypes.c_float, p]
+    fn.restype = i
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes = [i, i]
+    smem.restype = ctypes.c_longlong
+    return lib
+
+
+_SCREEN_LIST = "  // ---- the list: each survivor carried through the later blocks ----\n"
+_SCREEN_STORE = "        screen_store(on && retire, est_row + 16 * j,"
+_SCREEN_WLOOP = "      for (int w = 0; w < kScreenKC; w += 4) {\n        float4 cv[MJ];"
+_SCREEN_DROPS = {
+    "no stores": ((_SCREEN_STORE, _SCREEN_STORE.replace("on && retire", "false")),),
+    "no list": ((_SCREEN_LIST, _SCREEN_LIST + "  if (n_list) return;\n"),),
+    "no products": ((_SCREEN_WLOOP, _SCREEN_WLOOP.replace("w < kScreenKC", "w < 0")),),
+}
+_SCREEN_FLUSH = ("if (tid == 0) { atomicAdd(&g_clk[0], (unsigned long long)clk_d); "
+                 "atomicAdd(&g_clk[1], (unsigned long long)clk_c); "
+                 "atomicAdd(&g_clk[2], (unsigned long long)clk_l); atomicAdd(&g_clk[3], 1ull); }")
+_SCREEN_CLOCKS = (
+    ("template <int MODE>\n__device__ __forceinline__ void dco_screen(",
+     "__device__ unsigned long long g_clk[4];  // dense, checkpoints, list, CTAs\n"
+     "template <int MODE>\n__device__ __forceinline__ void dco_screen("),
+    ("  // ---- dense blocks: every pair of the tile, register-tiled ----\n",
+     "  // ---- dense blocks: every pair of the tile, register-tiled ----\n"
+     "  long long clk_t = clock64(), clk_d = 0, clk_c = 0, clk_l = 0;\n"),
+    ("    __syncthreads();  // the block's norms are in; every read of the ring is done\n",
+     "    __syncthreads();  // the block's norms are in; every read of the ring is done\n"
+     "    { const long long n_ = clock64(); clk_d += n_ - clk_t; clk_t = n_; }\n"),
+    ("    if (total == 0) return;  // uniform: every thread read the same count\n",
+     "    if (total == 0) { clk_c += clock64() - clk_t; " + _SCREEN_FLUSH + " return; }\n"),
+    ("    __syncthreads();  // the list is written; every thread has read the count\n",
+     "    __syncthreads();  // the list is written; every thread has read the count\n"
+     "    { const long long n_ = clock64(); clk_c += n_ - clk_t; clk_t = n_; }\n"),
+    ("    __syncthreads();  // the staging and the sums are free again\n  }\n}\n",
+     "    __syncthreads();  // the staging and the sums are free again\n  }\n"
+     "  clk_l = clock64() - clk_t;\n  " + _SCREEN_FLUSH + "\n}\n"),
+)
+_SCREEN_CLOCK_API = """
+extern "C" int screen_clocks(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long zero[4] = {0, 0, 0, 0};
+    return static_cast<int>(cudaMemcpyToSymbol(dade::g_clk, zero, sizeof(zero)));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, dade::g_clk, 4 * sizeof(unsigned long long)));
+}
+"""
+
+
+def build_screen_variant(tree: Path, name: str, label: str, edits, api: str = ""):
+    """``name`` built from ``tree``'s sources with ``edits`` applied to
+    ``dco_screen.cuh`` (and ``api`` appended to its ``.cu``), bound."""
+    from repro_torch.kernels import _build
+
+    csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
+    out = _build.CSRC.parent / "build" / "screen_variants" / label.replace(" ", "_")
+    out.mkdir(parents=True, exist_ok=True)
+    text = (csrc / "dco_screen.cuh").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"ivf_scan_trees: anchor found {text.count(old)} times, "
+                             f"need 1 ({label}):\n{old}")
+        text = text.replace(old, new)
+    (out / "dco_screen.cuh").write_text(text)
+    (out / "tiles.cuh").write_text((csrc / "tiles.cuh").read_text())
+    (out / f"{name}.cu").write_text((csrc / f"{name}.cu").read_text() + api)
+    lib = out / f"{name}.so"
+    proc = subprocess.run([_build._nvcc(name), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(out / f"{name}.cu")], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise SystemExit(f"ivf_scan_trees: nvcc failed ({label} {name}):\n{proc.stderr}")
+    regs = " | ".join(ln.strip() for ln in proc.stderr.splitlines()
+                      if "registers" in ln or "spill" in ln)
+    return label, name, bind_screen(lib, name), regs
+
+
+def run_screen_clocks(tree: Path, svc) -> None:
+    import chip_smoke
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _screen
+
+    builds = {"as built": ((), ""), "clocks": (_SCREEN_CLOCKS, _SCREEN_CLOCK_API),
+              **{label: (edits, "") for label, edits in _SCREEN_DROPS.items()}}
+    with ThreadPoolExecutor(max_workers=2 * len(builds)) as pool:
+        jobs = [pool.submit(build_screen_variant, tree, name, label, *spec)
+                for name in ("dade_dco", "quant_dco") for label, spec in builds.items()]
+        libs = {}
+        for job in jobs:
+            label, name, lib, regs = job.result()
+            libs[name, label] = lib
+            print(f"screen-clocks: build {name} {label}: {regs}", flush=True)
+    calls = screen_calls(svc)
+    cached = _screen._lib
+    for name, fn in calls.items():
+        lib = libs[name, "clocks"]
+        _screen._lib = lambda _name, lib=lib: lib
+        fn()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 4)()
+        lib.screen_clocks(buf, 1)
+        fn()
+        torch.cuda.synchronize()
+        lib.screen_clocks(buf, 0)
+        dense, ckpt, lst, ctas = list(buf)
+        print(f"screen-clocks: {name} {ctas} CTAs, thread 0's cycles per CTA: dense blocks "
+              f"{dense / ctas:.0f}, checkpoints (stores, count, list build) {ckpt / ctas:.0f}, "
+              f"list {lst / ctas:.0f}, total {(dense + ckpt + lst) / ctas:.0f}", flush=True)
+        times = {label: [] for label in builds}
+        for order in (list(builds), list(builds)[::-1]):
+            for label in order:
+                _screen._lib = lambda _name, lib=libs[name, label]: lib
+                fn()
+                ms, out = chip_smoke.cuda_ms(fn, 5)
+                del out
+                times[label].append(ms)
+        for label, ts in times.items():
+            print(f"screen-clocks: {name} {label}: median {statistics.median(ts):.3f} ms "
+                  f"over {len(ts)} runs", flush=True)
+        torch.cuda.empty_cache()
+    _screen._lib = cached
+
+
 def main() -> int:
     import torch
-    modes = {"ab": run_ab, "dense-clocks": run_dense_clocks}
+    modes = {"ab": run_ab, "dense-clocks": run_dense_clocks, "screens-ab": run_screens_ab,
+             "screen-clocks": run_screen_clocks}
     if len(sys.argv) != 3 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -302,6 +523,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
+    if sys.argv[1] in ("screens-ab", "screen-clocks"):
+        modes[sys.argv[1]](tree, svc)
+        return 0
     srv = serve.prepare_service(svc, "dade", "cuda")
     # phase 5's queries: the same seed; r0 as the served step seeds it for
     # the A/B, from the corpus's first wave for the one-segment dense walk

@@ -411,3 +411,64 @@ def test_cpu_path_runs_plain_version_without_counting():
     l2_scan_kernel_call(qt, ct, block_q=8, block_c=128, block_d=64)
     assert (dade_dco_kernel_call.launches, quant_dco_kernel_call.launches,
             l2_scan_kernel_call.launches) == before
+
+
+# ---- the CUDA screens' host side: shapes refused, paths read off dims -------
+
+def test_screen_launch_refuses_what_the_linear_grid_cannot_take():
+    from repro_torch.kernels._screen import KERNEL_TILE, check_launch
+
+    tq, tc = KERNEL_TILE
+    check_launch(1024, 2**20, 256, 64, int8=False)  # the flat screen's shape
+    # 2^20 queries: past the 65,535 query tiles a second grid axis would allow
+    check_launch(2**20, 4096, 256, 64, int8=True)
+    check_launch(tq, (2**31 - 1) * tc, 64, 64, int8=False)  # the last tile the grid holds
+    with pytest.raises(ValueError, match="linear grid"):
+        check_launch(tq, (2**31 - 1) * tc + 1, 64, 64, int8=False)
+    with pytest.raises(ValueError, match="linear grid"):
+        check_launch(tq + 1, 2**30 * tc, 64, 64, int8=True)
+    for dim, bd in ((200, 50), (256, 24), (64, 0), (96, 64)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            check_launch(8, 64, dim, bd, int8=False)
+    # a list entry's dims after block 1 must fit the 15,360-float staging ring
+    check_launch(8, 64, 7664 + 16, 16, int8=False)
+    check_launch(8, 64, 6816 + 16, 16, int8=True)  # f32 values and the code bytes
+    check_launch(8, 64, 2**15, 2**15, int8=False)  # one block: no list
+    with pytest.raises(ValueError, match="too wide"):
+        check_launch(8, 64, 7680 + 16, 16, int8=False)
+    with pytest.raises(ValueError, match="too wide"):
+        check_launch(8, 64, 6832 + 16, 16, int8=True)
+
+
+@pytest.mark.parametrize("cap,dense_steps,list_entries", [(1, 4, 9), (0, 13, 0), (2, 4, 9)])
+def test_screen_work_counts_each_tiles_path_by_hand(cap, dense_steps, list_entries):
+    """Tiles of 1 x 2 pairs at block_d 16 over four blocks, hand-counted.
+    The survivors after checkpoints 0, 1, 2 (dims > 16, 32, 48) per tile:
+    (0,0:2) [16, 64]: 1, 1, 1; (0,2:3) [48]: 1, 1, 0; (1,0:2) [32, 16]:
+    1, 0, 0; (1,2:3) [64]: 1, 1, 1.  At cap 1 or 2 every tile goes to the
+    list after block 1 (9 entries); at cap 0 a tile runs dense until no
+    pair survives (4 + 3 + 2 + 4 blocks)."""
+    from repro_torch.kernels._screen import screen_work
+
+    dims = torch.tensor([[16, 64, 48], [32, 16, 64]], dtype=torch.int32)
+    assert screen_work(dims, 16, tile=(1, 2), cap=cap) == {
+        "dense_steps": dense_steps, "list_entries": list_entries, "tiles": 4}
+
+
+def test_screen_work_at_the_kernel_tile():
+    """The kernel's 128 x 64 tile and list capacity: a ragged (130, 70)
+    output is 2 x 2 tiles.  Tile (0, 0) keeps capacity + 1 pairs past block
+    1 (block 2 dense), then 3 past blocks 2 and 3 (a list of 3, twice);
+    tile (1, 1) keeps one pair to the end (3 entries); the rest retire at
+    block 1."""
+    from repro_torch.kernels._screen import KERNEL_TILE, LIST_CAP, screen_work
+
+    dims = torch.full((130, 70), 16, dtype=torch.int32)
+    tile = torch.full((128 * 64,), 16, dtype=torch.int32)
+    tile[:LIST_CAP + 1] = 32
+    tile[:3] = 64
+    dims[:128, :64] = tile.reshape(128, 64)
+    dims[129, 69] = 64
+    assert KERNEL_TILE == (128, 64)
+    assert screen_work(dims, 16) == {"dense_steps": 4 + 1, "list_entries": 3 + 3 + 3,
+                                     "tiles": 4}

@@ -289,3 +289,47 @@ def test_cuda_l2_scan_matches_plain_version(dim, qn, n, block_d):
     if dim == 384:
         assert bool(torch.isinf(out[:, n:]).all())
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cap", "cap+1", "all_survive", "ragged_d384_bd128",
+                                  "ragged_bd16"])
+def test_cuda_screen_paths_match_plain_versions(case):
+    """dade_dco and quant_dco bit for bit against their plain versions on
+    each path of the kernel: the survivors of block 1 as a list (exactly
+    at its capacity), run dense (one over it, and every pair surviving
+    every block), Q and N ragged against the 128 x 64 tile, block_d 128
+    at D = 384 and block_d 16.  The path each tile took is read off dims
+    (``_screen.screen_work``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flat screen kernels have no CPU mode")
+    from repro_torch.kernels._screen import path_case, screen_work
+    from repro_torch.kernels.dade_dco import dade_dco_kernel_call
+    from repro_torch.kernels.quant_dco import quant_dco_kernel_call
+    from repro_torch.kernels.ref import dade_dco_ref, quant_dco_ref
+
+    fp_args, q_args, bd, survivors = path_case(case, "cuda")
+    kw = dict(block_q=1, block_c=1, block_d=bd)
+    before = (dade_dco_kernel_call.launches, quant_dco_kernel_call.launches)
+    outs = {"dade_dco": (dade_dco_kernel_call(*fp_args, **kw),
+                         dade_dco_ref(*fp_args, block_d=bd)),
+            "quant_dco": (quant_dco_kernel_call(*q_args, **kw),
+                          quant_dco_ref(*q_args, block_d=bd))}
+    torch.cuda.synchronize()
+    assert (dade_dco_kernel_call.launches, quant_dco_kernel_call.launches) == (
+        before[0] + 1, before[1] + 1)
+    s_count = q_args[0].shape[1] // bd
+    for name, (out_k, out_p) in outs.items():
+        assert all(_bitwise(a, b) for a, b in zip(out_k, out_p)), name
+        dims = out_k[2]
+        work = screen_work(dims, bd)
+        if survivors is not None:
+            assert int((dims > bd).sum()) == survivors, name
+            assert work["dense_steps"] == (1 if case == "cap" else 2), (name, work)
+            assert work["list_entries"] > 0, (name, work)
+        elif case == "all_survive":
+            assert bool((dims == s_count * bd).all()), name
+            assert work == {"dense_steps": work["tiles"] * s_count, "list_entries": 0,
+                            "tiles": work["tiles"]}, name
+        else:
+            assert work["list_entries"] > 0 and 0 < int((dims > bd).sum()), (name, work)
