@@ -72,13 +72,41 @@ on any fault.  Phases, one line each:
      separate rounded multiply and add per product) and their time before
      the redesign;
  11. the flat index: ``search_flat`` (k = 100, wave 8192), fp32 and
-     ``use_quant``, recall@100 >= 0.95 and the same ids from both.
+     ``use_quant``, recall@100 >= 0.95 and the same ids from both;
+ 12. continuous graph serving (run after phase 8, on its graph): ``serve
+     --index graph --continuous`` at max_live 1024 (k = 10, ef = 48,
+     expand 2) — 8 interleaved queries bit-identical to each served alone
+     by the walk kernel and by the plain walk (``--verify-graph-oracle``);
+     a closed loop of 10 requests in which every query served (warm-up
+     and verify included) returns the ids and distances of the same query
+     walked alone by the walk kernel (one-query tiles stacked in one
+     launch), and the recall@10 of those solo walks; an open loop of 200
+     requests of 32-127 queries at half the closed loop's query rate under
+     a deadline, a watermark, 2 retries and a ``step_error:count=2`` drill
+     (every request served, none shed for an error, the drill's two
+     errors retried); each metrics JSON through
+     ``scripts/check_metrics_schema.py``; then at full occupancy the
+     wave's host split (tracer spans), the reference's per-slot loop on
+     the same state, the card's busy share, and one stacked launch of the
+     one-wave kernel at the 1024-tile bucket held against its plain
+     version and timed; and phase 7's queries walked alone at expand 2, 4,
+     8 and 16;
+ 13. continuous IVF (run after phase 3, on its index): 64 queries through
+     ``ContinuousIVFEngine`` (n_probe 16, two probes a launch) under a
+     seeded random admission schedule, each bit-identical to its solo
+     ``search_ivf_fused(block_q=8)``: ids, distances, ledger; and the
+     engine's widest launch with carried windows (``top0_sq``/``top0_ids``)
+     held against the plain version on the same inputs.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
-walk, 10 for the flat screens), its worst deviation from the plain
-version, its time, bound, plain time and library time; graph_scan's are
-the walk's, per 1024-query search.
+walk, 10 for the flat screens): the launches of the call its ``ms``
+times.  Its worst deviation from the plain version covers every parity
+case of the kernel, the continuous phases' included.  Beside them stand
+graph_scan's one-wave launches in phase 12 and their time at the
+1024-tile bucket (``one_wave_launches``, ``one_wave_ms``) and ivf_scan's
+launches in phase 13 and their median time (``continuous_launches``,
+``continuous_ms``).
 
 Kernel parity rule: the top-K ids, the squared distances, every stats
 counter, the visited bitmap and every screen output (estimates, flags,
@@ -92,6 +120,7 @@ or without the repository's ``src/`` beside it, the script fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -127,6 +156,16 @@ PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 FLAT_REQUESTS = 40
 GRAPH_REQUESTS = 200
 SERVE_RUNS = 3
+# Phase 12's requests per closed-loop continuous run (14,425 queries),
+# chosen for a closed-loop window of 2-10 s, and its live-slot cap; the
+# open loop's request count and batch (requests of 32-127 queries), enough
+# requests for a latency tail.
+CONT_REQUESTS = 10
+CONT_MAX_LIVE = 1024
+OPEN_REQUESTS = 200
+OPEN_BATCH = 64
+# Phase 13: queries served through the continuous IVF engine.
+CONT_IVF_QUERIES = 64
 
 
 def log(msg: str) -> None:
@@ -360,6 +399,8 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         srv.corpus_t[ids.long()] - torch.as_tensor(queries, device=DEV)[:, None, :], dim=-1)
     check(bool(torch.allclose(d, exact, rtol=1e-4, atol=1e-4)),
           "ivf distances are not the exact distances of the returned ids")
+    cont = run_continuous_ivf(idx, queries[:CONT_IVF_QUERIES], svc.k, card)
+    max_err = max(max_err, cont["max_err"])
     del idx
 
     # ---- 4. serving route at the dade_ivf configuration ----
@@ -377,6 +418,9 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         serve_launches = kernel.launches
         check(serve_launches > 0, "the serving route launched no ivf_scan kernel")
         check(report["recall"] >= 0.95, f"serving recall@{svc.k} {report['recall']} < 0.95")
+        check(report["requests_served"] == FLAT_REQUESTS and report["requests_shed"] == 0,
+              f"flat serving answered {report['requests_served']} of {FLAT_REQUESTS} "
+              f"requests ({report['requests_shed']} shed)")
         log(f"serve: ok shards={g} recall@{svc.k}={report['recall']:.4f} "
             f"qps={report['qps']:.1f} fetched_B_per_query="
             f"{report['fetched_bytes_per_query']:.0f} launches={serve_launches} over "
@@ -441,13 +485,16 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         "name": "ivf_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ivf_scan.cu",
         "replaces": "src/repro/kernels/ivf_scan.py:451",
-        "launches": ivf_launches + serve_launches, "max_abs_err": max_err,
+        "launches": ivf_launches + serve_launches,
+        "continuous_launches": cont["launches"], "continuous_ms": cont["ms"],
+        "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "library_ms": library_ms,
     }
     log(f"kernels: ivf_scan launches={entry['launches']} (ivf={ivf_launches} "
-        f"serve={serve_launches}) max_abs_err={max_err:.3e} "
+        f"serve={serve_launches}; continuous_launches={cont['launches']}, "
+        f"{cont['ms']:.4f} ms a launch) max_abs_err={max_err:.3e} "
         f"ms={ms:.3f} plain_ms={plain_ms:.1f} bound_ms={entry['bound_ms']:.4f} "
         f"({entry['bound_by']}) library_ms(_int_mm {qn}x{n}x{dim})={library_ms:.3f} "
         f"at block_q={bq} segments={SHARDS} on {card}; phases 2-5 took "
@@ -910,7 +957,7 @@ def run_graph(card: str) -> dict:
                              "--k", "10", "--batch", "1024", "--delta-d", "64",
                              "--p-s", "0.02", "--ef", "48", "--expand", "2", "--m", "16"],
                             graph=gsrv)
-        check(report["requests_served"] == GRAPH_REQUESTS,
+        check(report["requests_served"] == GRAPH_REQUESTS and report["requests_shed"] == 0,
               f"the graph serving route did not answer {GRAPH_REQUESTS} requests")
         run_launches = walk_kernel.launches - before
         check(run_launches == report["batches"] + 1,  # the warm-up batch's search too
@@ -927,23 +974,417 @@ def run_graph(card: str) -> dict:
         f"{100 * (qps[-1] - qps[0]) / qps[0]:.1f} %), timed windows {windows_s} s; "
         f"recall@10={reports[0]['recall']:.4f} waves={reports[0]['waves']:.0f} "
         f"launches={serve_launches}")
+    cont = run_continuous_graph(gsrv, gsvc, (queries, gt.cpu().numpy(), rec), card)
+    max_err = max(max_err, cont["max_err"])
     entry = {
         "name": "graph_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/graph_scan.cu",
         "replaces": "src/repro/kernels/graph_scan.py:477",
-        "launches": route_launches + serve_launches, "max_abs_err": max_err,
+        "launches": route_launches + serve_launches,
+        "one_wave_launches": cont["launches"], "one_wave_ms": cont["ms"],
+        "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "library_ms": None,
     }
-    log(f"kernels: graph_scan (the walk) launches={entry['launches']} "
-        f"(route={route_launches} serve={serve_launches}) max_abs_err={max_err:.3e} "
+    log(f"kernels: graph_scan launches={entry['launches']} (the walk: route={route_launches} "
+        f"serve={serve_launches}; one_wave_launches={cont['launches']} in continuous "
+        f"serving, {cont['ms']:.4f} ms a launch at {CONT_MAX_LIVE} tiles) "
+        f"max_abs_err={max_err:.3e} "
         f"ms={ms:.4f} per search plain_ms={plain_ms:.1f} "
         f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); the search's waves "
         f"through the one-wave kernel {waves_sum_ms:.4f} ms summed, the widest "
-        f"{wave_ms:.4f} ms; on {card}; phases 6-8 took "
+        f"{wave_ms:.4f} ms; on {card}; phases 6-8 and 12 took "
         f"{time.perf_counter() - t_start:.0f}s")
     return entry
+
+
+def run_schedule(engine, rows, schedule):
+    """Admit ``rows`` into a continuous engine per the arrival ``schedule``
+    (admissions before each wave; leftovers at the end) and step until
+    drained; returns {row: RetiredQuery}."""
+    pending, hmap, out, arrivals = list(range(len(rows))), {}, {}, list(schedule)
+    while pending or engine.live_count():
+        for _ in range(min(arrivals.pop(0) if arrivals else len(pending), len(pending))):
+            i = pending.pop(0)
+            hmap[engine.admit(rows[i])] = i
+        if engine.live_count():
+            for rq in engine.step():
+                out[hmap[rq.handle]] = rq
+    return out
+
+
+def run_continuous_ivf(idx, queries, k: int, card: str) -> dict:
+    """Phase 13: ``ContinuousIVFEngine`` on phase 3's index (n_probe 16, two
+    probes a launch) serving ``queries`` under a seeded random admission
+    schedule; each result held against the query's solo
+    ``search_ivf_fused(block_q=8)`` on the card, bit for bit: ids,
+    distances and the ``FusedScanStats`` ledger; then the run's launch
+    with the most carried windows (``top0_sq`` rows holding a finite
+    entry) held against the plain version on its own inputs.  Returns the
+    engine run's ``ivf_scan`` launches, their median ms and that launch's
+    deviation from the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.index.ivf import search_ivf_fused
+    from repro_torch.kernels import ivf_scan, ops
+    from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call
+    from repro_torch.launch.annservice import ContinuousIVFEngine
+
+    rows = np.asarray(queries, np.float32)
+    schedule = np.random.default_rng(13).integers(0, 9, size=24).tolist()
+    events, widest = [], {"seeded": 0}
+    real = ops.ivf_scan_kernel_call
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        seeded = int(torch.isfinite(a[5]).any(dim=1).sum())  # a[5] is top0_sq
+        if seeded > widest["seeded"]:
+            widest.update(seeded=seeded, call=(a, kw))
+        return out
+
+    ivf_scan_kernel_call.launches = 0
+    ops.ivf_scan_kernel_call = timed
+    try:
+        t0 = time.perf_counter()
+        out = run_schedule(ContinuousIVFEngine(idx, k=k, n_probe=16, probe_chunk=2),
+                           rows, schedule)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ivf_scan_kernel_call = real
+    launches = ivf_scan_kernel_call.launches
+    check(launches > 0 and launches == len(events),
+          f"continuous IVF launched {launches} ivf_scan kernels ({len(events)} timed)")
+    ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    same = 0
+    for i in range(len(rows)):
+        d, ids, st = search_ivf_fused(idx, rows[i][None], k=k, n_probe=16, block_q=8)
+        rq = out[i]
+        check(np.array_equal(rq.ids, ids.cpu().numpy()[0]), f"continuous IVF query {i}: ids")
+        check(np.array_equal(rq.dists, d.cpu().numpy()[0]), f"continuous IVF query {i}: dists")
+        check(rq.stats == st, f"continuous IVF query {i}: ledger {rq.stats} vs {st}")
+        same += 1
+    check(widest["seeded"] > 0, "no continuous IVF launch carried a window")
+    a, kw = widest["call"]
+    tiles = a[0].shape[0]
+    err = agree(f"continuous_ivf_{tiles}_tiles_{widest['seeded']}_carried", real(*a, **kw),
+                ivf_scan.ivf_scan_plain(*a, **kw), kw["block_q"])
+    waves = sorted({rq.waves for rq in out.values()})
+    log(f"continuous ivf: {len(rows)} queries admitted on schedule {schedule}: {launches} "
+        f"ivf_scan launches (median {ms:.4f} ms each, slots {waves} launches each) in "
+        f"{wall * 1e3:.1f} ms; {same} of {len(rows)} bit-identical to their solo "
+        f"search_ivf_fused (ids, distances, ledger); the launch with {widest['seeded']} "
+        f"carried windows ({tiles} tiles) bit-identical to its plain version on {card}")
+    return {"launches": launches, "ms": ms, "max_err": err}
+
+
+def per_slot_wave_ms(eng) -> dict:
+    """The reference engine's per-slot host loop, timed on a continuous
+    graph engine's live state: each slot's frontier picked alone (its tile
+    through ``_select_wave``, its pick list read back), the launch stacked
+    slot by slot, and the window and bitmap read back and cut per slot."""
+    import torch
+    from repro_torch.index.graph import _select_wave
+
+    bq, tc, n = eng.block_q, eng.thresh_col, len(eng._handles)
+    sync()
+    t0 = time.perf_counter()
+    for t in range(n):
+        rows = slice(t * bq, (t + 1) * bq)
+        r0 = torch.minimum(eng._seed[rows], eng._top_sq[rows, tc])
+        _select_wave(eng._top_sq[rows], eng._top_ids[rows], eng._vis[t: t + 1],
+                     r0, block_q=bq, qn=1, expand=eng.expand,
+                     ef=eng.ef).tolist()
+    t1 = time.perf_counter()
+    stacked = [torch.cat([x[t * bq: (t + 1) * bq] for t in range(n)])
+               for x in (eng._q, eng._top_sq, eng._top_ids)]
+    stacked.append(torch.cat([eng._vis[t: t + 1] for t in range(n)]))
+    sync()
+    t2 = time.perf_counter()
+    sq, ids, vis = (x.cpu().numpy() for x in (eng._top_sq, eng._top_ids, eng._vis))
+    [(sq[t * bq: (t + 1) * bq], ids[t * bq: (t + 1) * bq], vis[t: t + 1]) for t in range(n)]
+    t3 = time.perf_counter()
+    return {"select": (t1 - t0) * 1e3, "stack": (t2 - t1) * 1e3, "readback": (t3 - t2) * 1e3}
+
+
+def requests_queries(gsrv, gsvc):
+    """The queries and exact neighbours of phase 12's closed-loop requests,
+    made as ``serve`` makes its payloads (``default_rng(9)`` sizes,
+    ``synthetic_queries(seed=100 + r)``)."""
+    import numpy as np
+    from repro_torch.core.topk import exact_knn
+    from repro_torch.data.pipeline import synthetic_queries
+
+    rng = np.random.default_rng(9)
+    out = []
+    for r in range(CONT_REQUESTS):
+        nq = int(rng.integers(gsvc.query_batch // 2, 2 * gsvc.query_batch))
+        q = synthetic_queries(nq, gsvc.dim, gsrv.corpus, seed=100 + r)
+        _, gt = exact_knn(q, gsrv.corpus_t, 10, device=DEV)
+        out.append((q, gt.cpu().numpy()))
+    return out
+
+
+def mean_request_rows(batch: int, requests: int) -> float:
+    """The mean query count of ``serve``'s requests at ``--batch batch``
+    (its ``default_rng(9)`` sizes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    return float(np.mean([int(rng.integers(batch // 2, 2 * batch)) for _ in range(requests)]))
+
+
+def solo_walks(gsrv, rows, *, expand: int = 2):
+    """Each query of ``rows`` walked alone — a tile of its own, seeded by
+    ``_prep_wave_state`` as a one-query batch — by the walk kernel, all
+    tiles in one launch (tiles are independent, so each is its solo walk);
+    returns each query's top-10 distances (as the engine takes them, the
+    root of the squared window), ids and waves."""
+    import numpy as np
+    import torch
+    from repro_torch.index.graph import _prep_wave_state
+    from repro_torch.kernels.graph_scan import graph_walk_kernel_call
+    from repro_torch.kernels.ops import graph_walk_inputs
+
+    ix = gsrv.index
+    parts = [_prep_wave_state(ix, np.asarray(r, np.float32)[None], k=10, ef=48, block_q=8,
+                              seed_r=False) for r in rows]
+    q, top_sq, top_ids, seed = (torch.cat([p[i] for p in parts]) for i in (1, 6, 7, 8))
+    args, kw = graph_walk_inputs(
+        ix.estimator, q, top_sq, top_ids, seed, ix.adj_rot, ix.adj_codes, ix.adj_ids,
+        ix.gscales, entry=ix.entry, ef=48, thresh_col=9, expand=expand, max_waves=64,
+        block_q=8, block_c=ix.adj_block, block_d=ix.scan_block_d)
+    t_sq, t_ids, _, _, waves = graph_walk_kernel_call(*args, **kw)
+    sq = t_sq[::8, :10].cpu().numpy()
+    return (np.sqrt(np.maximum(sq, 0.0)), t_ids[::8, :10].cpu().numpy(),
+            waves.cpu().numpy())
+
+
+def solo_walk_recall(gsrv, requests, *, expand: int = 2):
+    """The queries of ``requests`` ([(queries, gt), ...]) walked alone
+    (:func:`solo_walks`); returns the serve report's recall@10 (the mean
+    over requests of the mean over their queries) and the mean waves a
+    query walked."""
+    import numpy as np
+
+    _, ids, waves = solo_walks(gsrv, np.concatenate([q for q, _ in requests]), expand=expand)
+    recs, at = [], 0
+    for qs, gt in requests:
+        recs.append(np.mean([len(set(ids[at + i]) & set(gt[i])) / 10 for i in range(len(gt))]))
+        at += len(gt)
+    return float(np.mean(recs)), float(waves.astype(np.float64).mean())
+
+
+@contextlib.contextmanager
+def served_walks():
+    """While open, every ``ContinuousGraphEngine`` keeps each admitted
+    query's row and its retirement: yields a list that fills with
+    (row, RetiredQuery) pairs, in retirement order."""
+    import numpy as np
+    from repro_torch.launch.annservice import ContinuousGraphEngine as Engine
+
+    admit, step = Engine.admit, Engine.step
+    rows, done, engines = {}, [], {}
+
+    def admit_(self, row):
+        h = admit(self, row)
+        engines[id(self)] = self  # keeps id(self) unique while open
+        rows[(id(self), h)] = np.asarray(row, np.float32)
+        return h
+
+    def step_(self):
+        out = step(self)
+        done.extend((rows.pop((id(self), rq.handle)), rq) for rq in out)
+        return out
+
+    Engine.admit, Engine.step = admit_, step_
+    try:
+        yield done
+    finally:
+        Engine.admit, Engine.step = admit, step
+
+
+def run_continuous_graph(gsrv, gsvc, phase7, card: str) -> dict:
+    """Phase 12: ``serve --index graph --continuous`` on phase 7's graph
+    (max_live 1024, k 10, ef 48, expand 2): the closed loop with
+    ``--verify-graph-oracle`` (8 interleaved queries bit-identical to each
+    served alone by the walk kernel and by the plain walk), every query it
+    serves returning the ids and distances of its solo walk; then the open
+    loop at half the closed loop's query rate under a deadline, a
+    watermark, 2 retries and a ``step_error:count=2`` drill.  Each metrics
+    JSON passes ``scripts/check_metrics_schema.py`` (a subprocess).  Then
+    one engine at full occupancy: the wave's split (tracer spans), the
+    per-slot loop's host time on the same state, the card's busy share
+    (``torch.profiler``), and one stacked launch of the one-wave kernel at
+    the largest live bucket held against ``ref.graph_scan_ref`` and timed;
+    and phase 7's 1024 queries (``phase7``: queries, exact neighbours, the
+    batch route's recall) walked alone at expand 2, 4, 8 and 16.  Returns
+    the one-wave kernel's launches in the two serving runs, its ms at that
+    bucket and its deviation from the plain version."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synthetic_queries
+    from repro_torch.kernels import graph_scan, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.annservice import ContinuousGraphEngine
+    from repro_torch.obs import Tracer, span_totals, use_tracer
+
+    wave_kernel = graph_scan.graph_scan_kernel_call
+    t_start = time.perf_counter()
+
+    def argv(batch):
+        return ["--index", "graph", "--device", DEV, "--continuous",
+                "--max-live", str(CONT_MAX_LIVE),
+                "--corpus", str(gsvc.corpus_per_device), "--dim", str(gsvc.dim), "--k", "10",
+                "--batch", str(batch), "--delta-d", str(gsvc.delta_d),
+                "--p-s", "0.02", "--ef", "48", "--expand", "2", "--m", "16"]
+
+    def schema(path):
+        out = subprocess.run([sys.executable, str(ROOT / "scripts" / "check_metrics_schema.py"),
+                              path], capture_output=True, text=True, timeout=60)
+        check(out.returncode == 0, f"metrics schema: {out.stdout} {out.stderr}")
+        return json.load(open(path))["metrics"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wave_kernel.launches = 0
+        with served_walks() as walks:
+            closed = serve.main(argv(gsvc.query_batch) + [
+                "--requests", str(CONT_REQUESTS), "--verify-graph-oracle",
+                "--metrics-json", f"{tmp}/closed.json"], graph=gsrv)
+        closed_launches = wave_kernel.launches
+        check(closed_launches > 0, "continuous serving launched no one-wave graph_scan kernel")
+        check(closed["requests_served"] == CONT_REQUESTS and closed["requests_shed"] == 0,
+              "continuous serving shed requests")
+        # Every served query is its solo walk: each retirement (warm-up and
+        # verify included) returns the ids and distances of its own query
+        # walked alone by the walk kernel.
+        check(len(walks) >= closed["queries"], f"{len(walks)} retirements for "
+              f"{closed['queries']} served queries")
+        solo_d, solo_ids, _ = solo_walks(gsrv, [row for row, _ in walks])
+        bad = [i for i, (_, rq) in enumerate(walks)
+               if not (np.array_equal(rq.ids, solo_ids[i]) and np.array_equal(rq.dists, solo_d[i]))]
+        check(not bad, f"{len(bad)} of {len(walks)} continuous walks differ from their solo "
+              f"walks (first: {bad[:5]})")
+        n_walks = len(walks)
+        del walks, solo_d, solo_ids
+        solo_rec, solo_waves = solo_walk_recall(gsrv, requests_queries(gsrv, gsvc))
+        check(closed["recall"] == solo_rec,
+              f"continuous recall@10 {closed['recall']} != its solo walks' {solo_rec}")
+        m = schema(f"{tmp}/closed.json")
+        window = closed["queries"] / closed["qps"]
+        log(f"continuous graph serve: closed loop {CONT_REQUESTS} requests "
+            f"({closed['queries']} queries, max_live {CONT_MAX_LIVE}), a timed window of "
+            f"{window:.3f} s: qps={closed['qps']:.1f} recall@10={closed['recall']:.4f} "
+            f"waves={closed['waves']:.0f} occupancy={closed['occupancy']:.1f} "
+            f"waves_per_query={closed['mean_depth']:.2f} one-wave launches={closed_launches} "
+            f"admitted={m['serve.admission.admitted']['value']:.0f} "
+            f"retired={m['serve.admission.retired']['value']:.0f}; metrics schema ok; "
+            f"all {n_walks} retirements (warm-up and verify included) equal in ids and "
+            f"distances to their solo walks; the "
+            f"same queries walked alone by the walk kernel (stacked one-query tiles, one "
+            f"launch): recall@10={solo_rec:.4f}, {solo_waves:.2f} waves a query"
+            + ("" if 2.0 <= window <= 10.0 else " (window outside 2-10 s)"))
+        # Half the closed loop's query rate, in requests of --batch OPEN_BATCH.
+        rate = 0.5 * closed["qps"] / mean_request_rows(OPEN_BATCH, OPEN_REQUESTS)
+        deadline_ms = round(1e3 * window)
+        wave_kernel.launches = 0
+        opened = serve.main(argv(OPEN_BATCH) + [
+            "--requests", str(OPEN_REQUESTS), "--open-loop", f"{rate:.4f}",
+            "--deadline-ms", str(deadline_ms), "--queue-watermark", "8192",
+            "--retries", "2", "--chaos", "step_error:count=2",
+            "--metrics-json", f"{tmp}/open.json"], graph=gsrv)
+        open_launches = wave_kernel.launches
+        m = schema(f"{tmp}/open.json")
+        check(opened["retries"] == 2, f"the step_error drill was not retried: {opened}")
+        p = {q: m[f"serve.request.p{q}_ms"]["value"] for q in (50, 95, 99)}
+        samples = m["serve.request.latency_ms"]["count"]
+        shed = {k: m.get(f"serve.shed.{k}", {}).get("value", 0.0)
+                for k in ("queue", "deadline", "error")}
+        check(shed["error"] == 0, f"the open loop shed {shed['error']} requests for errors")
+        check(opened["requests_served"] + opened["requests_shed"]
+              == opened["requests_submitted"] == OPEN_REQUESTS,
+              f"the open loop's requests do not close: {opened}")
+        log(f"continuous graph serve: open loop, {OPEN_REQUESTS} requests of --batch "
+            f"{OPEN_BATCH} ({OPEN_BATCH // 2}-{2 * OPEN_BATCH - 1} queries) at {rate:.3f} "
+            f"requests/s (half the closed loop's query rate), deadline {deadline_ms} ms, "
+            f"watermark 8192 rows, retries 2, chaos step_error:count=2: "
+            f"qps={opened['qps']:.1f} recall@10={opened['recall']:.4f} "
+            f"latency_ms p50={p[50]:.1f} p95={p[95]:.1f} p99={p[99]:.1f} over {samples} "
+            f"samples served={opened['requests_served']}/{opened['requests_submitted']} shed={shed} "
+            f"retries={opened['retries']} admitted={m['serve.admission.admitted']['value']:.0f} "
+            f"retired={m['serve.admission.retired']['value']:.0f} "
+            f"admission_shed={opened['admission_shed']}; metrics schema ok")
+
+    # One engine at full occupancy: admit 1024 queries, stack them (wave 0),
+    # then trace, profile and time the waves that follow.
+    eng = ContinuousGraphEngine(gsrv.index, k=10, ef=48, expand=2)
+    qs = synthetic_queries(CONT_MAX_LIVE, gsvc.dim, gsrv.corpus, seed=11)
+    sync()
+    t0 = time.perf_counter()
+    for row in qs:
+        eng.admit(row)
+    sync()
+    admit_ms = (time.perf_counter() - t0) * 1e3 / len(qs)
+    eng.step()
+    tr = Tracer()
+    with use_tracer(tr):
+        for _ in range(3):
+            eng.step()
+    tot = span_totals(tr)
+    parts = ("continuous.select", "continuous.retire", "continuous.stack", "continuous.wave",
+             "continuous.commit")
+    split = {p.split(".")[1]: tot[p]["total_ms"] / tot[p]["count"] for p in parts if p in tot}
+    per_slot = per_slot_wave_ms(eng)
+    live = eng.live_count()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step()
+        sync()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    kernel_busy = sum(e.self_device_time_total for e in device
+                      if "graph_scan_kernel" in e.key) / 1e3
+    kept = []
+    wrapper = ops.graph_scan_kernel
+    ops.graph_scan_kernel = lambda *a, **k: kept.append((a, k)) or wrapper(*a, **k)
+    try:
+        eng.step()
+    finally:
+        ops.graph_scan_kernel = wrapper
+    (a, k), = kept
+    a, k = ops.graph_scan_inputs(*a, **k)  # the launch's own inputs
+    tiles = a[1].shape[0] // k["block_q"]
+    wave_kernel(*a, **k)  # warm
+    ms, out_k = cuda_ms(lambda: wave_kernel(*a, **k), 11)
+    err = agree_graph(f"graph_continuous_bucket{tiles}", out_k, ref.graph_scan_ref(*a, **k),
+                      k["block_q"])
+    q7, gt7, batch_rec = phase7
+    sweep = {e: solo_walk_recall(gsrv, [(q7, gt7)], expand=e) for e in (2, 4, 8, 16)}
+    log(f"continuous graph: phase 7's {len(q7)} queries walked alone (one-query tiles), "
+        f"recall@10 / waves a query by expand: " + " ".join(
+            f"{e}: {r:.4f} / {w:.2f}" for e, (r, w) in sweep.items())
+        + f"; the batch route's 8-query tiles at expand 2: {batch_rec:.4f}")
+    log(f"continuous graph wave at {live} live queries ({tiles}-tile bucket, "
+        f"{a[0].shape[1]} steps): host split per wave (tracer spans, fenced) "
+        + " ".join(f"{n}={v:.3f} ms" for n, v in split.items())
+        + f"; admission {admit_ms:.4f} ms a query; the per-slot loop on the same state "
+        f"select={per_slot['select']:.1f} ms stack={per_slot['stack']:.1f} ms "
+        f"readback={per_slot['readback']:.1f} ms; 3 profiled waves {prof_ms:.2f} ms: card "
+        f"busy {busy_ms:.3f} ms ({100 * busy_ms / prof_ms:.2f} %), graph_scan "
+        f"{kernel_busy:.3f} ms; the one-wave kernel alone {ms:.4f} ms a launch on {card}; "
+        f"phase 12 took {time.perf_counter() - t_start:.0f}s")
+    return {"launches": closed_launches + open_launches, "ms": ms, "max_err": err}
 
 
 def agree_screen(name, out_k, out_p):

@@ -6,9 +6,17 @@ functions on tensors, small dataclasses for state, an explicit ``device=``
 on every entry point (default ``"cuda"``) and ``torch.Generator`` wherever
 the JAX package takes a ``jax.random`` key.
 
-The one hand-written kernel of this slice is the fused IVF wave scan
-(``repro_torch.kernels.ivf_scan``, CUDA C++ for ``sm_90a``), built with
-``nvcc`` at first use.  Importing this package imports nothing CUDA-specific.
+Five hand-written kernels (CUDA C++ for ``sm_90a`` in ``kernels/csrc/``,
+each built with ``nvcc`` at first use) carry the search: the fused IVF wave
+scan ``ivf_scan``, the graph beam scan ``graph_scan`` (one wave, or a whole
+walk in one launch), the flat DCO screens ``dade_dco`` and ``quant_dco``,
+and the exact ``l2_scan``.  Around them: the flat, IVF and graph indexes,
+the serving routes (``launch.serve``: batched flat and graph serving, and
+continuous graph batching through ``launch.annservice``'s continuous
+engines), the request schedulers with deadlines, watermark shedding and
+bounded retries (``runtime.scheduler``), the fault-injection harness
+(``runtime.chaos``) and telemetry (``obs``: metrics, spans, exports).
+Importing this package imports nothing CUDA-specific.
 """
 
 from repro_torch._device import resolve_device

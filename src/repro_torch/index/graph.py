@@ -25,10 +25,13 @@ CTA picking its own frontier between waves; the host does the prologue
 ``search_graph_beam_host`` runs the identical schedule through the plain
 version ``ref.graph_walk_ref`` (``ref.graph_scan_ref`` waves with the
 frontier picked by ``ref.select_wave_ref``); the two return the same
-results.
+results.  The continuous engine (``launch.annservice.
+ContinuousGraphEngine``) walks each query in a tile of its own, seeded by
+the same prologue (``_prep_wave_state``), one wave per launch, with the
+frontier picked between waves by ``_select_wave``.
 
 Not ported here: the per-query greedy ``search_graph``, sharded walks,
-tombstones and delete filters, tracing and chaos hooks.
+tombstones and delete filters.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from repro_torch.core.estimators import (
 from repro_torch.core.transforms import as_tensor
 from repro_torch.kernels.graph_scan import KERNEL_TILE, graph_walk_kernel_call
 from repro_torch.kernels.ops import fused_fetch_totals, graph_walk_inputs
-from repro_torch.kernels.ref import graph_walk_ref
+from repro_torch.kernels.ref import graph_walk_ref, select_wave_ref
+from repro_torch.obs.trace import current_tracer
 from repro_torch.quant.accounting import (
     ID_BYTES, fetched_tile_bytes, row_gather_bytes, stage2_fetch_report,
     two_stage_bytes,
@@ -54,6 +58,7 @@ from repro_torch.quant.accounting import (
 from repro_torch.quant.scalar import (
     fit_block_scales, quantize_block, quantize_corpus, wants_quant,
 )
+from repro_torch.runtime.chaos import current_chaos
 
 __all__ = ["GraphIndex", "build_graph", "graph_from_rotated",
            "search_graph_fused", "search_graph_beam_host", "GraphScanStats",
@@ -389,14 +394,22 @@ def _beam_seed_rsq(index: GraphIndex, q_rot: torch.Tensor, k: int) -> torch.Tens
     return kth if enough else torch.full_like(kth, float("inf"))
 
 
-def walk_inputs(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
-                block_q: int, max_waves: int, seed_r: bool, decoupled: bool,
-                route_mult: float):
-    """The prologue of a search: ``(args, kwargs, inv)`` of the
-    ``graph_walk_kernel_call`` (or ``ref.graph_walk_ref``) that walks these
-    queries, rotated, sorted into tiles (``inv`` undoes the sort) and
-    seeded with the entry point and, with ``seed_r``, the threshold floor
-    (the padding gives pad rows an empty window and r² = 0)."""
+# The reference's host frontier selection (``repro.index.graph._select_wave``)
+# in tensor form: one body with the walk kernel's plain twin, per-tile
+# ``expand`` budgets allowed (the continuous engine's slots carry their own).
+_select_wave = select_wave_ref
+
+
+def _prep_wave_state(index: GraphIndex, queries, *, k: int, ef: int,
+                     block_q: int, seed_r: bool):
+    """The prologue of a walk, shared by the batch search and the
+    continuous engine's admission: rotate and tile-sort the queries, pad
+    them to whole ``block_q`` tiles, seed each real row's window with the
+    entry point and (with ``seed_r``) its threshold floor.  Pad rows carry
+    an empty window (inf/-1), r² floor 0 and a zero query.  Returns ``(inv,
+    q_sorted (q_pad, D), q_tiles, q_pad, qn, entry, top_sq (q_pad, ef),
+    top_ids, seed (q_pad,))`` on the index's device, ``inv`` (a tensor)
+    undoing the sort."""
     if not 1 <= k <= ef:
         raise ValueError(f"need 1 <= k <= ef, got k={k} ef={ef}")
     dev = index.device
@@ -406,22 +419,38 @@ def walk_inputs(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
     # coordinate so a tile's walks traverse overlapping graph regions and
     # the per-tile frontier union stays small.  Stable, as jnp.argsort.
     order = torch.argsort(q_rot[:, 0], stable=True)
-    inv = torch.argsort(order, stable=True).cpu().numpy()
+    inv = torch.argsort(order, stable=True)
     q_sorted = q_rot[order]
+    q_tiles = -(-qn // block_q)
+    q_pad = q_tiles * block_q
     entry = index.entry
-    top_sq = torch.full((qn, ef), float("inf"), device=dev)
-    top_ids = torch.full((qn, ef), -1, dtype=torch.int32, device=dev)
-    top_sq[:, 0] = torch.sum((index.corpus_rot[entry][None, :] - q_sorted) ** 2, dim=1)
-    top_ids[:, 0] = entry
-    seed = (_beam_seed_rsq(index, q_sorted, k) if seed_r
-            else torch.full((qn,), float("inf"), device=dev))
+    top_sq = torch.full((q_pad, ef), float("inf"), device=dev)
+    top_ids = torch.full((q_pad, ef), -1, dtype=torch.int32, device=dev)
+    top_sq[:qn, 0] = torch.sum((index.corpus_rot[entry][None, :] - q_sorted) ** 2, dim=1)
+    top_ids[:qn, 0] = entry
+    seed = torch.zeros((q_pad,), device=dev)
+    seed[:qn] = (_beam_seed_rsq(index, q_sorted, k) if seed_r
+                 else torch.full((qn,), float("inf"), device=dev))
+    q_sorted = torch.nn.functional.pad(q_sorted, (0, 0, 0, q_pad - qn))
+    return inv, q_sorted, q_tiles, q_pad, qn, entry, top_sq, top_ids, seed
+
+
+def walk_inputs(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
+                block_q: int, max_waves: int, seed_r: bool, decoupled: bool,
+                route_mult: float):
+    """The prologue of a search: ``(args, kwargs, inv)`` of the
+    ``graph_walk_kernel_call`` (or ``ref.graph_walk_ref``) that walks these
+    queries, from :func:`_prep_wave_state` (``inv``, a numpy permutation,
+    undoes the tile sort)."""
+    inv, q_sorted, _, _, qn, entry, top_sq, top_ids, seed = _prep_wave_state(
+        index, queries, k=k, ef=ef, block_q=block_q, seed_r=seed_r)
     args, kw = graph_walk_inputs(
-        index.estimator, q_sorted, top_sq, top_ids, seed, index.adj_rot,
-        index.adj_codes, index.adj_ids, index.gscales, entry=entry, ef=ef,
-        thresh_col=(k - 1) if decoupled else (ef - 1), expand=expand,
-        max_waves=max_waves, route_mult=route_mult, block_q=block_q,
-        block_c=index.adj_block, block_d=index.scan_block_d)
-    return args, kw, inv
+        index.estimator, q_sorted[:qn], top_sq[:qn], top_ids[:qn], seed[:qn],
+        index.adj_rot, index.adj_codes, index.adj_ids, index.gscales,
+        entry=entry, ef=ef, thresh_col=(k - 1) if decoupled else (ef - 1),
+        expand=expand, max_waves=max_waves, route_mult=route_mult,
+        block_q=block_q, block_c=index.adj_block, block_d=index.scan_block_d)
+    return args, kw, inv.cpu().numpy()
 
 
 def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
@@ -435,18 +464,37 @@ def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
     runs the whole walk, each tile picking its own frontiers on the card;
     on CPU tensors (or with ``use_ref``) the plain ``ref.graph_walk_ref``
     runs it.  The host does the prologue and reads the results back once.
+
+    The reference's per-wave spans become three here — ``graph.prologue``,
+    ``graph.launch`` (annotated with the walk's ``waves``) and
+    ``graph.readback`` — since the waves run inside one launch.  For the
+    same reason the chaos harness's per-wave hook fires after the launch,
+    as often as the reference's loop calls it: once per wave the walk ran,
+    plus once for the wave that found no frontier (unless the walk hit
+    ``max_waves``), so an armed ``shard_stall`` injects the reference's
+    total stall.
+
     Returns ``(dists, ids, acc)`` with ``acc`` the raw accounting
     ``_graph_stats`` turns into ``GraphScanStats``."""
-    args, kw, inv = walk_inputs(
-        index, queries, k=k, ef=ef, expand=expand, block_q=block_q,
-        max_waves=max_waves, seed_r=seed_r, decoupled=decoupled,
-        route_mult=route_mult)
+    tr = current_tracer()
+    with tr.span("graph.prologue", queries=len(queries)):
+        args, kw, inv = walk_inputs(
+            index, queries, k=k, ef=ef, expand=expand, block_q=block_q,
+            max_waves=max_waves, seed_r=seed_r, decoupled=decoupled,
+            route_mult=route_mult)
+        tr.fence(args)
     qn = kw["qn"]
     walk = graph_walk_ref if use_ref else graph_walk_kernel_call
-    t_sq, t_ids, st, _, tile_waves = walk(*args, **kw)
-    waves = int(tile_waves.max()) if tile_waves.numel() else 0
-    top_sq, top_ids = t_sq[:qn].cpu().numpy(), t_ids[:qn].cpu().numpy()
-    st = st[:waves].cpu().numpy()
+    with tr.span("graph.launch") as sp:
+        t_sq, t_ids, st, _, tile_waves = tr.fence(walk(*args, **kw))
+        waves = int(tile_waves.max()) if tile_waves.numel() else 0
+        sp.annotate(waves=waves)
+    with tr.span("graph.readback"):
+        top_sq, top_ids = t_sq[:qn].cpu().numpy(), t_ids[:qn].cpu().numpy()
+        st = st[:waves].cpu().numpy()
+    chaos = current_chaos()  # NULL_CHAOS: a no-op
+    for w in range(waves + (waves < max_waves)):
+        chaos.on_wave(w)
     # The ledger of a launch per wave: each wave's fp32 column sums, added
     # into float64 wave by wave.
     sem = np.zeros((4,), np.float64)  # stats cols 0-3 summed over waves

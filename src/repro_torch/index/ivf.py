@@ -30,6 +30,7 @@ from repro_torch.core.transforms import as_tensor
 from repro_torch.index.kmeans import kmeans
 from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
 from repro_torch.kernels.ops import fused_fetch_totals, ivf_scan_inputs
+from repro_torch.obs.trace import current_tracer
 from repro_torch.quant.accounting import (
     ID_BYTES, fetched_tile_bytes, stage2_fetch_report, two_stage_bytes,
 )
@@ -252,23 +253,35 @@ def _route_tiles(index: IVFIndex, q_rot: torch.Tensor, *, n_probe: int,
     return order, inv, q_sorted, tile_buckets, window_starts, window_rows
 
 
-def _fused_stats(index: IVFIndex, stats, *, qn: int, k: int) -> FusedScanStats:
-    """FusedScanStats epilogue from the raw (Q, 6) kernel counters."""
-    st = stats.detach().cpu().numpy().astype(np.float64)
+def _fused_stats(index: IVFIndex, stats, *, qn: int, k: int,
+                 block_q: int = BLOCK_Q, block_c: int = BLOCK_C,
+                 seed_r: bool = True) -> FusedScanStats:
+    """FusedScanStats epilogue from raw (Q, 6) kernel counters (a tensor or
+    a numpy array), shared by ``search_ivf_fused`` and the continuous
+    engine, so a solo slot's ledger is built by the arithmetic of the
+    search (the counters are integer-valued f32: their sums are exact and
+    the ledgers compare with ``==``).  The fetch counters sit on the first
+    row of each ``block_q`` tile."""
+    tr = current_tracer()
+    if isinstance(stats, torch.Tensor):
+        stats = stats.detach().cpu().numpy()
+    st = np.asarray(stats, np.float64)
     rows = max(float(st[:, 2].sum()), 1.0)
     d_pad = index.flat_rot.shape[1]
     dim = index.seed_codes.shape[1]
     # Seeding streams the nearest bucket's int8 codes and k exact rows per
     # query before the launch — count those corpus bytes too.
-    seed_bytes = index.capacity * dim + 4 * k * d_pad
-    s1_tiles, s2_slabs = fused_fetch_totals(st, BLOCK_Q)
+    seed_bytes = (index.capacity * dim + 4 * k * d_pad) if seed_r else 0
+    s1_tiles, s2_slabs = fused_fetch_totals(st, block_q)
     fp_itemsize = index.flat_rot.element_size()
     s2_fetched_b, _, s2_skip, s2_total = stage2_fetch_report(
-        s1_tiles, s2_slabs, block_c=BLOCK_C, d_pad=d_pad,
+        s1_tiles, s2_slabs, block_c=block_c, d_pad=d_pad,
         block_d=index.scan_block_d, fp_bytes=fp_itemsize)
-    fetched = fetched_tile_bytes(
-        s1_tiles, block_c=BLOCK_C, dims=d_pad, bytes_per_dim=1,
-        id_bytes=ID_BYTES) + s2_fetched_b
+    s1_bytes = fetched_tile_bytes(s1_tiles, block_c=block_c, dims=d_pad,
+                                  bytes_per_dim=1, id_bytes=ID_BYTES)
+    tr.instant("ivf.stage1_dma", tiles=s1_tiles, bytes=s1_bytes)
+    tr.instant("ivf.stage2", slabs=s2_slabs, bytes=float(s2_fetched_b))
+    fetched = s1_bytes + s2_fetched_b
     return FusedScanStats(
         avg_fp_dims=float(st[:, 1].sum()) / rows,
         avg_int8_dims=float(st[:, 0].sum()) / rows,
@@ -290,28 +303,40 @@ def fused_search_inputs(
     *,
     k: int = 10,
     n_probe: int = 8,
+    block_q: int = BLOCK_Q,
+    block_c: int = BLOCK_C,
+    seed_r: bool = True,
 ):
     """Routing and threshold seed of :func:`search_ivf_fused`: returns the
     ``(args, kwargs)`` of its one ``ivf_scan_kernel_call`` and ``inv``, the
-    permutation from tile-grouped rows back to query order."""
+    permutation from tile-grouped rows back to query order.  Spans
+    ``ivf.route`` and ``ivf.seed`` when a tracer is installed."""
+    tr = current_tracer()
     dev = index.device
     q_rot = index.estimator.rotate(as_tensor(queries, dev))
     qn = q_rot.shape[0]
     n_probe = min(n_probe, index.n_clusters)
-    order, inv, q_sorted, tile_buckets, window_starts, window_rows = _route_tiles(
-        index, q_rot, n_probe=n_probe, block_q=BLOCK_Q)
-    # Seed from the tile's best bucket (guaranteed scanned), so the
-    # verified candidates re-enter the on-card top-K in wave 0.
-    seed_bucket = torch.repeat_interleave(tile_buckets[:, 0], BLOCK_Q)[:qn]
-    r0 = _quant_seed_rsq(index, q_sorted, seed_bucket, k)
+    with tr.span("ivf.route", n_probe=n_probe):
+        order, inv, q_sorted, tile_buckets, window_starts, window_rows = _route_tiles(
+            index, q_rot, n_probe=n_probe, block_q=block_q)
+        tr.fence(window_rows)
+    with tr.span("ivf.seed", seed_r=seed_r):
+        if seed_r:
+            # Seed from the tile's best bucket (guaranteed scanned), so the
+            # verified candidates re-enter the on-card top-K in wave 0.
+            seed_bucket = torch.repeat_interleave(tile_buckets[:, 0], block_q)[:qn]
+            r0 = _quant_seed_rsq(index, q_sorted, seed_bucket, k)
+        else:
+            r0 = torch.full((qn,), float("inf"), device=dev)
+        tr.fence(r0)
     args, kwargs = ivf_scan_inputs(
         index.estimator, q_sorted, window_starts, window_rows,
         index.flat_rot, index.flat_codes, index.flat_ids, index.bscales,
-        r0, k=k, max_bucket=index.max_bucket, block_q=BLOCK_Q,
-        block_c=BLOCK_C, block_d=index.scan_block_d,
+        r0, k=k, max_bucket=index.max_bucket, block_q=block_q,
+        block_c=block_c, block_d=index.scan_block_d,
         # Cluster starts sit on the 128-row grid; a tile width dividing it
         # inherits exact windows.
-        starts_aligned=(ALIGN % BLOCK_C == 0))
+        starts_aligned=(ALIGN % block_c == 0))
     return args, kwargs, inv
 
 
@@ -321,15 +346,26 @@ def search_ivf_fused(
     *,
     k: int = 10,
     n_probe: int = 8,
+    block_q: int = BLOCK_Q,
+    block_c: int = BLOCK_C,
+    seed_r: bool = True,
 ):
-    """IVF search through the fused wave-scan kernel, on the index's device.
+    """IVF search through the fused wave-scan kernel, on the index's device:
+    queries grouped into tiles of ``block_q`` by nearest centroid, each tile
+    probing its ``n_probe`` best buckets in ``block_c``-row candidate tiles,
+    from a threshold seeded by ``seed_r`` (else r² = inf).
 
     Returns (dists (Q, K), ids (Q, K) int32, FusedScanStats).
     """
+    tr = current_tracer()
     args, kwargs, inv = fused_search_inputs(
-        index, queries, k=k, n_probe=n_probe)
+        index, queries, k=k, n_probe=n_probe, block_q=block_q,
+        block_c=block_c, seed_r=seed_r)
     qn = inv.shape[0]
-    top_sq, top_ids, stats = (x[:qn] for x in ivf_scan_kernel_call(*args, **kwargs))
+    with tr.span("ivf.launch", q_tiles=args[0].shape[0]):
+        top_sq, top_ids, stats = tr.fence(tuple(
+            x[:qn] for x in ivf_scan_kernel_call(*args, **kwargs)))
     dists = torch.sqrt(torch.clamp_min(top_sq, 0.0))[inv]
     ids = top_ids[inv]
-    return dists, ids, _fused_stats(index, stats, qn=qn, k=k)
+    return dists, ids, _fused_stats(index, stats, qn=qn, k=k, block_q=block_q,
+                                    block_c=block_c, seed_r=seed_r)

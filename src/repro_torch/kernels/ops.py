@@ -33,6 +33,7 @@ __all__ = [
     "dco_screen_kernel", "quant_screen_kernel", "ivf_scan_kernel", "ivf_scan_inputs", "ivf_cap_tiles", "build_window_offsets",
     "block_table", "fused_fetch_totals", "graph_vis_words", "unpack_vis",
     "graph_scan_inputs", "graph_scan_kernel", "graph_walk_inputs",
+    "pow2_bucket", "pad_live_rows",
 ]
 
 
@@ -43,6 +44,43 @@ def fused_fetch_totals(stats, block_q: int):
     st = stats.detach().cpu().numpy() if isinstance(stats, torch.Tensor) else np.asarray(stats)
     first = st[::block_q]
     return float(first[:, 5].sum()), float(first[:, 4].sum())
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= ``n`` (minimum 1): the bucket grid of the
+    continuous engines.  Launch dimensions that vary per wave (live-set
+    tile counts, frontier step counts) round up to it, so a serving run
+    sees at most ``log2(max)`` shapes per dimension."""
+    if n < 1:
+        raise ValueError(f"pow2_bucket needs n >= 1, got {n}")
+    return 1 << (int(n) - 1).bit_length()
+
+
+def pad_live_rows(x, live_rows: int, bucket_rows: int, *, fill):
+    """Pad the stacked live-slot rows of a continuous launch (a numpy array
+    or a tensor, padded on its own device) up to the pow2 bucket with
+    ``fill``, the inert value the batch path pads with.  Fails fast on a
+    stack that disagrees with the declared live count (stale slot rows
+    would ride into the kernel as if live) and on a bucket that is not a
+    power of two."""
+    if x.shape[0] != live_rows:
+        raise ValueError(
+            f"live-set stack has {x.shape[0]} rows, caller declared "
+            f"{live_rows} live — refusing to launch stale slot rows")
+    if bucket_rows < live_rows:
+        raise ValueError(
+            f"bucket of {bucket_rows} rows cannot hold {live_rows} live rows")
+    if bucket_rows & (bucket_rows - 1):
+        raise ValueError(
+            f"bucket_rows={bucket_rows} is not a power of two — the "
+            f"bucket grid needs pow2_bucket sizing")
+    if bucket_rows == live_rows:
+        return x
+    shape = (bucket_rows - live_rows,) + tuple(x.shape[1:])
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)])
+    x = np.asarray(x)
+    return np.concatenate([x, np.full(shape, fill, x.dtype)], axis=0)
 
 
 def ivf_cap_tiles(max_bucket: int, block_c: int, *, starts_aligned: bool) -> int:

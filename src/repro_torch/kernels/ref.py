@@ -339,7 +339,7 @@ def graph_scan_ref(
 
 
 def select_wave_ref(top_sq, top_ids, vis, route_sq, *, block_q: int, qn: int,
-                    expand: int, ef: int):
+                    expand, ef: int):
     """One wave's frontier, the reference's ``_select_wave`` in tensor form.
 
     Per query row ``r < qn`` (pad rows pick nothing), the first ``expand``
@@ -347,14 +347,22 @@ def select_wave_ref(top_sq, top_ids, vis, route_sq, *, block_q: int, qn: int,
     packed bitmap ``vis`` (q_tiles, W), scanning in window order and
     stopping at the first entry whose id is < 0, whose distance is not
     finite or exceeds ``route_sq[r]``; expanded entries are skipped without
-    using up the budget.  Per tile, the picks of its queries in query order,
-    a node that an earlier query of the tile already proposed used up the
-    later query's budget but is not listed again.  Returns the
-    (q_tiles, block_q * expand) int32 step table, -1 padded (an all -1 row:
-    the tile has converged)."""
+    using up the budget.  ``expand`` is one budget for every row, or a
+    sequence of one per tile (host ints, as the continuous engine's slots
+    carry them).  Per tile, the picks of its queries in query order, a node
+    that an earlier query of the tile already proposed used up the later
+    query's budget but is not listed again.  Returns the (q_tiles,
+    block_q * max(expand)) int32 step table, -1 padded (an all -1 row: the
+    tile has converged)."""
     qp = top_sq.shape[0]
     q_tiles = qp // block_q
     dev = top_sq.device
+    if isinstance(expand, int):
+        budget, width_e = expand, expand
+    else:
+        per_tile = np.asarray(expand, np.int64)
+        budget = torch.as_tensor(np.repeat(per_tile, block_q), device=dev)[:, None]
+        width_e = int(per_tile.max())
     sq = top_sq[:, :ef].float()
     ids = top_ids[:, :ef].to(torch.int64)
     stop = (ids < 0) | ~torch.isfinite(sq) | (sq > route_sq.float()[:, None])
@@ -364,14 +372,14 @@ def select_wave_ref(top_sq, top_ids, vis, route_sq, *, block_q: int, qn: int,
     words = vis.to(torch.int32)[(rows // block_q)[:, None], node >> 5]
     expanded = ((words >> (node & 31).to(torch.int32)) & 1) != 0
     qual = open_ & ~expanded & (rows < qn)[:, None]
-    pick = qual & (torch.cumsum(qual.to(torch.int32), dim=1) <= expand)
-    # Each row's picks in window order, compacted into `expand` slots.
-    order = torch.argsort((~pick).to(torch.int8), dim=1, stable=True)[:, :expand]
+    pick = qual & (torch.cumsum(qual.to(torch.int32), dim=1) <= budget)
+    # Each row's picks in window order, compacted into `width_e` slots.
+    order = torch.argsort((~pick).to(torch.int8), dim=1, stable=True)[:, :width_e]
     cand = torch.where(torch.gather(pick, 1, order), torch.gather(ids, 1, order),
                        torch.full_like(order, -1))
-    cand = torch.nn.functional.pad(cand, (0, expand - cand.shape[1]), value=-1)
+    cand = torch.nn.functional.pad(cand, (0, width_e - cand.shape[1]), value=-1)
     # Per tile, in query order: keep the first proposal of each node.
-    lst = cand.reshape(q_tiles, block_q * expand)
+    lst = cand.reshape(q_tiles, block_q * width_e)
     width = lst.shape[1]
     earlier = torch.tril(torch.ones((width, width), dtype=torch.bool, device=dev), -1)
     dup = ((lst[:, :, None] == lst[:, None, :]) & earlier).any(dim=2)

@@ -1,9 +1,11 @@
 """The CUDA ``ivf_scan`` (every query-tile width, split into segments),
 ``graph_scan`` (one wave, and the whole walk of a search), ``dade_dco``,
 ``quant_dco`` and ``l2_scan`` kernels against their plain PyTorch versions
-on the card, bit for bit, and the
-repeatability of an IVF build there (needs no JAX, so it runs where only
-the port is installed).
+on the card, bit for bit, the
+repeatability of an IVF build there, the continuous engines against each
+query's solo search (the walk kernel and the plain walk for the graph, the
+fused scan for IVF), and the tracer's fence (needs no JAX, so it runs
+where only the port is installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
 false, since a CUDA kernel has no CPU mode.  On the card:
@@ -333,3 +335,91 @@ def test_cuda_screen_paths_match_plain_versions(case):
                             "tiles": work["tiles"]}, name
         else:
             assert work["list_entries"] > 0 and 0 < int((dims > bd).sum()), (name, work)
+
+
+def _run_schedule(engine, rows, schedule):
+    """Admit ``rows`` per the arrival ``schedule`` (admissions before each
+    wave) and step until drained; {row: RetiredQuery}."""
+    pending, hmap, out, arrivals = list(range(len(rows))), {}, {}, list(schedule)
+    while pending or engine.live_count():
+        for _ in range(min(arrivals.pop(0) if arrivals else len(pending), len(pending))):
+            i = pending.pop(0)
+            hmap[engine.admit(rows[i])] = i
+        if engine.live_count():
+            for rq in engine.step():
+                out[hmap[rq.handle]] = rq
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_continuous_graph_matches_walk_kernel():
+    """Continuous serving through the one-wave kernel, queries joining
+    mid-walk, against each query served alone by the walk kernel and by the
+    plain walk: ids, distances and ledgers bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graph kernels have no CPU mode")
+    import numpy as np
+    from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
+    from repro_torch.index.graph import build_graph, search_graph_beam_host, search_graph_fused
+    from repro_torch.kernels.graph_scan import graph_walk_kernel_call
+    from repro_torch.launch.annservice import ContinuousGraphEngine
+
+    corpus = synthetic_vectors(2048, 128, seed=0)
+    g = build_graph(corpus, m=12, ef_construction=48, delta_d=32, device="cuda")
+    rows = synthetic_queries(12, 128, corpus, seed=5)
+    before = graph_scan_kernel_call.launches
+    out = _run_schedule(ContinuousGraphEngine(g, k=10, ef=48), rows, [3, 1, 0, 4, 2, 1, 1])
+    assert graph_scan_kernel_call.launches > before
+    walks = graph_walk_kernel_call.launches
+    for i, rq in out.items():
+        for search in (search_graph_fused, search_graph_beam_host):
+            d, ids, st = search(g, rows[i][None], k=10, ef=48, device="cuda")
+            assert np.array_equal(rq.ids, ids.cpu().numpy()[0]), (i, search.__name__)
+            assert np.array_equal(rq.dists, d.cpu().numpy()[0]), (i, search.__name__)
+            assert rq.stats == st, (i, search.__name__)
+    assert graph_walk_kernel_call.launches == walks + len(rows)
+
+
+@pytest.mark.gpu
+def test_cuda_continuous_ivf_matches_solo_search():
+    """Continuous IVF, each slot resumed two probes a launch, against each
+    query's solo ``search_ivf_fused`` on the card: ids, squared distances
+    and the ledger bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ivf_scan kernel has no CPU mode")
+    import numpy as np
+    from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
+    from repro_torch.index.ivf import build_ivf, search_ivf_fused
+    from repro_torch.launch.annservice import ContinuousIVFEngine
+
+    corpus = synthetic_vectors(16384, 128, seed=0)
+    idx = build_ivf(corpus, n_clusters=64, delta_d=32, device="cuda")
+    rows = synthetic_queries(12, 128, corpus, seed=5)
+    before = ivf_scan_kernel_call.launches
+    out = _run_schedule(ContinuousIVFEngine(idx, k=20, n_probe=7, probe_chunk=2),
+                        rows, [3, 1, 0, 4, 2, 1, 1])
+    assert ivf_scan_kernel_call.launches > before
+    for i, rq in out.items():
+        d, ids, st = search_ivf_fused(idx, rows[i][None], k=20, n_probe=7, block_q=8)
+        assert np.array_equal(rq.ids, ids.cpu().numpy()[0]), i
+        assert np.array_equal(rq.dists, d.cpu().numpy()[0]), i
+        assert rq.stats == st, i
+        assert rq.waves == 4  # ceil(7 probes / 2)
+
+
+@pytest.mark.gpu
+def test_tracer_fence_waits_for_the_card(monkeypatch):
+    """The recording tracer synchronises the devices its tensors live on;
+    the null tracer never does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.obs import NULL_TRACER, Tracer
+
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: (calls.append(d), real(d)))
+    x = torch.ones(4, device="cuda")
+    NULL_TRACER.fence(x)
+    assert calls == []
+    Tracer().fence((x, [x.cpu()]))
+    assert calls == [x.device]

@@ -51,7 +51,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.index.ivf, "
             "repro_torch.index.graph, repro_torch.index.flat, repro_torch.interop, "
             "repro_torch.kernels.ops, repro_torch.kernels.l2_scan, repro_torch.core.dco, "
-            "repro_torch.core.topk, repro_torch.quant.screen; "
+            "repro_torch.core.topk, repro_torch.quant.screen, repro_torch.obs, "
+            "repro_torch.runtime.chaos, repro_torch.runtime.scheduler, "
+            "repro_torch.launch.annservice; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

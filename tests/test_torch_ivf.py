@@ -67,3 +67,18 @@ def test_port_build_recall_close_to_reference(fused_idx, aniso_corpus, queries, 
     assert r_port >= r_ref - 0.02, (r_port, r_ref)
     _, gt_port = t_exact_knn(queries, aniso_corpus, 10, device="cpu")
     assert recall(gt_port.numpy(), gt) == 1.0
+
+
+def test_unseeded_search_ledger_matches_reference(fused_idx, queries):
+    """``seed_r=False`` starts every query from r² = inf and books no seed
+    bytes, as the reference does; block_q and block_c are the reference's
+    keywords (8 and 128 here, the defaults)."""
+    q = np.asarray(queries)
+    d_ref, i_ref, st_ref = j_search(fused_idx, jnp.asarray(q), k=10, n_probe=6,
+                                    block_q=8, block_c=128, seed_r=False, use_ref=True)
+    d, i, st = t_search(carry_ivf(fused_idx), q, k=10, n_probe=6, block_q=8,
+                        block_c=128, seed_r=False)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    assert st._asdict() == st_ref._asdict()
+    _, _, seeded = t_search(carry_ivf(fused_idx), q, k=10, n_probe=6)
+    assert st.fetched_bytes_per_query != seeded.fetched_bytes_per_query

@@ -202,10 +202,17 @@ def test_batch_scheduler_matches_reference_batching():
 
 
 def test_batch_scheduler_step_error_propagates():
+    """A failing step's error propagates to the scheduler, which (no retries
+    asked for) sheds the batch's requests as ``shed_error`` and counts them,
+    as the reference's scheduler does; the next batch is served."""
     from repro_torch.runtime.scheduler import BatchScheduler
 
-    sched = BatchScheduler(_toy_step([]), batch_size=4)
-    bad = sched.submit(-np.ones((2, 2)))
-    with pytest.raises(RuntimeError, match="poisoned batch"):
-        sched.drain()
-    assert bad.status == "queued" and bad.result is None
+    calls = []
+    sched = BatchScheduler(_toy_step(calls), batch_size=4)
+    bad = sched.submit(-np.ones((4, 2)))  # fills the first batch
+    good = sched.submit(np.ones((2, 2)))
+    done = sched.drain()
+    assert len(calls) == 2 and calls[0][0, 0] == -1.0
+    assert bad.status == "shed_error" and bad.result is None
+    assert done == [good] and good.status == "served"
+    assert sched.stats["shed_error"] == 1 and sched.stats["retries"] == 0
