@@ -96,7 +96,24 @@ on any fault.  Phases, one line each:
      seeded random admission schedule, each bit-identical to its solo
      ``search_ivf_fused(block_q=8)``: ids, distances, ledger; and the
      engine's widest launch with carried windows (``top0_sq``/``top0_ids``)
-     held against the plain version on the same inputs.
+     held against the plain version on the same inputs;
+ 14. churn serving (run after phase 8): ``serve --index graph --mutate-rate
+     32`` over 8,192 nodes of the same width and settings (40 requests,
+     1,280 mutations, 3:1 upserts to deletes, upserts from the drifted
+     distribution, a write-ahead log, ``--chaos torn_upsert:after=2`` and
+     ``--verify-graph-oracle``): (a) after the crash and its recovery the
+     mutated index returns the ids of a from-scratch ``build_graph`` of the
+     final corpus under the same tombstones, distances to rtol 5e-5 /
+     atol 1e-5; (b) its arrays (neighbours, codes, scales, the adjacency
+     slabs, the entry) equal the rebuild's bit for bit; (c) one request's
+     walk launch, deleted rows pre-set in its bitmap, equals the plain walk
+     bit for bit and expands no tombstoned node; (d) the mutation ledger
+     closes, the replay reports the torn tail, the metrics pass the schema
+     check, recall@10 against the live corpus is printed; (e) phase 7's
+     graph saved by ``serve --index-ckpt`` and restored by a second serve
+     that builds nothing serves the same ids, its arrays and searches equal
+     the original's bit for bit, and the flat route's estimator snapshot
+     serves the ids the built estimator served.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -106,7 +123,9 @@ case of the kernel, the continuous phases' included.  Beside them stand
 graph_scan's one-wave launches in phase 12 and their time at the
 1024-tile bucket (``one_wave_launches``, ``one_wave_ms``) and ivf_scan's
 launches in phase 13 and their median time (``continuous_launches``,
-``continuous_ms``).
+``continuous_ms``), graph_scan's walk launches in phase 14's churn serving
+and snapshot serves (``churn_launches``, ``snapshot_launches``) and
+ivf_scan's in phase 14's flat snapshot serves (``snapshot_launches``).
 
 Kernel parity rule: the top-K ids, the squared distances, every stats
 counter, the visited bitmap and every screen output (estimates, flags,
@@ -166,6 +185,17 @@ OPEN_REQUESTS = 200
 OPEN_BATCH = 64
 # Phase 13: queries served through the continuous IVF engine.
 CONT_IVF_QUERIES = 64
+# Phase 14: churn serving over CHURN_NODES rows (cut from phase 7's 32,768:
+# a boot, the recovery after the torn write and the oracle's rebuild each
+# run the host NSW build), CHURN_REQUESTS requests with CHURN_RATE
+# mutations before each, the walk launch held against the plain walk (the
+# CHURN_CAPTURE-th of the run, mid-churn), and SNAPSHOT_REQUESTS requests
+# per snapshot serve.
+CHURN_NODES = 8192
+CHURN_REQUESTS = 40
+CHURN_RATE = 32
+CHURN_CAPTURE = 30
+SNAPSHOT_REQUESTS = 4
 
 
 def log(msg: str) -> None:
@@ -974,6 +1004,8 @@ def run_graph(card: str) -> dict:
         f"{100 * (qps[-1] - qps[0]) / qps[0]:.1f} %), timed windows {windows_s} s; "
         f"recall@10={reports[0]['recall']:.4f} waves={reports[0]['waves']:.0f} "
         f"launches={serve_launches}")
+    churn = run_churn(gsrv, gsvc, queries, card)
+    max_err = max(max_err, churn["max_err"])
     cont = run_continuous_graph(gsrv, gsvc, (queries, gt.cpu().numpy(), rec), card)
     max_err = max(max_err, cont["max_err"])
     entry = {
@@ -982,13 +1014,17 @@ def run_graph(card: str) -> dict:
         "replaces": "src/repro/kernels/graph_scan.py:477",
         "launches": route_launches + serve_launches,
         "one_wave_launches": cont["launches"], "one_wave_ms": cont["ms"],
+        "churn_launches": churn["launches"], "churn_walk_ms": churn["tombstoned_walk_ms"],
+        "snapshot_launches": churn["snapshot_walks"],
+        "flat_snapshot_launches": churn["snapshot_scans"],
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "library_ms": None,
     }
     log(f"kernels: graph_scan launches={entry['launches']} (the walk: route={route_launches} "
-        f"serve={serve_launches}; one_wave_launches={cont['launches']} in continuous "
+        f"serve={serve_launches}; churn_launches={churn['launches']} in churn serving, "
+        f"snapshot_launches={churn['snapshot_walks']}; one_wave_launches={cont['launches']} in continuous "
         f"serving, {cont['ms']:.4f} ms a launch at {CONT_MAX_LIVE} tiles) "
         f"max_abs_err={max_err:.3e} "
         f"ms={ms:.4f} per search plain_ms={plain_ms:.1f} "
@@ -1012,6 +1048,167 @@ def run_schedule(engine, rows, schedule):
             for rq in engine.step():
                 out[hmap[rq.handle]] = rq
     return out
+
+
+def run_churn(gsrv, gsvc, queries, card) -> dict:
+    """Phase 14: churn serving on the card, then the index snapshots.
+
+    ``serve --index graph --mutate-rate 32`` over CHURN_NODES rows (the
+    reference's churn route: 1,280 mutations, 3:1 upserts to deletes from
+    ``drifted_vectors(seed=11)``, a write-ahead log, a ``torn_upsert`` crash
+    after two batches and its recovery, the drift watchdog) with
+    ``--verify-graph-oracle``: the serve itself fails unless the mutated
+    index returns a from-scratch rebuild's ids (distances to ``rtol=5e-5,
+    atol=1e-5``) and holds its arrays bit for bit (a, b).  One request's
+    walk launch, deleted rows pre-set in its bitmap, is held against
+    ``ref.graph_walk_ref`` bit for bit (c).  The ledger closes, the replay
+    reports the torn tail, the snapshot passes the schema check (d).  Then
+    phase 7's graph is saved by ``serve --index-ckpt`` and restored by a
+    second serve that builds nothing, searches on it equal the original's
+    bit for bit, and the flat route's estimator snapshot serves the ids the
+    built estimator served (e).  Returns the launch counts."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint.index_io import load_graph_index
+    from repro_torch.index import graph as graph_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.graph_scan import graph_walk_kernel_call as walk_kernel
+    from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call
+    from repro_torch.kernels.ops import unpack_vis
+    from repro_torch.launch import serve
+
+    t_start = time.perf_counter()
+    work = ROOT / "build" / "phase14"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    argv = ["--index", "graph", "--device", DEV, "--corpus", str(CHURN_NODES),
+            "--dim", str(gsvc.dim), "--k", "10", "--batch", "1024", "--delta-d",
+            str(gsvc.delta_d), "--p-s", "0.02", "--ef", "48", "--expand", "2", "--m", "16"]
+    captured = {}
+
+    def capturing(*a, **k):
+        out = walk_kernel(*a, **k)
+        captured["calls"] = captured.get("calls", 0) + 1
+        if captured["calls"] == CHURN_CAPTURE:
+            captured["case"] = (tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                      for x in a), dict(k), tuple(x.clone() for x in out))
+        return out
+
+    walk_kernel.launches = 0
+    graph_mod.graph_walk_kernel_call = capturing
+    try:
+        t0 = time.perf_counter()
+        rep = serve.main(argv + [
+            "--requests", str(CHURN_REQUESTS), "--mutate-rate", str(CHURN_RATE),
+            "--wal", str(work / "churn.wal"), "--chaos", "torn_upsert:after=2",
+            "--verify-graph-oracle", "--metrics-json", str(work / "churn.json")])
+        churn_s = time.perf_counter() - t0
+    finally:
+        graph_mod.graph_walk_kernel_call = walk_kernel
+    churn_launches = walk_kernel.launches
+    check(rep["verified"], "the churn oracle did not run")
+    check(churn_launches == captured["calls"] and churn_launches >= CHURN_REQUESTS,
+          f"churn serving launched the walk {churn_launches} times for "
+          f"{CHURN_REQUESTS} requests")
+    check(rep["requests_served"] == CHURN_REQUESTS and rep["requests_shed"] == 0,
+          "churn serving did not answer every request")
+    check(rep["mutations_applied"] == rep["upserts"] + rep["deletes"] + rep["rejected"]
+          == round(CHURN_REQUESTS * CHURN_RATE), f"the mutation ledger does not close: {rep}")
+    check(rep["wal_recovered_torn"] == 1 and rep["boots"] == 2,
+          "the torn upsert was not recovered by one replay")
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" / "check_metrics_schema.py"),
+                          str(work / "churn.json")], capture_output=True, text=True,
+                         timeout=60)
+    check(out.returncode == 0, f"churn metrics schema: {out.stdout} {out.stderr}")
+
+    # (c) the captured request's walk, tombstones pre-set, against the plain walk.
+    args, wkw, out_k = captured["case"]
+    vis0 = args[6]
+    out_p = ref.graph_walk_ref(*args, **wkw)
+    sync()
+    max_err = agree_walk("walk_churn_tombstoned", out_k, out_p, 8)
+    n_rows = args[8].shape[0] // wkw["block_c"]
+    pre = unpack_vis(vis0, n_rows)
+    added = unpack_vis(out_k[3], n_rows) & ~pre
+    check(bool(pre[0].any()) and bool((pre == pre[0]).all()),
+          "the captured walk carried no tombstones in its starting bitmap")
+    check(bool(added.any()) and not bool((added & pre[0][None, :]).any()),
+          "the walk expanded a tombstoned node")
+    # The walk's time on these inputs, and with the bitmap cleared (the
+    # same walk without tombstones): measurement launches, not counted.
+    walk_kernel(*args, **wkw)  # warm
+    tomb_ms, _ = cuda_ms(lambda: walk_kernel(*args, **wkw), 11)
+    clear = args[:6] + (torch.zeros_like(vis0),) + args[7:]
+    clear_ms, _ = cuda_ms(lambda: walk_kernel(*clear, **wkw), 11)
+    split = rep["split"]
+    med = {k: statistics.median(v) for k, v in split.items()}
+    log(f"churn: {CHURN_REQUESTS} requests over {CHURN_NODES} nodes, "
+        f"{rep['mutations_applied']} mutations ({rep['upserts']} upserts, "
+        f"{rep['deletes']} deletes, {rep['rejected']} rejected, {rep['requantizes']} "
+        f"requantizes, {rep['tombstones']} tombstones), wal records {rep['wal_records']} "
+        f"after the recovery; QPS under churn {rep['qps']:.1f}, recall@10 against the "
+        f"live corpus {rep['recall']:.4f}; per request (mean / median ms): mutations "
+        f"{rep['mean_mutate_ms']:.2f} / {med['mutate_ms']:.2f}, drift check "
+        f"{rep['mean_drift_ms']:.2f} / {med['drift_ms']:.2f}, index view refresh "
+        f"{rep['mean_view_ms']:.4f} / {med['view_ms']:.4f}, search {rep['mean_search_ms']:.2f} "
+        f"/ {med['search_ms']:.2f}; boot {rep['boot_s']:.1f} s, recovery (fresh base + "
+        f"replay) {rep['recovery_s']:.1f} s; drift checks {rep['drift_checks']} fired "
+        f"{rep['drift_fired']} swaps {rep['drift_recalibrations']} suppressed "
+        f"{rep['drift_suppressed']}; walk launches {churn_launches}; the oracle's ids, "
+        f"distances and arrays equal the rebuild's; the launch of call {CHURN_CAPTURE} "
+        f"({int(pre[0].sum())} tombstones pre-set, {int(added.sum())} expansions, none "
+        f"tombstoned) equals the plain walk bit for bit; that walk takes {tomb_ms:.4f} ms "
+        f"({args[1].shape[0]} query rows, {int(out_k[4].max())} waves), {clear_ms:.4f} ms "
+        f"with its bitmap cleared; the churn serve took {churn_s:.0f}s on {card}")
+
+    # (e) snapshots: the graph route's whole index, the flat route's estimator.
+    g_argv = ["--index", "graph", "--device", DEV, "--corpus", str(gsvc.corpus_per_device),
+              "--dim", str(gsvc.dim), "--k", "10", "--batch", "1024", "--delta-d",
+              str(gsvc.delta_d), "--p-s", "0.02", "--ef", "48", "--expand", "2",
+              "--m", "16", "--requests", str(SNAPSHOT_REQUESTS),
+              "--index-ckpt", str(work / "graph_ckpt")]
+    walk_kernel.launches = ivf_scan_kernel_call.launches = 0
+    t0 = time.perf_counter()
+    saved = serve.main(g_argv, graph=gsrv)
+    t1 = time.perf_counter()
+    restored = serve.main(g_argv)
+    t2 = time.perf_counter()
+    check(saved["ckpt"] == "saved" and restored["ckpt"] == "restored",
+          f"graph snapshot: {saved['ckpt']} then {restored['ckpt']}")
+    check(restored["ids_sha256"] == saved["ids_sha256"],
+          "the restored graph served other ids than the saved one")
+    back = load_graph_index(str(work / "graph_ckpt"), device=DEV)
+    gidx = gsrv.index
+    for f in serve.CHURN_ARRAYS:
+        check(torch.equal(getattr(back, f), getattr(gidx, f)), f"restored graph's {f} differs")
+    a = graph_mod.search_graph_fused(gidx, queries, k=10, ef=48, expand=2, device=DEV)
+    b = graph_mod.search_graph_fused(back, queries, k=10, ef=48, expand=2, device=DEV)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2],
+          "searches on the restored graph differ from the original's")
+    graph_launches = walk_kernel.launches
+    del back, a, b
+    f_argv = ["--device", DEV, "--requests", str(SNAPSHOT_REQUESTS),
+              "--index-ckpt", str(work / "flat_ckpt")]
+    t3 = time.perf_counter()
+    f_saved = serve.main(f_argv)
+    f_restored = serve.main(f_argv)
+    t4 = time.perf_counter()
+    check(f_saved["ckpt"] == "saved" and f_restored["ckpt"] == "restored",
+          f"flat snapshot: {f_saved['ckpt']} then {f_restored['ckpt']}")
+    check(f_restored["ids_sha256"] == f_saved["ids_sha256"] and f_restored["recall"] >= 0.95,
+          "the restored estimator served other ids than the built one")
+    flat_launches = ivf_scan_kernel_call.launches
+    log(f"snapshots: the {gsvc.corpus_per_device}-node graph saved by one serve "
+        f"({t1 - t0:.1f} s, {SNAPSHOT_REQUESTS} requests) and restored by the next, which "
+        f"built nothing ({t2 - t1:.1f} s), served the same ids; its arrays and phase 7's "
+        f"{len(queries)}-query search equal the original's bit for bit; the flat route's "
+        f"estimator saved and restored, the same ids served ({t4 - t3:.1f} s for both "
+        f"serves); walk launches {graph_launches}, ivf_scan launches {flat_launches}; "
+        f"phase 14 took {time.perf_counter() - t_start:.0f}s")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"max_err": max_err, "launches": churn_launches, "snapshot_walks": graph_launches,
+            "snapshot_scans": flat_launches, "tombstoned_walk_ms": tomb_ms}
 
 
 def run_continuous_ivf(idx, queries, k: int, card: str) -> dict:
@@ -1748,7 +1945,8 @@ def main() -> int:
               slice_queries=64, card=card)
     graph = run_graph(card)
     flat = run_flat(CONFIG, card)
-    log(f"phases 2-11 took {time.perf_counter() - t0:.0f}s")
+    ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
+    log(f"phases 2-14 took {time.perf_counter() - t0:.0f}s")
     log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

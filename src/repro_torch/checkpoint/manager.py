@@ -1,0 +1,237 @@
+"""Checkpoint manager (port of ``repro.checkpoint.manager``), in the
+reference's on-disk layout, so a snapshot written by either package loads
+in the other.
+
+Layout per step::
+
+    <dir>/step_000000123.tmp/         (written, fsync'd)
+        tree.json                     (paths + leaf shape/dtype/sha256)
+        leaf_00000.npy ...            (one file per leaf, on the host)
+    <dir>/step_000000123/             (atomic rename: the commit)
+
+  * atomic commit (rename): a dying writer never corrupts the latest step;
+  * optional asynchronous save: a background thread writes while the
+    caller goes on (the leaves are copied to the host before the hand-off);
+  * a sha256 digest per leaf, checked on restore;
+  * retention (keep the last N), and a sweep of torn step directories.
+
+Trees are nested dicts (keys in sorted order), lists and tuples of tensors
+or arrays, flattened in the reference's order with its path strings
+(``['key']``, ``[0]``).  Restoring onto a device mesh (``shardings=``)
+waits for the multi-device port (ROADMAP queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import queue
+import re
+import shutil
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["CheckpointManager", "to_host"]
+
+
+def to_host(x) -> np.ndarray:
+    """A leaf as a numpy array on the host (tensors copied off the card)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _flatten(tree, path=()):
+    """(leaves, paths) of a nested dict/list/tuple in the reference's order:
+    dict keys sorted, ``None`` an empty subtree."""
+    if tree is None:
+        return [], []
+    if isinstance(tree, dict):
+        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return [tree], ["/".join(path)]
+    leaves, paths = [], []
+    for key, sub in items:
+        lv, ps = _flatten(sub, path + (key,))
+        leaves += lv
+        paths += ps
+    return leaves, paths
+
+
+def _unflatten(like, leaves):
+    """``like``'s structure with its leaves taken in order from ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        out = [_unflatten(v, leaves) for v in like]
+        return type(like)(out) if isinstance(like, list) else tuple(out)
+    return leaves.pop(0)
+
+
+def _load_leaf(path: str, i: int, meta: dict, where: str, verify: bool) -> np.ndarray:
+    arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
+    if verify and hashlib.sha256(arr.tobytes()).hexdigest() != meta["leaves"][i]["sha256"]:
+        raise IOError(f"checkpoint leaf {i} ({where}): digest mismatch "
+                      f"(corrupt checkpoint)")
+    return arr
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep: int = 3, async_save: bool = True):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._q: queue.Queue | None = None
+        self._worker: threading.Thread | None = None
+        self._errors: list[Exception] = []
+        if async_save:
+            self._q = queue.Queue(maxsize=2)
+            self._worker = threading.Thread(target=self._drain, daemon=True)
+            self._worker.start()
+
+    # ---- save ------------------------------------------------------------
+
+    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+        leaves, paths = _flatten(tree)
+        host = [to_host(x) for x in leaves]
+        if self._q is None or blocking:
+            self._write(step, host, paths)
+        else:
+            self._q.put((step, host, paths))
+
+    def wait(self) -> None:
+        if self._q is not None:
+            self._q.join()
+        if self._errors:
+            raise self._errors[0]
+
+    def _drain(self) -> None:
+        while True:
+            step, leaves, paths = self._q.get()
+            try:
+                self._write(step, leaves, paths)
+            except Exception as e:  # surfaced on wait()
+                self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def _write(self, step: int, leaves: list, paths: list,
+               extra: dict | None = None) -> None:
+        name = f"step_{step:09d}"
+        tmp = os.path.join(self.dir, name + ".tmp")
+        final = os.path.join(self.dir, name)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        meta = {"step": step, "paths": paths, "leaves": []}
+        if extra:
+            meta["extra"] = extra
+        for i, leaf in enumerate(leaves):
+            arr = np.asarray(leaf)
+            with open(os.path.join(tmp, f"leaf_{i:05d}.npy"), "wb") as f:
+                np.save(f, arr)
+                f.flush()
+                os.fsync(f.fileno())
+            meta["leaves"].append({
+                "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            })
+        with open(os.path.join(tmp, "tree.json"), "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:09d}"), ignore_errors=True)
+        # A committed step always holds tree.json (the rename follows its
+        # fsync), so a step directory without one is debris of an
+        # interrupted GC: never a restore target, reclaimed here.
+        for fn in os.listdir(self.dir):
+            if re.fullmatch(r"step_(\d+)", fn) and not os.path.exists(
+                    os.path.join(self.dir, fn, "tree.json")):
+                shutil.rmtree(os.path.join(self.dir, fn), ignore_errors=True)
+
+    # ---- restore ---------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        out = []
+        for fn in os.listdir(self.dir):
+            m = re.fullmatch(r"step_(\d+)", fn)
+            if m and os.path.exists(os.path.join(self.dir, fn, "tree.json")):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, like: Any, *, shardings: Any | None = None,
+                verify: bool = True) -> Any:
+        """Restore into the structure of ``like``: each leaf a tensor on the
+        device of ``like``'s leaf there (the CPU for an array)."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "restore(shardings=...) re-places leaves on a device mesh: not "
+                "ported (ROADMAP queue 1 item 7)")
+        path = os.path.join(self.dir, f"step_{step:09d}")
+        with open(os.path.join(path, "tree.json")) as f:
+            meta = json.load(f)
+        like_leaves, _ = _flatten(like)
+        if len(like_leaves) != len(meta["leaves"]):
+            raise ValueError(f"checkpoint has {len(meta['leaves'])} leaves, "
+                             f"template has {len(like_leaves)}")
+        paths = meta.get("paths", [])
+        out = []
+        for i, tmpl in enumerate(like_leaves):
+            where = paths[i] if i < len(paths) else str(i)
+            arr = _load_leaf(path, i, meta, where, verify)
+            if list(arr.shape) != list(np.shape(tmpl)):
+                raise ValueError(
+                    f"leaf {i}: ckpt shape {arr.shape} != template {np.shape(tmpl)}")
+            dev = tmpl.device if isinstance(tmpl, torch.Tensor) else None
+            out.append(torch.as_tensor(arr, device=dev))
+        return _unflatten(like, out)
+
+    # ---- named artifacts (template-free restore) -------------------------
+
+    def save_named(self, step: int, arrays: dict[str, Any], *,
+                   extra: dict | None = None) -> None:
+        """Save a flat ``{name: array}`` dict, synchronously.  The names
+        travel in the step's metadata (sorted, the flattening order), so
+        :meth:`restore_named` needs no template; ``extra`` carries small
+        JSON config beside them."""
+        names = sorted(arrays)
+        meta = dict(extra or {})
+        meta["names"] = names
+        self._write(step, [to_host(arrays[k]) for k in names],
+                    [f"[{k!r}]" for k in names], extra=meta)
+
+    def restore_named(self, step: int, *,
+                      verify: bool = True) -> tuple[dict[str, np.ndarray], dict]:
+        """Load a :meth:`save_named` step -> ``(arrays, extra)``, numpy on
+        the host.  A digest mismatch raises ``IOError`` naming the leaf."""
+        path = os.path.join(self.dir, f"step_{step:09d}")
+        with open(os.path.join(path, "tree.json")) as f:
+            meta = json.load(f)
+        extra = dict(meta.get("extra", {}))
+        names = extra.pop("names", None)
+        if names is None or len(names) != len(meta["leaves"]):
+            raise ValueError(f"step {step} was not written by save_named "
+                             f"(names metadata missing or inconsistent)")
+        return ({name: _load_leaf(path, i, meta, name, verify)
+                 for i, name in enumerate(names)}, extra)

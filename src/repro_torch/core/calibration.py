@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.transforms import OrthogonalTransform, as_tensor
 
 __all__ = ["EpsilonTable", "calibrate", "adsampling_table",
-           "expansion_schedule", "sample_pairs"]
+           "expansion_schedule", "sample_pairs", "violation_rates"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +101,44 @@ def calibrate(
     scale[-1] = 1.0
     return EpsilonTable(dims=dims, eps=eps.float(), scale=scale.float(),
                         eps_lo=eps_lo.float())
+
+
+def violation_rates(
+    table: EpsilonTable,
+    transform: OrthogonalTransform,
+    data,
+    generator: torch.Generator | None = None,
+    *,
+    num_pairs: int = 2048,
+    pairs=None,
+) -> torch.Tensor:
+    """Per-checkpoint empirical violation rates: the hypothesis test of
+    Eq. 14 run in reverse — given a table, measure P(dis'_d / dis - 1 >
+    eps_d) on pairs from ``data``.
+
+    On the distribution the table was calibrated for every rate sits near
+    P_s; under drift the early checkpoints exceed the band, which is the
+    staleness statistic of the drift watchdog (``index.mutable``).  The
+    same pairs give a paired comparison of two tables (the recalibration
+    swap's proof).  ``pairs`` gives the indices ``(i, j)`` explicitly (the
+    parity tests pass the reference's own draws); otherwise they are drawn
+    from ``generator``.  The final checkpoint is exact and reports 0.
+    Returns (S,) float32 on the transform's device."""
+    dev = transform.device
+    x = as_tensor(data, dev)
+    n = x.shape[0]
+    if pairs is None:
+        i, j = sample_pairs(n, num_pairs, generator)
+    else:
+        i, j = (torch.tensor(np.asarray(p), dtype=torch.long) for p in pairs)
+        j = torch.where(i == j, (j + 1) % n, j)
+    delta = transform.apply(x[i.to(dev)] - x[j.to(dev)])
+    csq = torch.cumsum(delta * delta, dim=1)
+    partial_sq = csq[:, table.dims.long().to(dev) - 1]  # (P, S)
+    exact = torch.sqrt(torch.clamp_min(csq[:, -1], 1e-30))
+    est = torch.sqrt(torch.clamp_min(partial_sq * table.scale.to(dev)[None, :], 0.0))
+    ratio = est / exact[:, None] - 1.0
+    return torch.mean((ratio > table.eps.to(dev)[None, :]).float(), dim=0)
 
 
 def adsampling_table(transform: OrthogonalTransform, *, eps0: float = 2.1,

@@ -16,7 +16,7 @@ import torch
 from repro_torch._device import resolve_device
 
 __all__ = ["OrthogonalTransform", "fit_pca", "fit_random_orthogonal",
-           "identity_transform", "as_tensor"]
+           "identity_transform", "as_tensor", "orthogonality_error"]
 
 
 def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -51,6 +51,28 @@ class OrthogonalTransform:
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """Rotate vectors: x (..., D) -> W^T x (..., D)."""
         return x @ self.basis
+
+    def apply_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`apply` with each row's result independent of the batch:
+        x (N, D) @ basis, each output element summed over d = 0, 1, ... in
+        that order with one rounded multiply and one rounded add per term.
+
+        A matmul's summation order depends on its shape: on the CPU a
+        one-row product (a gemv) rounds differently from the same row
+        inside a batch, and cuBLAS picks its kernel by shape too.  Corpus
+        rows that must equal their rotation inside any other batch — a
+        mutable index's upsert against the rebuild of the whole corpus —
+        rotate here: elementwise operations only, so a row's result depends
+        on that row alone, and is the same on the CPU and on the card.
+        2·D launches per call, whatever N."""
+        basis = self.basis
+        x = x.float()
+        acc = x[:, 0:1] * basis[0]
+        term = torch.empty_like(acc)
+        for d in range(1, basis.shape[0]):
+            torch.mul(x[:, d:d + 1], basis[d], out=term)
+            acc.add_(term)
+        return acc
 
     def scale(self, d) -> torch.Tensor:
         """Unbiased estimation scale sigma^2(1,D)/sigma^2(1,d) (Eq. 13);
@@ -112,3 +134,10 @@ def identity_transform(data, *, device: str | torch.device = "cuda") -> Orthogon
     dev = resolve_device(device)
     x = as_tensor(data, dev)
     return _finalize(torch.eye(x.shape[1], dtype=torch.float32, device=dev), x)
+
+
+def orthogonality_error(t: OrthogonalTransform) -> float:
+    """max |W^T W - I|, a sanity metric of the tests and benchmarks."""
+    w = t.basis
+    eye = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
+    return float(torch.max(torch.abs(w.T @ w - eye)))

@@ -39,15 +39,16 @@ class FlatIndex:
 def build_flat(data, *, method: str = "dade", generator: torch.Generator | None = None,
                estimator: Estimator | None = None, quant: str | None = None,
                device: str | torch.device = "cuda", **est_kwargs) -> FlatIndex:
-    """Fit the estimator (unless given), rotate the corpus and, with
-    ``quant="int8"`` or an estimator that carries a policy, store its
-    per-dimension int8 mirror."""
+    """Fit the estimator (unless given), rotate the corpus (row by row, as a
+    mutable index rotates its upserts: ``OrthogonalTransform.apply_rows``)
+    and, with ``quant="int8"`` or an estimator that carries a policy, store
+    its per-dimension int8 mirror."""
     dev = resolve_device(device)
     x = as_tensor(data, dev)
     if estimator is None:
         estimator = build_estimator(method, x, generator, quant=quant, device=dev,
                                     **est_kwargs)
-    rot = estimator.rotate(x)
+    rot = estimator.transform.apply_rows(x)
     corpus_q = qscales = None
     if wants_quant(quant, estimator.quant):
         qc = quantize_corpus(rot)

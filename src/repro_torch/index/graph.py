@@ -30,8 +30,10 @@ ContinuousGraphEngine``) walks each query in a tile of its own, seeded by
 the same prologue (``_prep_wave_state``), one wave per launch, with the
 frontier picked between waves by ``_select_wave``.
 
-Not ported here: the per-query greedy ``search_graph``, sharded walks,
-tombstones and delete filters.
+``search_graph`` is the reference's greedy per-query walk (plain PyTorch,
+the only search of an unquantized build).  Tombstones (pre-visited nodes)
+and the delete filter (``exclude``) serve the mutable index
+(``index.mutable``).  Not ported here: sharded walks.
 """
 
 from __future__ import annotations
@@ -46,9 +48,13 @@ from repro_torch._device import resolve_device
 from repro_torch.core.estimators import (
     SEED_SLACK, Estimator, build_estimator, kernel_spec,
 )
+from repro_torch.core.dco import dco_screen
+from repro_torch.core.topk import _smallest
 from repro_torch.core.transforms import as_tensor
 from repro_torch.kernels.graph_scan import KERNEL_TILE, graph_walk_kernel_call
-from repro_torch.kernels.ops import fused_fetch_totals, graph_walk_inputs
+from repro_torch.kernels.ops import (
+    fused_fetch_totals, graph_walk_inputs, pack_vis_ranges,
+)
 from repro_torch.kernels.ref import graph_walk_ref, select_wave_ref
 from repro_torch.obs.trace import current_tracer
 from repro_torch.quant.accounting import (
@@ -56,12 +62,13 @@ from repro_torch.quant.accounting import (
     two_stage_bytes,
 )
 from repro_torch.quant.scalar import (
-    fit_block_scales, quantize_block, quantize_corpus, wants_quant,
+    QuantizedCorpus, fit_block_scales, quantize_block, quantize_corpus, wants_quant,
 )
+from repro_torch.quant.screen import two_stage_screen
 from repro_torch.runtime.chaos import current_chaos
 
-__all__ = ["GraphIndex", "build_graph", "graph_from_rotated",
-           "search_graph_fused", "search_graph_beam_host", "GraphScanStats",
+__all__ = ["GraphIndex", "build_graph", "graph_from_rotated", "search_graph",
+           "adjacency_rows", "search_graph_fused", "search_graph_beam_host", "GraphScanStats",
            "walk_inputs", "SENTINEL"]
 
 SENTINEL = 1e18  # pad rows of a neighbour block: masked by id, never read as data
@@ -74,13 +81,15 @@ class GraphIndex:
     corpus_rot: torch.Tensor  # (N, D) rotated corpus
     neighbors: torch.Tensor  # (N, M) int32, -1 padded
     entry: int  # medoid entry point
-    corpus_q: torch.Tensor  # (N, D) int8 per-dimension codes (threshold seed)
-    qscales: torch.Tensor  # (D,) per-dimension scales
+    # The int8 build's arrays (None in an unquantized build, which only the
+    # greedy ``search_graph`` walks).
+    corpus_q: torch.Tensor | None = None  # (N, D) int8 per-dimension codes
+    qscales: torch.Tensor | None = None  # (D,) per-dimension scales
     # Adjacency-flat layout: node v's neighbour rows at [v*A, (v+1)*A).
-    adj_rot: torch.Tensor  # (N*A, D_pad) f32 or bf16, SENTINEL pad rows
-    adj_codes: torch.Tensor  # (N*A, D_pad) int8 per-block codes, 0 pad rows
-    adj_ids: torch.Tensor  # (N*A,) int32, -1 pad rows
-    gscales: torch.Tensor  # (D_pad // scan_block_d,) f32 block scales
+    adj_rot: torch.Tensor | None = None  # (N*A, D_pad) f32 or bf16, SENTINEL pads
+    adj_codes: torch.Tensor | None = None  # (N*A, D_pad) int8 block codes, 0 pads
+    adj_ids: torch.Tensor | None = None  # (N*A,) int32, -1 pad rows
+    gscales: torch.Tensor | None = None  # (D_pad // scan_block_d,) f32 block scales
     adj_block: int = 0
     scan_block_d: int = 0
 
@@ -89,8 +98,16 @@ class GraphIndex:
         return self.neighbors.shape[1]
 
     @property
+    def has_quant(self) -> bool:
+        return self.corpus_q is not None
+
+    @property
+    def has_fused(self) -> bool:
+        return self.adj_codes is not None
+
+    @property
     def device(self) -> torch.device:
-        return self.adj_rot.device
+        return self.corpus_rot.device
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +254,16 @@ def graph_from_rotated(
     *,
     m: int = 16,
     ef_construction: int = 100,
+    quant: str | None = "int8",
     scan_block_d: int | None = None,
     adj_block: int | None = None,
     adj_dtype: str = "float32",
     device: str | torch.device = "cuda",
 ) -> GraphIndex:
-    """The NSW graph of an already rotated corpus and its int8
-    adjacency-flat layout on ``device``; :func:`build_graph` after the
-    rotation.  The insertion loop runs in numpy on the host."""
+    """The NSW graph of an already rotated corpus on ``device``, with the
+    int8 adjacency-flat layout when ``quant`` asks for it (or the estimator
+    carries it); :func:`build_graph` after the rotation.  The insertion
+    loop runs in numpy on the host."""
     dev = resolve_device(device)
     rot = np.array(rot, np.float32)  # owned and writable: torch shares it on the CPU
     n, dim = rot.shape
@@ -257,8 +276,11 @@ def graph_from_rotated(
     for v in range(n):
         final[v] = _trim_row_np(rot, adj, deg, v, m)
     entry = _medoid_entry_np(rot)
-
     rot_t = torch.as_tensor(rot, device=dev)
+    nb = torch.as_tensor(final, device=dev).to(torch.int32)
+    if not wants_quant(quant, estimator.quant):
+        return GraphIndex(estimator=estimator, corpus_rot=rot_t, neighbors=nb,
+                          entry=entry)
     qc = quantize_corpus(rot_t)
     block_d = (int(estimator.table.dims[0]) if scan_block_d is None
                else int(scan_block_d))
@@ -272,25 +294,36 @@ def graph_from_rotated(
     rot_pad[:, :dim] = rot_t
     gscales = fit_block_scales(rot_pad, block_d)
     codes_blk = quantize_block(rot_pad, gscales, block_d)
+    adj_rot, adj_codes, adj_ids = adjacency_rows(nb, rot_pad, codes_blk, a_block)
+    return GraphIndex(
+        estimator=estimator, corpus_rot=rot_t, neighbors=nb, entry=entry,
+        corpus_q=qc.codes, qscales=qc.scales, adj_rot=adj_rot.to(_DTYPES[adj_dtype]),
+        adj_codes=adj_codes, adj_ids=adj_ids, gscales=gscales, adj_block=a_block,
+        scan_block_d=block_d)
+
+
+def adjacency_rows(neighbors: torch.Tensor, rot_pad: torch.Tensor,
+                   codes_blk: torch.Tensor, a_block: int):
+    """The adjacency-flat blocks of the nodes whose trimmed rows are
+    ``neighbors`` (V, M): (V*A, D_pad) f32 rows, (V*A, D_pad) int8 codes and
+    (V*A,) int32 ids, gathered from ``rot_pad`` / ``codes_blk`` on their
+    device, SENTINEL / 0 / -1 in the pad slots."""
+    v, m = neighbors.shape
+    d_pad = rot_pad.shape[1]
+    dev = rot_pad.device
     # A trimmed row holds its neighbours first and -1 after them, so slot j
     # of node v's block is neighbour j (or a pad row).
-    nb = torch.as_tensor(final, device=dev)
+    nb = neighbors.to(dev).long()
     valid = (nb >= 0)[:, :, None]
     src = nb.clamp_min(0)
-    adj_rot = torch.full((n, a_block, d_pad), SENTINEL, dtype=torch.float32, device=dev)
-    adj_codes = torch.zeros((n, a_block, d_pad), dtype=torch.int8, device=dev)
-    adj_ids = torch.full((n, a_block), -1, dtype=torch.int32, device=dev)
+    adj_rot = torch.full((v, a_block, d_pad), SENTINEL, dtype=torch.float32, device=dev)
+    adj_codes = torch.zeros((v, a_block, d_pad), dtype=torch.int8, device=dev)
+    adj_ids = torch.full((v, a_block), -1, dtype=torch.int32, device=dev)
     adj_rot[:, :m] = torch.where(valid, rot_pad[src], adj_rot[:, :m])
     adj_codes[:, :m] = torch.where(valid, codes_blk[src], adj_codes[:, :m])
     adj_ids[:, :m] = nb.to(torch.int32)
-    return GraphIndex(
-        estimator=estimator, corpus_rot=rot_t,
-        neighbors=nb.to(torch.int32), entry=entry,
-        corpus_q=qc.codes, qscales=qc.scales,
-        adj_rot=adj_rot.reshape(n * a_block, d_pad).to(_DTYPES[adj_dtype]),
-        adj_codes=adj_codes.reshape(n * a_block, d_pad),
-        adj_ids=adj_ids.reshape(n * a_block), gscales=gscales,
-        adj_block=a_block, scan_block_d=block_d)
+    return (adj_rot.reshape(v * a_block, d_pad), adj_codes.reshape(v * a_block, d_pad),
+            adj_ids.reshape(v * a_block))
 
 
 def build_graph(
@@ -308,16 +341,18 @@ def build_graph(
     device: str | torch.device = "cuda",
     **est_kwargs,
 ) -> GraphIndex:
-    """Build the NSW graph over (N, D) data and its int8 adjacency-flat
-    layout on ``device``.
+    """Build the NSW graph over (N, D) data on ``device``.
 
     The estimator is fitted on ``device`` (unless given) and rotates the
-    corpus there; the insertion loop runs in numpy on the host.
-    ``adj_block`` defaults to ``m`` rounded up to 32, the kernel's
-    neighbour-block height; ``scan_block_d`` to the estimator's first
-    checkpoint; ``adj_dtype="bfloat16"`` stores the rows at 2 B/dim (stage
-    2 upcasts per block).  Only the int8 layout the fused walk reads is
-    built: ``quant`` must ask for it (or the estimator carry it).
+    corpus there (``apply_rows``: each row's result independent of the
+    batch, so an upsert's row equals the same row rotated with the corpus);
+    the insertion loop runs in numpy on the host.  With ``quant="int8"``
+    (the default, or an estimator carrying it) the int8 arrays and the
+    adjacency-flat layout of the fused walk are built too: ``adj_block``
+    defaults to ``m`` rounded up to 32, the kernel's neighbour-block
+    height; ``scan_block_d`` to the estimator's first checkpoint;
+    ``adj_dtype="bfloat16"`` stores the rows at 2 B/dim.  ``quant=None``
+    builds only what the greedy :func:`search_graph` walks.
     """
     dev = resolve_device(device)
     x = as_tensor(data, dev)
@@ -326,15 +361,113 @@ def build_graph(
             generator = torch.Generator().manual_seed(0)
         estimator = build_estimator(method, x, generator, quant=quant,
                                     device=dev, **est_kwargs)
-    if not wants_quant(quant, estimator.quant):
-        raise ValueError("the port builds the int8 adjacency-flat layout only "
-                         "(quant='int8'): the unquantized greedy search_graph "
-                         "route is not ported")
-    rot = estimator.rotate(x).cpu().numpy()
+    rot = estimator.transform.apply_rows(x).cpu().numpy()
     return graph_from_rotated(
-        rot, estimator, m=m, ef_construction=ef_construction,
+        rot, estimator, m=m, ef_construction=ef_construction, quant=quant,
         scan_block_d=scan_block_d, adj_block=adj_block, adj_dtype=adj_dtype,
         device=dev)
+
+
+# ---------------------------------------------------------------------------
+# The greedy per-query walk
+# ---------------------------------------------------------------------------
+
+
+def _smallest_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k smallest of 1-D ``x``, ties to the lower index."""
+    return _smallest(x[None], k)[0]
+
+
+def search_graph(index: GraphIndex, queries, *, k: int = 10, ef: int = 64,
+                 max_steps: int = 512, decoupled: bool = True,
+                 use_quant: bool = False, seed_r: bool = False,
+                 with_stats: bool = False):
+    """The reference's greedy DCO beam search (paper §3.4), one query at a
+    time on the index's device, plain PyTorch.
+
+    Per query: W, an ef-sized window of estimated distances; C, a frontier
+    of 2·ef unexpanded nodes ordered by estimate; R, the k exact results
+    gated by the DCO.  Each step pops C's nearest node and screens its
+    neighbours (``core.dco.dco_screen``, or the two-stage int8 screen with
+    ``use_quant``) against r = R's k-th (``decoupled``) or W's ef-th
+    distance, floored by the ``seed_r`` threshold seed; it stops when C's
+    nearest cannot improve W or after ``max_steps``.  Returns (dists (Q,
+    k), ids (Q, k), avg_dims (Q,)); ``with_stats`` widens the third output
+    to (Q, 3) [avg_dims, rows screened, steps]."""
+    if use_quant and not index.has_quant:
+        raise ValueError("search_graph(use_quant=True) needs build_graph(quant='int8')")
+    if seed_r and not index.has_quant:
+        raise ValueError("search_graph(seed_r=True) needs build_graph(quant='int8')")
+    dev = index.device
+    q_rot = index.estimator.rotate(as_tensor(queries, dev))
+    table = index.estimator.table
+    n = index.corpus_rot.shape[0]
+    c_max = 2 * ef  # frontier capacity
+    inf = torch.tensor(float("inf"), device=dev)
+    r_seed = (_beam_seed_rsq(index, q_rot, k) if seed_r
+              else torch.full((q_rot.shape[0],), float("inf"), device=dev))
+    e = index.entry
+    outs = []
+    for qv, r_seed_q in zip(q_rot, r_seed):
+        w_sq = torch.full((ef,), float("inf"), device=dev)
+        c_sq = torch.full((c_max,), float("inf"), device=dev)
+        c_ids = torch.full((c_max,), -1, dtype=torch.int32, device=dev)
+        top_sq = torch.full((k,), float("inf"), device=dev)
+        top_ids = torch.full((k,), -1, dtype=torch.int32, device=dev)
+        visited = torch.zeros((n,), dtype=torch.bool, device=dev)
+        d_entry = torch.sum((index.corpus_rot[e] - qv) ** 2)
+        w_sq[0] = c_sq[0] = top_sq[0] = d_entry
+        c_ids[0] = top_ids[0] = e
+        visited[e] = True
+        steps = dims_acc = rows_acc = 0
+        while steps < max_steps:
+            nearest = torch.min(c_sq)
+            if not (bool(torch.isfinite(nearest)) and bool(nearest <= w_sq[-1])):
+                break
+            slot = int(torch.argmin(c_sq))
+            node = int(c_ids[slot])
+            c_sq[slot] = inf  # pop
+            nbrs = index.neighbors[node]  # (M,)
+            nb = nbrs.long().clamp_min(0)
+            fresh = (nbrs >= 0) & ~visited[nb]
+            visited[nb[nbrs >= 0]] = True
+            cands = index.corpus_rot[nb]  # (M, D)
+            r_sq = top_sq[-1] if decoupled else w_sq[-1]
+            r_sq = torch.minimum(r_sq, r_seed_q)
+            r_sq = torch.where(torch.isfinite(r_sq), r_sq, torch.tensor(1e18, device=dev))
+            if use_quant:
+                res = two_stage_screen(
+                    qv[None], cands, QuantizedCorpus(index.corpus_q[nb], index.qscales),
+                    table, r_sq[None])
+                est_all, passed_all, dims_all = res.est_sq[0], res.passed[0], res.dims_used[0]
+            else:
+                res = dco_screen(qv, cands, table, r_sq)
+                est_all, passed_all, dims_all = res.est_sq, res.passed, res.dims_used
+            est_sq = torch.where(fresh, est_all, inf)
+            passed = passed_all & fresh
+            dims_acc += int(torch.sum(torch.where(fresh, dims_all, 0)))
+            rows_acc += int(torch.sum(fresh))
+            # R: survivors carry exact distances (they reached d = D).
+            all_sq = torch.cat([top_sq, torch.where(passed, est_sq, inf)])
+            all_ids = torch.cat([top_ids, nbrs.to(torch.int32)])
+            sel = _smallest_k(all_sq, k)
+            top_sq, top_ids = all_sq[sel], all_ids[sel]
+            # W: estimates advance the window whatever the DCO decided.
+            w_sq = torch.cat([w_sq, est_sq])[_smallest_k(torch.cat([w_sq, est_sq]), ef)]
+            # C: only neighbours that could still improve the window enter.
+            cand_sq = torch.where(est_sq <= w_sq[-1], est_sq, inf)
+            all_c = torch.cat([c_sq, cand_sq])
+            sel_c = _smallest_k(all_c, c_max)
+            c_sq = all_c[sel_c]
+            c_ids = torch.cat([c_ids, nbrs.to(torch.int32)])[sel_c]
+            steps += 1
+        avg = torch.tensor(float(dims_acc), dtype=torch.float32) / max(float(rows_acc), 1.0)
+        extra = torch.stack([avg, torch.tensor(float(rows_acc)), torch.tensor(float(steps))])
+        outs.append((torch.sqrt(torch.clamp_min(top_sq, 0.0)), top_ids, avg, extra))
+    dists = torch.stack([o[0] for o in outs])
+    ids = torch.stack([o[1] for o in outs])
+    third = torch.stack([o[3] if with_stats else o[2] for o in outs]).to(dev)
+    return dists, ids, third
 
 
 # ---------------------------------------------------------------------------
@@ -368,15 +501,25 @@ class GraphScanStats(NamedTuple):
     s2_skip_rate: float = 0.0  # 1 - fetched/total (fetch elision)
 
 
-def _beam_seed_rsq(index: GraphIndex, q_rot: torch.Tensor, k: int) -> torch.Tensor:
+def _beam_seed_rsq(index: GraphIndex, q_rot: torch.Tensor, k: int, *,
+                   entry: int | None = None,
+                   alive: torch.Tensor | None = None) -> torch.Tensor:
     """Seed threshold from the entry point's int8-prescreened neighbourhood:
     verify the k apparent-nearest exactly and widen the k-th by the first
     checkpoint's overshoot band.  Sound floor — the k verified rows are real
-    corpus rows, so the final k-th distance can only be smaller."""
+    corpus rows, so the final k-th distance can only be smaller.
+
+    ``entry`` overrides the build's medoid (the surviving-corpus fallback
+    when the medoid is tombstoned); ``alive`` — an (N,) bool mask, False on
+    tombstoned nodes — drops dead neighbours from the sample as -1 padding
+    is dropped, so the seed rests on k verified surviving rows."""
     table = index.estimator.table
     m = index.degree
-    nbrs0 = index.neighbors[index.entry].long()  # (M,)
+    e = index.entry if entry is None else int(entry)
+    nbrs0 = index.neighbors[e].long()  # (M,)
     nvalid = nbrs0 >= 0
+    if alive is not None:
+        nvalid = nvalid & alive[nbrs0.clamp_min(0)]
     codes0 = index.corpus_q[nbrs0.clamp_min(0)]
     deq0 = codes0.float() * index.qscales[None, :]
     approx = torch.sum((deq0[None, :, :] - q_rot[:, None, :]) ** 2, dim=-1)
@@ -394,6 +537,29 @@ def _beam_seed_rsq(index: GraphIndex, q_rot: torch.Tensor, k: int) -> torch.Tens
     return kth if enough else torch.full_like(kth, float("inf"))
 
 
+def _alive_mask(n: int, ranges) -> np.ndarray:
+    """(n,) bool, False on every node of the (base, count) ``ranges``."""
+    alive = np.ones((n,), bool)
+    for b, c in ranges:
+        alive[int(b): int(b) + int(c)] = False
+    return alive
+
+
+def _surviving_entry(index: GraphIndex, tombstones) -> int:
+    """The entry point when the build's medoid is tombstoned: the node
+    nearest the mean of the surviving corpus, the build's medoid rule
+    restated over the nodes that can still be expanded (numpy, as the
+    reference computes it)."""
+    rot = index.corpus_rot.cpu().numpy()
+    alive = _alive_mask(rot.shape[0], tombstones)
+    if not alive.any():
+        raise ValueError("every node is tombstoned — nothing left to serve from")
+    centre = rot[alive].mean(axis=0)
+    d = np.sum((rot - centre[None, :]) ** 2, axis=1)
+    d[~alive] = np.inf
+    return int(np.argmin(d))
+
+
 # The reference's host frontier selection (``repro.index.graph._select_wave``)
 # in tensor form: one body with the walk kernel's plain twin, per-tile
 # ``expand`` budgets allowed (the continuous engine's slots carry their own).
@@ -401,12 +567,14 @@ _select_wave = select_wave_ref
 
 
 def _prep_wave_state(index: GraphIndex, queries, *, k: int, ef: int,
-                     block_q: int, seed_r: bool):
+                     block_q: int, seed_r: bool, tombstones=()):
     """The prologue of a walk, shared by the batch search and the
     continuous engine's admission: rotate and tile-sort the queries, pad
     them to whole ``block_q`` tiles, seed each real row's window with the
-    entry point and (with ``seed_r``) its threshold floor.  Pad rows carry
-    an empty window (inf/-1), r² floor 0 and a zero query.  Returns ``(inv,
+    entry point (or, when ``tombstones`` cover the build's medoid, the
+    surviving-corpus fallback) and (with ``seed_r``) its threshold floor,
+    sampled from the entry's alive neighbours only.  Pad rows carry an
+    empty window (inf/-1), r² floor 0 and a zero query.  Returns ``(inv,
     q_sorted (q_pad, D), q_tiles, q_pad, qn, entry, top_sq (q_pad, ef),
     top_ids, seed (q_pad,))`` on the index's device, ``inv`` (a tensor)
     undoing the sort."""
@@ -424,38 +592,66 @@ def _prep_wave_state(index: GraphIndex, queries, *, k: int, ef: int,
     q_tiles = -(-qn // block_q)
     q_pad = q_tiles * block_q
     entry = index.entry
+    if tombstones and any(b <= entry < b + c for b, c in tombstones):
+        entry = _surviving_entry(index, tombstones)
     top_sq = torch.full((q_pad, ef), float("inf"), device=dev)
     top_ids = torch.full((q_pad, ef), -1, dtype=torch.int32, device=dev)
     top_sq[:qn, 0] = torch.sum((index.corpus_rot[entry][None, :] - q_sorted) ** 2, dim=1)
     top_ids[:qn, 0] = entry
     seed = torch.zeros((q_pad,), device=dev)
-    seed[:qn] = (_beam_seed_rsq(index, q_sorted, k) if seed_r
-                 else torch.full((qn,), float("inf"), device=dev))
+    if seed_r:
+        alive = (torch.as_tensor(_alive_mask(index.corpus_rot.shape[0], tombstones),
+                                 device=dev) if tombstones else None)
+        seed[:qn] = _beam_seed_rsq(index, q_sorted, k, entry=entry, alive=alive)
+    else:
+        seed[:qn] = float("inf")
     q_sorted = torch.nn.functional.pad(q_sorted, (0, 0, 0, q_pad - qn))
     return inv, q_sorted, q_tiles, q_pad, qn, entry, top_sq, top_ids, seed
 
 
 def walk_inputs(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
                 block_q: int, max_waves: int, seed_r: bool, decoupled: bool,
-                route_mult: float):
+                route_mult: float, tombstones=()):
     """The prologue of a search: ``(args, kwargs, inv)`` of the
     ``graph_walk_kernel_call`` (or ``ref.graph_walk_ref``) that walks these
     queries, from :func:`_prep_wave_state` (``inv``, a numpy permutation,
-    undoes the tile sort)."""
-    inv, q_sorted, _, _, qn, entry, top_sq, top_ids, seed = _prep_wave_state(
-        index, queries, k=k, ef=ef, block_q=block_q, seed_r=seed_r)
+    undoes the tile sort).  ``tombstones`` ((base, count) node ranges) are
+    pre-set in every tile's starting bitmap, so the walk never expands
+    them."""
+    inv, q_sorted, q_tiles, _, qn, entry, top_sq, top_ids, seed = _prep_wave_state(
+        index, queries, k=k, ef=ef, block_q=block_q, seed_r=seed_r,
+        tombstones=tombstones)
+    vis0 = None
+    if tombstones:
+        row = torch.as_tensor(pack_vis_ranges(index.corpus_rot.shape[0], tombstones),
+                              device=index.device)
+        vis0 = row[None, :].expand(q_tiles, -1).contiguous()
     args, kw = graph_walk_inputs(
         index.estimator, q_sorted[:qn], top_sq[:qn], top_ids[:qn], seed[:qn],
         index.adj_rot, index.adj_codes, index.adj_ids, index.gscales,
         entry=entry, ef=ef, thresh_col=(k - 1) if decoupled else (ef - 1),
         expand=expand, max_waves=max_waves, route_mult=route_mult,
-        block_q=block_q, block_c=index.adj_block, block_d=index.scan_block_d)
+        block_q=block_q, block_c=index.adj_block, block_d=index.scan_block_d,
+        vis0=vis0)
     return args, kw, inv.cpu().numpy()
+
+
+def _exclude_ids(top_sq: np.ndarray, top_ids: np.ndarray, n: int, exclude):
+    """The delete filter: drop the ids of the (base, count) ``exclude``
+    ranges from the full ef windows, then re-sort (stable, so ties keep
+    their window order) so the best surviving entries come first."""
+    dead = ~_alive_mask(n, exclude)
+    drop = (top_ids >= 0) & dead[np.maximum(top_ids, 0)]
+    top_sq = np.where(drop, np.inf, top_sq)
+    top_ids = np.where(drop, -1, top_ids).astype(np.int32)
+    order = np.argsort(top_sq, axis=1, kind="stable")
+    return (np.take_along_axis(top_sq, order, axis=1),
+            np.take_along_axis(top_ids, order, axis=1))
 
 
 def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
                    block_q: int, max_waves: int, seed_r: bool, decoupled: bool,
-                   route_mult: float, use_ref: bool):
+                   route_mult: float, use_ref: bool, tombstones=(), exclude=()):
     """The single-shard wave loop of the reference, run as one walk: up to
     ``max_waves`` waves, each from r² = min(seed, window[thresh_col]), the
     first expanding the entry point, every later one the frontier the
@@ -474,6 +670,12 @@ def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
     ``max_waves``), so an armed ``shard_stall`` injects the reference's
     total stall.
 
+    ``tombstones`` ((base, count) node ranges) are pre-set in the starting
+    bitmap: never expanded, never seeding the threshold.  ``exclude`` (a
+    subset of them: the deleted rows) is also dropped from the ef windows
+    before the top k are taken (:func:`_exclude_ids`), since a tombstoned
+    row can still enter a window as some expanded node's neighbour.
+
     Returns ``(dists, ids, acc)`` with ``acc`` the raw accounting
     ``_graph_stats`` turns into ``GraphScanStats``."""
     tr = current_tracer()
@@ -481,7 +683,7 @@ def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
         args, kw, inv = walk_inputs(
             index, queries, k=k, ef=ef, expand=expand, block_q=block_q,
             max_waves=max_waves, seed_r=seed_r, decoupled=decoupled,
-            route_mult=route_mult)
+            route_mult=route_mult, tombstones=tombstones)
         tr.fence(args)
     qn = kw["qn"]
     walk = graph_walk_ref if use_ref else graph_walk_kernel_call
@@ -504,6 +706,9 @@ def _run_wave_loop(index: GraphIndex, queries, *, k: int, ef: int, expand: int,
         w1, w2 = fused_fetch_totals(st[w], block_q)
         s1_tiles += w1
         s2_slabs += w2
+    if exclude:
+        top_sq, top_ids = _exclude_ids(top_sq, top_ids, index.corpus_rot.shape[0],
+                                       exclude)
     dists = np.sqrt(np.maximum(top_sq, 0.0))[inv][:, :k]
     ids = top_ids[inv][:, :k]
     acc = dict(waves=waves, sem=sem, s1_tiles=s1_tiles, s2_slabs=s2_slabs, qn=qn)
@@ -546,17 +751,22 @@ def _graph_stats(index: GraphIndex, *, dim: int, k: int, seed_r: bool,
 
 
 def _beam_scan(index: GraphIndex, queries, *, k, ef, expand, block_q,
-               max_waves, seed_r, decoupled, route_mult, use_ref, device):
+               max_waves, seed_r, decoupled, route_mult, use_ref, device,
+               tombstones=(), exclude=()):
     """The shared wave loop plus the ``GraphScanStats`` epilogue; runs on
     ``device``, where the index must live, and returns its results there."""
     dev = resolve_device(device)
+    if not index.has_fused:
+        raise ValueError("the batched beam scan needs build_graph(..., quant='int8')")
     if dev.type != index.device.type or dev.index not in (None, index.device.index):
         raise ValueError(f"the index lives on {index.device}, the search was "
                          f"asked to run on {dev}")
     dists, ids, acc = _run_wave_loop(
         index, queries, k=k, ef=ef, expand=expand, block_q=block_q,
         max_waves=max_waves, seed_r=seed_r, decoupled=decoupled,
-        route_mult=route_mult, use_ref=use_ref)
+        route_mult=route_mult, use_ref=use_ref,
+        tombstones=tuple((int(b), int(c)) for b, c in tombstones),
+        exclude=tuple((int(b), int(c)) for b, c in exclude))
     stats = _graph_stats(
         index, dim=index.corpus_rot.shape[1], k=k, seed_r=seed_r,
         qn=acc["qn"], waves=acc["waves"], sem=acc["sem"],
@@ -569,7 +779,8 @@ def search_graph_fused(index: GraphIndex, queries, *, k: int = 10, ef: int = 48,
                        expand: int = 2, block_q: int = KERNEL_TILE[0],
                        max_waves: int = 64, seed_r: bool = False,
                        decoupled: bool = True, route_mult: float = 1.0,
-                       device: str | torch.device = "cuda"):
+                       device: str | torch.device = "cuda", tombstones=(),
+                       exclude=()):
     """Batched graph search through the fused beam-scan walk on ``device``
     (the index's): each wave, every query tile's ``expand`` best unexpanded
     beam entries per query are screened for the whole tile, the waves of a
@@ -582,11 +793,17 @@ def search_graph_fused(index: GraphIndex, queries, *, k: int = 10, ef: int = 48,
     HNSW++-style decoupling), ``decoupled=False`` from the ef-th.
     ``route_mult`` widens the frontier proposal gate to ``route_mult · r²``
     without touching the screen threshold.
+
+    ``tombstones``/``exclude`` are the mutable index's hooks ((base, count)
+    node ranges; a single row is ``(id, 1)``): tombstoned nodes are
+    pre-visited in the walk's bitmap (never expanded), excluded ids are
+    also dropped from the result windows.
     """
     return _beam_scan(index, queries, k=k, ef=ef, expand=expand,
                       block_q=block_q, max_waves=max_waves, seed_r=seed_r,
                       decoupled=decoupled, route_mult=route_mult,
-                      use_ref=False, device=device)
+                      use_ref=False, device=device, tombstones=tombstones,
+                      exclude=exclude)
 
 
 def search_graph_beam_host(index: GraphIndex, queries, *, k: int = 10,
@@ -594,11 +811,13 @@ def search_graph_beam_host(index: GraphIndex, queries, *, k: int = 10,
                            block_q: int = KERNEL_TILE[0], max_waves: int = 64,
                            seed_r: bool = False, decoupled: bool = True,
                            route_mult: float = 1.0,
-                           device: str | torch.device = "cuda"):
+                           device: str | torch.device = "cuda", tombstones=(),
+                           exclude=()):
     """The identical wave schedule run through the plain version
     ``ref.graph_walk_ref``: the same results and ledgers as
     :func:`search_graph_fused`."""
     return _beam_scan(index, queries, k=k, ef=ef, expand=expand,
                       block_q=block_q, max_waves=max_waves, seed_r=seed_r,
                       decoupled=decoupled, route_mult=route_mult,
-                      use_ref=True, device=device)
+                      use_ref=True, device=device, tombstones=tombstones,
+                      exclude=exclude)

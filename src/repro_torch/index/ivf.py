@@ -1,17 +1,21 @@
-"""IVF index served by the fused wave-scan kernel (port of the fused route
-of ``repro.index.ivf``).
+"""IVF index (port of ``repro.index.ivf``): a k-means coarse quantizer in
+the *rotated* space and two search layouts.
 
-Build: k-means coarse quantizer in the *rotated* space, then a CSR flat
-layout: rows cluster-contiguous, every cluster start aligned to the
-128-row tile grid (sentinel gap rows between clusters, sentinel tail), dims
-zero-padded to the kernel's block grid, per-BLOCK int8 codes for the
-kernel's stage 1.  Per-dimension int8 codes in the same layout feed the
-threshold seed.
-
-Search: queries are grouped into tiles by nearest centroid, each tile probes
-its best buckets by rank-weighted votes, and one kernel launch streams every
-(tile, probe) bucket window, screening, refining and keeping the top-K on
-the card.
+  * **Padded-gather** (``buckets``/``bucket_ids``, always built): clusters
+    padded to a common capacity; :func:`search_ivf` gathers a ``(Q, cap,
+    D)`` candidate tensor per probe and screens it with the plain engines
+    (``core.dco``, or the two-stage int8 screen).  Plain PyTorch, the
+    semantic baseline, and the layout the mutable IVF (``index.mutable``)
+    keeps growth headroom in.
+  * **CSR flat** (``quant="int8"``, the default): rows cluster-contiguous,
+    every cluster start aligned to the 128-row tile grid (sentinel gap rows
+    between clusters, sentinel tail), dims zero-padded to the kernel's
+    block grid, per-BLOCK int8 codes for the kernel's stage 1, and
+    per-dimension codes in the same layout for the threshold seed.
+    :func:`search_ivf_fused` groups queries into tiles by nearest centroid,
+    each tile probing its best buckets by rank-weighted votes, and one
+    kernel launch streams every (tile, probe) bucket window, screening,
+    refining and keeping the top-K on the card.
 """
 
 from __future__ import annotations
@@ -34,11 +38,15 @@ from repro_torch.obs.trace import current_tracer
 from repro_torch.quant.accounting import (
     ID_BYTES, fetched_tile_bytes, stage2_fetch_report, two_stage_bytes,
 )
+from repro_torch.core.dco import dco_screen_batch
+from repro_torch.core.topk import merge_topk
 from repro_torch.quant.scalar import (
-    fit_block_scales, fit_scales, quantize, quantize_block,
+    QuantizedCorpus, fit_block_scales, fit_scales, quantize, quantize_block,
+    wants_quant,
 )
+from repro_torch.quant.screen import two_stage_screen
 
-__all__ = ["IVFIndex", "build_ivf", "search_ivf_fused", "fused_search_inputs",
+__all__ = ["IVFIndex", "build_ivf", "search_ivf", "search_ivf_fused", "fused_search_inputs",
            "FusedScanStats", "SENTINEL", "ALIGN"]
 
 SENTINEL = 1e18  # huge-but-finite pad row value: prunes at the first block
@@ -52,14 +60,19 @@ BLOCK_Q, BLOCK_C = 8, KERNEL_TILE[1]
 class IVFIndex:
     estimator: Estimator
     centroids: torch.Tensor  # (Nc, D) rotated space
-    bucket_sizes: torch.Tensor  # (Nc,) int32
-    starts: torch.Tensor  # (Nc + 1,) int32 aligned flat row offsets
-    flat_rot: torch.Tensor  # (N_pad, D_pad) f32, SENTINEL gaps/tail
-    flat_codes: torch.Tensor  # (N_pad, D_pad) int8 per-block codes
-    flat_ids: torch.Tensor  # (N_pad,) int32, -1 gaps/tail
-    bscales: torch.Tensor  # (D_pad // scan_block_d,) f32
-    seed_codes: torch.Tensor  # (N_pad, D) int8 per-dimension codes
-    qscales: torch.Tensor  # (D,) f32 per-dimension scales
+    bucket_sizes: torch.Tensor  # (Nc,) int32 (live rows of each bucket)
+    # The CSR flat layout of the fused scan (None without int8).
+    starts: torch.Tensor | None = None  # (Nc + 1,) int32 aligned flat offsets
+    flat_rot: torch.Tensor | None = None  # (N_pad, D_pad) f32, SENTINEL gaps/tail
+    flat_codes: torch.Tensor | None = None  # (N_pad, D_pad) int8 per-block codes
+    flat_ids: torch.Tensor | None = None  # (N_pad,) int32, -1 gaps/tail
+    bscales: torch.Tensor | None = None  # (D_pad // scan_block_d,) f32
+    seed_codes: torch.Tensor | None = None  # (N_pad, D) int8 per-dimension codes
+    qscales: torch.Tensor | None = None  # (D,) f32 per-dimension scales
+    # The padded-gather layout of ``search_ivf``.
+    buckets: torch.Tensor | None = None  # (Nc, cap, D) rotated, SENTINEL pads
+    bucket_ids: torch.Tensor | None = None  # (Nc, cap) int32 row ids, -1 pads
+    qbuckets: torch.Tensor | None = None  # (Nc, cap, D) int8 codes, 0 pads
     max_bucket: int = 0
     scan_block_d: int = 0
 
@@ -69,12 +82,21 @@ class IVFIndex:
 
     @property
     def capacity(self) -> int:
-        """Padded bucket capacity the threshold seed scans per query."""
+        """Padded bucket capacity the fused route's threshold seed scans
+        per query."""
         return (max(1, self.max_bucket) + ALIGN - 1) // ALIGN * ALIGN
 
     @property
+    def has_quant(self) -> bool:
+        return self.qscales is not None
+
+    @property
+    def has_fused(self) -> bool:
+        return self.flat_codes is not None
+
+    @property
     def device(self) -> torch.device:
-        return self.flat_rot.device
+        return self.centroids.device
 
 
 def flat_layout(sizes: np.ndarray, max_bucket: int):
@@ -97,23 +119,25 @@ def build_ivf(
     kmeans_iters: int = 15,
     generator: torch.Generator | None = None,
     estimator: Estimator | None = None,
+    quant: str | None = "int8",
     scan_block_d: int | None = None,
     device: str | torch.device = "cuda",
     **est_kwargs,
 ) -> IVFIndex:
-    """Build the fused-route IVF index over (N, D) data on ``device``.
+    """Build the IVF index over (N, D) data on ``device``: the padded-gather
+    layout, and with ``quant="int8"`` (the default, or an estimator that
+    carries it) the per-dimension int8 mirror and the fused CSR layout.
 
     ``scan_block_d`` is the kernel's dimension-block width (default: the
     estimator's first checkpoint, so kernel checkpoints coincide with the
-    calibrated table).  Only the int8 fused layout is built: the padded
-    gather layout of the reference's ``search_ivf`` is not part of the port.
+    calibrated table).
     """
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     x = as_tensor(data, dev)
     if estimator is None:
-        estimator = build_estimator(method, x, generator, quant="int8",
+        estimator = build_estimator(method, x, generator, quant=quant,
                                     device=dev, **est_kwargs)
     rot = estimator.rotate(x)
     n, dim = rot.shape
@@ -122,35 +146,51 @@ def build_ivf(
     cents, assignment = kmeans(rot, n_clusters, kmeans_iters,
                                generator=generator, device=dev)
 
-    block_d = (int(estimator.table.dims[0]) if scan_block_d is None
-               else int(scan_block_d))
-    # Refuse an estimator the kernel cannot express here, by name.
-    kernel_spec(estimator, dim, block_d)
-    d_pad = (dim + block_d - 1) // block_d * block_d
-
     order = torch.argsort(assignment, stable=True)
     sizes_t = torch.bincount(assignment, minlength=n_clusters)
     sizes = sizes_t.cpu().numpy().astype(np.int32)
     max_bucket = int(sizes.max())
     starts = np.zeros(n_clusters + 1, np.int64)
     np.cumsum(sizes, out=starts[1:])
-    astarts, n_pad = flat_layout(sizes, max_bucket)
-    # Destination row of the r-th row of cluster c: astarts[c] + r.
+    # The r-th row of cluster c sits in slot r of bucket c (padded layout)
+    # and in row astarts[c] + r (flat layout).
     cl = assignment[order]
     rank = torch.arange(n, device=dev) - torch.as_tensor(starts, device=dev)[cl]
+    cap = (max(1, max_bucket) + ALIGN - 1) // ALIGN * ALIGN  # lane-aligned
+    buckets = torch.full((n_clusters, cap, dim), SENTINEL, dtype=torch.float32,
+                         device=dev)
+    bucket_ids = torch.full((n_clusters, cap), -1, dtype=torch.int32, device=dev)
+    buckets[cl, rank] = rot[order]
+    bucket_ids[cl, rank] = order.to(torch.int32)
+    if not wants_quant(quant, estimator.quant):
+        return IVFIndex(estimator=estimator, centroids=cents,
+                        bucket_sizes=sizes_t.to(torch.int32), buckets=buckets,
+                        bucket_ids=bucket_ids, max_bucket=max_bucket)
+
+    block_d = (int(estimator.table.dims[0]) if scan_block_d is None
+               else int(scan_block_d))
+    # Refuse an estimator the kernel cannot express here, by name.
+    kernel_spec(estimator, dim, block_d)
+    d_pad = (dim + block_d - 1) // block_d * block_d
+    astarts, n_pad = flat_layout(sizes, max_bucket)
     dest = torch.as_tensor(astarts, device=dev)[cl] + rank
 
     rot_pad = torch.zeros((n, d_pad), dtype=torch.float32, device=dev)
     rot_pad[:, :dim] = rot
     bscales = fit_block_scales(rot_pad, block_d)
     qscales = fit_scales(rot)
+    codes = quantize(rot[order], qscales)
+    # Pad slots get code 0: stage 1 may keep them, the fp stage sees the
+    # SENTINEL row and the id mask drops them.
+    qbuckets = torch.zeros((n_clusters, cap, dim), dtype=torch.int8, device=dev)
+    qbuckets[cl, rank] = codes
     flat_rot = torch.full((n_pad, d_pad), SENTINEL, dtype=torch.float32, device=dev)
     flat_codes = torch.zeros((n_pad, d_pad), dtype=torch.int8, device=dev)
     seed_codes = torch.zeros((n_pad, dim), dtype=torch.int8, device=dev)
     flat_ids = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
     flat_rot[dest] = rot_pad[order]
     flat_codes[dest] = quantize_block(rot_pad[order], bscales, block_d)
-    seed_codes[dest] = quantize(rot[order], qscales)
+    seed_codes[dest] = codes
     flat_ids[dest] = order.to(torch.int32)
     return IVFIndex(
         estimator=estimator, centroids=cents,
@@ -158,7 +198,86 @@ def build_ivf(
         starts=torch.as_tensor(astarts, dtype=torch.int32, device=dev),
         flat_rot=flat_rot, flat_codes=flat_codes, flat_ids=flat_ids,
         bscales=bscales, seed_codes=seed_codes, qscales=qscales,
+        buckets=buckets, bucket_ids=bucket_ids, qbuckets=qbuckets,
         max_bucket=max_bucket, scan_block_d=block_d)
+
+
+def _padded_seed_rsq(index: IVFIndex, q_rot: torch.Tensor,
+                     seed_bucket: torch.Tensor, k: int) -> torch.Tensor:
+    """The padded layout's threshold seed: prescreen ``seed_bucket``'s rows
+    with the per-dimension int8 codes, verify the k apparent-nearest
+    exactly, widen the k-th by the first checkpoint's overshoot band (the
+    reference's ``_quant_seed_rsq``)."""
+    b = seed_bucket.long()
+    codes = index.qbuckets[b]  # (Q, cap, D)
+    ids = index.bucket_ids[b]  # (Q, cap)
+    deq = codes.float() * index.qscales[None, None, :]
+    approx = torch.sum((deq - q_rot[:, None, :]) ** 2, dim=-1)
+    approx = torch.where(ids >= 0, approx, torch.full_like(approx, float("inf")))
+    sel = torch.argsort(approx, dim=1, stable=True)[:, :k]  # best by int8
+    rows = index.buckets[b[:, None], sel]  # (Q, k, D)
+    exact = torch.sum((rows - q_rot[:, None, :]) ** 2, dim=-1)
+    kth = torch.amax(exact, dim=1)
+    # The all-pad case (a bucket smaller than k) stays unseeded.
+    kth = torch.where(kth >= SENTINEL, torch.full_like(kth, float("inf")), kth)
+    t = 1.0 + index.estimator.table.eps[0]
+    return kth * (t * t) * (1.0 + SEED_SLACK)
+
+
+def search_ivf(index: IVFIndex, queries, *, k: int = 10, n_probe: int = 8,
+               use_quant: bool = False, seed_r: bool = False,
+               device: str | torch.device = "cuda"):
+    """Batched IVF search over the padded-gather layout on ``device`` (the
+    index's), plain PyTorch.  Returns (dists (Q, K), ids (Q, K), avg_dims
+    scalar).
+
+    Each probed bucket is one DCO wave, nearest bucket first, and the
+    threshold r refreshes between them.  ``use_quant`` screens each wave
+    with the two-stage int8 screen (the same results; ``avg_dims`` then
+    counts fp32 dims only); ``seed_r`` warms r from the nearest bucket's
+    int8-prescreened rows.  Both need an int8 build."""
+    if (use_quant or seed_r) and not index.has_quant:
+        raise ValueError("search_ivf(use_quant/seed_r=True) needs quant='int8'")
+    dev = resolve_device(device)
+    if dev.type != index.device.type:
+        raise ValueError(f"the index lives on {index.device}, the search was "
+                         f"asked to run on {dev}")
+    q_rot = index.estimator.rotate(as_tensor(queries, dev))
+    qn = q_rot.shape[0]
+    table = index.estimator.table
+    cents = index.centroids
+    cd = (torch.sum(q_rot * q_rot, dim=1)[:, None]
+          + torch.sum(cents * cents, dim=1)[None, :] - 2.0 * (q_rot @ cents.T))
+    probe = torch.argsort(cd, dim=1, stable=True)[:, :n_probe]  # nearest first
+    top_sq = torch.full((qn, k), float("inf"), device=dev)
+    top_ids = torch.full((qn, k), -1, dtype=torch.int32, device=dev)
+    r_sq = (_padded_seed_rsq(index, q_rot, probe[:, 0], k) if seed_r
+            else torch.full((qn,), float("inf"), device=dev))
+    dims_acc = torch.zeros((), device=dev)
+    rows_acc = torch.zeros((), device=dev)
+    if use_quant:
+        screen = torch.func.vmap(lambda qv, cv, qcv, rv: two_stage_screen(
+            qv[None], cv, QuantizedCorpus(qcv, index.qscales), table, rv[None]))
+    else:
+        screen = torch.func.vmap(lambda qv, cv, rv: dco_screen_batch(
+            qv[None], cv, table, rv[None]))
+    for p in range(probe.shape[1]):
+        bucket = probe[:, p]
+        cands = index.buckets[bucket]  # (Q, cap, D)
+        cand_ids = index.bucket_ids[bucket]  # (Q, cap)
+        valid = cand_ids >= 0
+        res = (screen(q_rot, cands, index.qbuckets[bucket], r_sq) if use_quant
+               else screen(q_rot, cands, r_sq))
+        est_sq = res.est_sq[:, 0, :]
+        passed = res.passed[:, 0, :] & valid
+        new_sq = torch.where(passed, est_sq, torch.full_like(est_sq, float("inf")))
+        top_sq, top_ids = merge_topk(top_sq, top_ids, new_sq, cand_ids)
+        r_sq = torch.minimum(r_sq, top_sq[:, -1])
+        dims_acc = dims_acc + torch.sum(
+            torch.where(valid, res.dims_used[:, 0, :], 0).float())
+        rows_acc = rows_acc + torch.sum(valid.float())
+    avg_dims = dims_acc / torch.clamp_min(rows_acc, 1.0)
+    return torch.sqrt(torch.clamp_min(top_sq, 0.0)), top_ids, avg_dims
 
 
 def _quant_seed_rsq(index: IVFIndex, q_rot: torch.Tensor,
@@ -312,6 +431,8 @@ def fused_search_inputs(
     permutation from tile-grouped rows back to query order.  Spans
     ``ivf.route`` and ``ivf.seed`` when a tracer is installed."""
     tr = current_tracer()
+    if not index.has_fused:
+        raise ValueError("the fused scan needs build_ivf(..., quant='int8')")
     dev = index.device
     q_rot = index.estimator.rotate(as_tensor(queries, dev))
     qn = q_rot.shape[0]

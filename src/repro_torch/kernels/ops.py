@@ -32,7 +32,7 @@ from repro_torch.quant.scalar import cum_err_sq, quantize_queries_block
 __all__ = [
     "dco_screen_kernel", "quant_screen_kernel", "ivf_scan_kernel", "ivf_scan_inputs", "ivf_cap_tiles", "build_window_offsets",
     "block_table", "fused_fetch_totals", "graph_vis_words", "unpack_vis",
-    "graph_scan_inputs", "graph_scan_kernel", "graph_walk_inputs",
+    "pack_vis_ranges", "graph_scan_inputs", "graph_scan_kernel", "graph_walk_inputs",
     "pow2_bucket", "pad_live_rows",
 ]
 
@@ -301,6 +301,24 @@ def unpack_vis(vis, n_nodes: int) -> np.ndarray:
     return bits.reshape(vis.shape[0], -1)[:, :n_nodes].astype(bool)
 
 
+def pack_vis_ranges(n_nodes: int, ranges) -> np.ndarray:
+    """(W,) packed int32 bitmap with every node of ``ranges`` (an iterable
+    of (base, count) node ranges) set: the tombstone mask.  OR-ed into a
+    walk's starting bitmap it makes those nodes pre-visited, so frontier
+    selection never proposes them and the walk never expands their
+    adjacency; the kernel's own OR-marking composes with the pre-set bits.
+    Bit layout as :func:`unpack_vis`."""
+    words = np.zeros((graph_vis_words(n_nodes),), np.uint32)
+    for b, c in ranges:
+        b, c = int(b), int(c)
+        if c < 0 or b < 0 or b + c > n_nodes:
+            raise ValueError(
+                f"tombstone range [{b}, {b + c}) outside corpus [0, {n_nodes})")
+        v = np.arange(b, b + c)
+        np.bitwise_or.at(words, v // 32, np.uint32(1) << (v % 32).astype(np.uint32))
+    return words.view(np.int32)
+
+
 def graph_scan_inputs(
     estimator: Estimator,
     q_rot: torch.Tensor,  # (Q, D) rotated fp32 queries, tile-grouped by caller
@@ -420,20 +438,23 @@ def graph_walk_inputs(
     block_c: int = graph_scan.KERNEL_TILE[1],
     block_d: int = 32,
     slack: float = 1e-4,
+    vis0: torch.Tensor | None = None,
 ):
     """The padded ``(args, kwargs)`` of the ``graph_walk_kernel_call`` (or
     ``ref.graph_walk_ref``) that walks these queries through the whole
     single-shard graph, on the device of ``adj_rot``: the
     :func:`graph_scan_inputs` padding (pad rows carry an empty window and a
-    threshold floor of 0, and pick nothing), an all-clear bitmap, and the
-    walk's schedule — the entry point, ``expand`` picks per query and wave,
-    the gate r² · ``route_mult``, at most ``max_waves`` waves."""
+    threshold floor of 0, and pick nothing), the starting bitmap (``vis0``
+    (q_tiles, W), its set bits never expanded — the tombstones; None: all
+    clear), and the walk's schedule — the entry point, ``expand`` picks per
+    query and wave, the gate r² · ``route_mult``, at most ``max_waves``
+    waves."""
     qn = q_rot.shape[0]
     q_tiles = -(-qn // block_q)
     args, kw = graph_scan_inputs(
         estimator, q_rot, torch.full((q_tiles, 1), -1, dtype=torch.int32),
         top0_sq, top0_ids, seed_sq, adj_rot, adj_codes, adj_ids, bscales,
-        ef=ef, thresh_col=thresh_col, block_q=block_q, block_c=block_c,
+        vis0=vis0, ef=ef, thresh_col=thresh_col, block_q=block_q, block_c=block_c,
         block_d=block_d, slack=slack)
     (_, qcodes, q, qscales, t_sq, t_ids, seed, vis0, codes, rows, ids, bs, eps,
      scale, _) = args

@@ -5,7 +5,8 @@
 The corpus (rotated into the PCA basis at ingest) lives on the card as
 rows (bf16 or f32) plus per-block int8 codes.  One search step seeds each
 query's threshold from an exact-verified sample (two-phase search), then
-runs the whole corpus through the fused wave-scan kernel as
+(the main path, ``fused``) runs the whole corpus through the fused
+wave-scan kernel as
 ``corpus // wave`` waves of ``wave // 128`` candidate tiles: int8 stage 1,
 demand-paged fp stage 2, and the running top-K / r² kept on the card
 between waves.  ``shards`` cuts the waves into that many contiguous runs,
@@ -14,7 +15,12 @@ windows as the reference's ``hierarchical_topk`` does across a mesh of as
 many shards (``ivf_scan_kernel_call(segments=...)``): one launch, with
 ``shards`` times as many independent walks to fill the card.  Each segment
 seeds from the first wave of its own run and the seeds' minimum starts them
-all, the reference's ``pmin`` over its shards' seeds.
+all, the reference's ``pmin`` over its shards' seeds.  The reference's
+unfused routes run as plain PyTorch on one card: ``quant=None`` screens
+each wave with the block-incremental DADE screen (``local_search``), and
+``quant="int8", fused=False`` streams per-dimension int8 codes and refines
+a budget of lower-bound-qualified rows exactly (``local_search_quant``; the
+budget from ``autotune_refine_budget``).
 
 The graph route serves a batch through ``index.graph.search_graph_fused``:
 one launch of the ``graph_walk`` kernel walks every wave of the batch, each
@@ -38,6 +44,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.dade_ivf import ServiceConfig
 from repro_torch.core.estimators import SEED_SLACK, first_enabled_eps
+from repro_torch.core.topk import _smallest, merge_topk
 from repro_torch.core.transforms import as_tensor
 from repro_torch.index.graph import (
     _graph_stats, _prep_wave_state, _select_wave, search_graph_fused,
@@ -46,10 +53,11 @@ from repro_torch.index.ivf import BLOCK_Q, _fused_stats, _quant_seed_rsq, _route
 from repro_torch.kernels import ops
 from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
 from repro_torch.obs.trace import current_tracer
-from repro_torch.quant.scalar import quantize_queries_block
+from repro_torch.quant.scalar import cum_err_sq, quantize_queries_block
 from repro_torch.runtime.chaos import current_chaos
 
 __all__ = ["build_search_step", "build_graph_engine", "seed_rsq",
+           "autotune_refine_budget",
            "fused_scan_inputs", "FUSED_BLOCK_C", "FUSED_BLOCK_Q", "SHARDS",
            "slo_signal", "slo_effort", "SLOPolicy", "parse_slo", "RetiredQuery",
            "ContinuousGraphEngine", "ContinuousIVFEngine"]
@@ -127,34 +135,141 @@ def fused_scan_inputs(svc: ServiceConfig, corpus, codes, bscales, queries,
     return args, kwargs
 
 
-def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
-                      shards: int = SHARDS):
-    """Returns ``step(corpus, codes, bscales, queries, eps, scale, eps_lo)
-    -> (dists, ids[, scan])`` for the int8 fused route.
+def autotune_refine_budget(scales, sample_rot, *, k: int, wave: int,
+                           num_queries: int = 32, safety: float = 1.5):
+    """The per-wave exact-refine budget of the unfused int8 route, from the
+    stage-1 band width (numpy, offline; the reference's rule).
 
+    The quantized scan sends to exact refinement every row whose lower
+    bound beats the running k-th distance r; the rows that qualify but lose
+    lie inside the band d <= r + 2E(D), E(D) the full-dimension error bound.
+    So the budget is k plus the expected in-band rows of a wave, measured
+    on a corpus sample with its rows as pseudo-queries.  Returns (budget in
+    [k, wave], {"band_width": 2E(D), "in_band_frac"})."""
+    sample = np.asarray(sample_rot, np.float32)
+    n = sample.shape[0]
+    scales = np.array(scales.cpu() if isinstance(scales, torch.Tensor) else scales,
+                      np.float32)
+    e_band = float(torch.sqrt(cum_err_sq(torch.as_tensor(scales), [scales.shape[0]])[0]))
+    nq = min(num_queries, n)
+    qs = sample[:: max(n // nq, 1)][:nq]
+    d = np.sqrt(np.maximum(np.sum(qs * qs, 1)[:, None] + np.sum(sample * sample, 1)[None, :]
+                           - 2.0 * qs @ sample.T, 0.0))
+    kth = np.partition(d, k, axis=1)[:, k]  # k-th excluding self (d = 0)
+    in_band = np.mean(d <= (kth[:, None] + 2.0 * e_band)) - (k + 1) / n
+    in_band = max(float(in_band), 0.0)
+    budget = int(np.clip(k + np.ceil(in_band * wave * safety), k, wave))
+    return budget, {"band_width": 2.0 * e_band, "in_band_frac": in_band}
+
+
+def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
+                      shards: int | None = None, quant: str | None = "int8",
+                      fused: bool = True):
+    """Returns the one-card search step of ``svc``, on its tensors' device.
+
+    The main path (``quant="int8"``, ``fused``): ``step(corpus, codes,
+    bscales, queries, eps, scale, eps_lo) -> (dists, ids[, scan])``, with
     ``corpus`` (N, D) rotated rows (bf16 or f32), ``codes`` (N, D) int8
     per-block codes, ``bscales`` (S,), ``queries`` (Q, D) rotated, and the
-    blocked table.  The step runs on the tensors' device.  ``shards`` is
-    the reference's shard count, run as that many segments of one scan
-    (1: the reference's one-device step).  ``with_stats`` appends a (6,)
-    float64 vector of the kernel's scan counters summed over queries and
-    shards (the tile-level fetch counters 4-5 counted once per tile).
+    blocked table.  ``shards`` is the reference's shard count, run as that
+    many segments of one scan (1: the reference's one-device step; default
+    ``SHARDS``).  ``with_stats`` appends a (6,) float64 vector of the kernel's scan
+    counters summed over queries and shards (the tile-level fetch counters
+    4-5 counted once per tile).
+
+    The unfused routes are the reference's one-device step in plain
+    PyTorch (``shards`` must be 1, no stats), each seeded by ``seed_rsq``:
+    ``quant="int8", fused=False`` takes per-dimension ``codes`` and
+    ``qscales`` (D,) in place of the block codes, and refines
+    ``svc.refine_per_wave`` rows a wave (0: 2k); ``quant=None`` is
+    ``step(corpus, queries, eps, scale, eps_lo)``.
     """
+    k, wave, block_d = svc.k, svc.wave, svc.delta_d
+    if quant == "int8" and fused:
+        shards = SHARDS if shards is None else shards
 
-    def step(corpus, codes, bscales, queries, eps, scale, eps_lo):
-        del eps_lo  # the fused route widens from eps alone
-        r0 = seed_rsq(svc, corpus, queries, eps, segments=shards)
-        args, kwargs = fused_scan_inputs(svc, corpus, codes, bscales, queries,
-                                         eps, scale, r0)
-        top_sq, top_ids, stats = ivf_scan_kernel_call(*args, segments=shards, **kwargs)
-        dists = torch.sqrt(torch.clamp_min(top_sq, 0.0))
-        if not with_stats:
-            return dists, top_ids
-        st = stats.double()
-        scan = torch.cat([st[:, :4].sum(0), st[::FUSED_BLOCK_Q, 4:].sum(0)])
-        return dists, top_ids, scan
+        def step(corpus, codes, bscales, queries, eps, scale, eps_lo):
+            del eps_lo  # the fused route widens from eps alone
+            r0 = seed_rsq(svc, corpus, queries, eps, segments=shards)
+            args, kwargs = fused_scan_inputs(svc, corpus, codes, bscales, queries,
+                                             eps, scale, r0)
+            top_sq, top_ids, stats = ivf_scan_kernel_call(*args, segments=shards,
+                                                          **kwargs)
+            dists = torch.sqrt(torch.clamp_min(top_sq, 0.0))
+            if not with_stats:
+                return dists, top_ids
+            st = stats.double()
+            scan = torch.cat([st[:, :4].sum(0), st[::FUSED_BLOCK_Q, 4:].sum(0)])
+            return dists, top_ids, scan
 
-    return step
+        return step
+    if shards not in (None, 1) or with_stats:
+        raise ValueError("the unfused routes run one shard and report no scan stats")
+    refine_per_wave = min(svc.refine_per_wave or 2 * k, wave)
+
+    def start(corpus, queries, eps):
+        n_local = corpus.shape[0]
+        if n_local % wave:
+            raise ValueError(f"corpus rows {n_local} % wave {wave} != 0")
+        q = queries.float()
+        r_sq = seed_rsq(svc, corpus, queries, eps)
+        top_sq = torch.full((q.shape[0], k), float("inf"), device=q.device)
+        top_ids = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=q.device)
+        return q, r_sq, top_sq, top_ids, n_local // wave
+
+    def local_search(corpus, queries, eps, scale, eps_lo):
+        """The block-incremental DADE screen, wave by wave."""
+        del eps_lo
+        q, r_sq, top_sq, top_ids, num_waves = start(corpus, queries, eps)
+        qn, dim = q.shape
+        s_steps = dim // block_d
+        qn_blk = torch.sum((q * q).reshape(qn, s_steps, block_d), dim=2)  # (Q, S)
+        for w in range(num_waves):
+            rows = corpus[w * wave: (w + 1) * wave].float()
+            cn_blk = torch.sum((rows * rows).reshape(wave, s_steps, block_d), dim=2)
+            psum = torch.zeros((qn, wave), device=q.device)
+            retired = torch.zeros((qn, wave), dtype=torch.bool, device=q.device)
+            for st in range(s_steps):
+                sl = slice(st * block_d, (st + 1) * block_d)
+                blk = qn_blk[:, st, None] + cn_blk[None, :, st] - 2.0 * (q[:, sl] @ rows[:, sl].T)
+                psum = psum + torch.clamp_min(blk, 0.0)
+                est = psum * scale[st]
+                thresh = (1.0 + eps[st]) ** 2 * r_sq[:, None]
+                if st < s_steps - 1:
+                    retired = retired | (est > thresh)
+            passed = ~retired & (psum <= r_sq[:, None])
+            ids = torch.arange(w * wave, (w + 1) * wave, dtype=torch.int32,
+                               device=q.device)[None, :].expand(qn, -1)
+            new_sq = torch.where(passed, psum, torch.full_like(psum, float("inf")))
+            top_sq, top_ids = merge_topk(top_sq, top_ids, new_sq, ids)
+            r_sq = torch.minimum(r_sq, top_sq[:, -1])
+        return torch.sqrt(torch.clamp_min(top_sq, 0.0)), top_ids
+
+    def local_search_quant(corpus, codes, scales, queries, eps, scale, eps_lo):
+        """The int8 wave stream: a full-D lower bound per row, and the best
+        ``refine_per_wave`` qualifying rows of each wave refined exactly."""
+        del scale, eps_lo
+        q, r_sq, top_sq, top_ids, num_waves = start(corpus, queries, eps)
+        e_band = torch.sqrt(cum_err_sq(scales, [scales.shape[0]])[0])
+        qsq = torch.sum(q * q, dim=1)[:, None]
+        for w in range(num_waves):
+            sl = slice(w * wave, (w + 1) * wave)
+            cf = codes[sl].float() * scales[None, :]
+            dstq = torch.clamp_min(qsq + torch.sum(cf * cf, dim=1)[None, :]
+                                   - 2.0 * (q @ cf.T), 0.0)
+            lb = torch.clamp_min(torch.sqrt(dstq) - e_band, 0.0) ** 2 * (1.0 - 1e-4)
+            cand = torch.where(lb <= r_sq[:, None], lb, torch.full_like(lb, float("inf")))
+            idx = _smallest(cand, refine_per_wave)  # (Q, R), ties to the lower row
+            rows = corpus[sl].float()[idx]  # (Q, R, D)
+            exact = torch.sum((rows - q[:, None, :]) ** 2, dim=-1)
+            # Over-budget slots hold real rows too: their exact distances
+            # merge like any other.
+            top_sq, top_ids = merge_topk(top_sq, top_ids, exact,
+                                         (w * wave + idx).to(torch.int32))
+            r_sq = torch.minimum(r_sq, top_sq[:, -1])
+        return torch.sqrt(torch.clamp_min(top_sq, 0.0)), top_ids
+
+    return local_search_quant if quant == "int8" else local_search
 
 
 def build_graph_engine(index, *, k: int, ef: int = 48, expand: int = 2,

@@ -1,13 +1,14 @@
-"""DADE vector-search serving on one card (the flat, graph and continuous
-graph routes of ``repro.launch.serve``: ``--index flat|graph --quant int8
---fused on [--continuous]``).
+"""DADE vector-search serving on one card (the flat, graph, continuous
+graph and churn routes of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cuda] \
         [--index flat] [--requests 10] [--corpus 1048576] [--batch 1024] [--k 100] \
-        [--shards G]
+        [--shards G] [--quant int8|none] [--fused on|off] [--index-ckpt DIR]
     PYTHONPATH=src python -m repro_torch.launch.serve --index graph \
-        [--corpus 32768] [--k 10] [--ef 48] [--expand 2] [--m 16] \
+        [--corpus 32768] [--k 10] [--ef 48] [--expand 2] [--m 16] [--index-ckpt DIR] \
         [--continuous --max-live SLOTS --slo LO:HI[:STALL]] [--verify-graph-oracle]
+    PYTHONPATH=src python -m repro_torch.launch.serve --index graph \
+        --mutate-rate MUTS [--wal PATH] [--verify-graph-oracle]
 
 Flat route defaults are the ``dade_ivf`` serving configuration (2^20 x 256
 corpus, batch 1024, k=100, wave 8192, Δd=64, bf16 rows, int8 codes, DADE
@@ -18,6 +19,9 @@ ground truth, the warm-up step's time (``compile_ms``; it includes the
 first kernel build) and the fetch figures.  ``--shards`` is the
 reference's shard count (its ``--devices``), run on the one card as that
 many segments of each scan, merged as the reference merges shards.
+``--fused off`` and ``--quant none`` serve the reference's unfused
+one-device routes in plain PyTorch (a budget of exact refinements per wave
+over per-dimension int8 codes; the fp rows alone).
 
 The graph route builds the NSW graph (m=16, ef_construction=max(2·ef, 64),
 f32 adjacency rows, int8 codes; the insertion loop runs on the host, so
@@ -28,6 +32,21 @@ batching: queries join the one-wave kernel's wave step mid-walk
 (``annservice.ContinuousGraphEngine`` under
 ``runtime.scheduler.ContinuousScheduler``), at most ``--max-live`` at a
 time, each retired query bit-identical to its solo search.
+``--index-ckpt DIR`` warm-restarts from a digest-verified snapshot (the
+graph route's whole index, the flat route's estimator), or builds once and
+saves there; a corrupted leaf falls back to a rebuild.
+
+Churn (``--mutate-rate MUTS``, graph route): the graph is the streaming
+mutable index (``index.mutable.MutableGraph``); MUTS mutations (3:1
+upserts to deletes, upserts from the drifted distribution) run before each
+request, each written to ``--wal`` before it is applied, and an existing
+log is replayed onto a fresh base at boot (the crash-recovery path,
+drilled by ``--chaos torn_upsert``).  A drift watchdog checks DADE
+staleness before each request and swaps a recalibrated epsilon table in
+behind a parity proof (suppressed under ``--chaos stale_transform``).  With
+``--verify-graph-oracle`` the post-churn index must return the ids of a
+from-scratch rebuild of the final corpus under the same tombstones, and
+hold its arrays bit for bit.
 
 Load and robustness (the reference's flags): ``--open-loop RATE`` serves
 Poisson arrivals at RATE requests/s instead of one closed-loop drain and
@@ -35,51 +54,62 @@ reports p50/p95/p99 request latency; ``--deadline-ms``,
 ``--queue-watermark`` and ``--retries`` / ``--retry-backoff-ms`` shed late,
 excess and failing work (``submitted == served + shed`` always);
 ``--chaos SPEC`` arms fault drills (``step_error``, ``queue_overload``,
-``shard_stall``).  Telemetry: ``--metrics-json PATH`` writes the
+``shard_stall``, ``slab_corruption``, ``torn_upsert``,
+``stale_transform``).  Telemetry: ``--metrics-json PATH`` writes the
 schema-versioned metrics snapshot that ``scripts/check_metrics_schema.py``
 validates; ``--trace PATH`` writes a Chrome trace of the run's spans (its
 fences wait for the card at span ends: leave it off for peak QPS).
 
-Not ported (refused by name): unquantized or unfused routes, sharded graph
-serving (``--graph-shards``, ``--verify-degraded-oracle``, chaos
-``shard_death``) and the mutable index with its snapshots and log
-(``--index-ckpt``, ``--mutate-rate``, ``--wal``, chaos ``slab_corruption``,
-``torn_upsert``, ``stale_transform``).
+Not ported (refused by name): sharded graph serving (``--graph-shards``,
+``--verify-degraded-oracle``, chaos ``shard_death``; ROADMAP queue 1 item
+7).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint.index_io import (
+    load_estimator, load_graph_index, save_estimator, save_graph_index,
+)
+from repro_torch.checkpoint.wal import MutationLog, replay_into
 from repro_torch.configs.dade_ivf import CONFIG, ServiceConfig
 from repro_torch.core.estimators import Estimator, build_estimator, kernel_spec
 from repro_torch.core.topk import exact_knn
 from repro_torch.core.transforms import as_tensor
-from repro_torch.data.pipeline import synthetic_queries, synthetic_vectors
+from repro_torch.data.pipeline import (
+    drifted_vectors, synthetic_queries, synthetic_vectors,
+)
 from repro_torch.index.graph import (
     GraphIndex, build_graph, search_graph_beam_host, search_graph_fused,
 )
+from repro_torch.index.mutable import DriftWatchdog, MutableGraph
+from repro_torch.kernels.graph_scan import KERNEL_TILE
 from repro_torch.kernels.ops import block_table
 from repro_torch.launch.annservice import (
-    FUSED_BLOCK_C, SHARDS, ContinuousGraphEngine, build_graph_engine,
-    build_search_step, parse_slo,
+    FUSED_BLOCK_C, SHARDS, ContinuousGraphEngine, autotune_refine_budget,
+    build_graph_engine, build_search_step, parse_slo,
 )
 from repro_torch.obs import (
     MetricsRegistry, Tracer, current_tracer, record_dco_method,
-    record_fused_serve_totals, record_graph_scan, set_tracer,
-    write_chrome_trace, write_metrics_json,
+    record_drift, record_fused_serve_totals, record_graph_scan, record_mutations,
+    set_tracer, write_chrome_trace, write_metrics_json,
 )
 from repro_torch.quant.accounting import (
     ID_BYTES, fetched_tile_bytes, stage2_fetch_report, two_stage_bytes,
 )
-from repro_torch.quant.scalar import fit_block_scales, quantize_block
-from repro_torch.runtime.chaos import parse_chaos, set_chaos
+from repro_torch.quant.scalar import fit_block_scales, quantize_block, quantize_corpus
+from repro_torch.runtime.chaos import (
+    ChaosError, corrupt_checkpoint_leaf, current_chaos, parse_chaos, set_chaos,
+)
 from repro_torch.runtime.scheduler import BatchScheduler, ContinuousScheduler
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -89,11 +119,11 @@ GRAPH_NODES = 32768
 GRAPH_K = 10
 # What the port does not serve yet, by flag and by chaos kind, with the
 # ROADMAP item that brings it.
-UNPORTED_FLAGS = {"graph_shards": "queue 1 item 7", "verify_degraded_oracle": "queue 1 item 7",
-                  "index_ckpt": "queue 1 item 6", "mutate_rate": "queue 1 item 6",
-                  "wal": "queue 1 item 6"}
-UNPORTED_FAULTS = {"shard_death": "queue 1 item 7", "slab_corruption": "queue 1 item 6",
-                   "torn_upsert": "queue 1 item 6", "stale_transform": "queue 1 item 6"}
+UNPORTED_FLAGS = {"graph_shards": "queue 1 item 7", "verify_degraded_oracle": "queue 1 item 7"}
+UNPORTED_FAULTS = {"shard_death": "queue 1 item 7"}
+# The arrays the churn route's oracle holds equal to the rebuild's.
+CHURN_ARRAYS = ("neighbors", "corpus_rot", "corpus_q", "qscales", "adj_rot",
+                "adj_codes", "adj_ids", "gscales")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -125,8 +155,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="flat route: corpus shards, walked as segments of one "
                          "scan on the card and merged as the reference's mesh "
                          "merges them")
-    ap.add_argument("--quant", default="int8", choices=["int8"])
-    ap.add_argument("--fused", default="on", choices=["on"])
+    ap.add_argument("--quant", default="int8", choices=["int8", "none"],
+                    help="int8: stream the corpus as 1-byte codes (none: the fp "
+                         "rows alone, the reference's plain wave screen)")
+    ap.add_argument("--fused", default="on", choices=["on", "off"],
+                    help="on: the fused wave-scan kernel; off: the reference's "
+                         "unfused int8 route (a budget of exact refinements a wave)")
+    ap.add_argument("--refine-per-wave", type=int, default=0,
+                    help="exact refinements a wave of --fused off (0: autotuned "
+                         "from the stage-1 band width)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching (--index graph): queries join the "
                          "one-wave kernel's wave step mid-walk, each retired "
@@ -163,21 +200,45 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "backoff); exhausted retries shed and serving continues")
     ap.add_argument("--retry-backoff-ms", type=float, default=20.0,
                     help="first-retry backoff (doubles per attempt)")
+    ap.add_argument("--index-ckpt", default=None, metavar="DIR",
+                    help="warm-restart snapshot dir: restore the built index (graph "
+                         "route: graph and estimator; flat route: estimator) from "
+                         "DIR instead of building it, or build once and save "
+                         "there; per-leaf sha256 digests reject corrupted slabs "
+                         "and fall back to a rebuild")
+    ap.add_argument("--mutate-rate", type=float, default=0.0, metavar="MUTS",
+                    help="churn drill (--index graph): apply MUTS mutations between "
+                         "requests through the streaming mutable index (3:1 "
+                         "upsert:delete, upserts from the drifted distribution), "
+                         "write-ahead logged to --wal; reports recall under churn "
+                         "and the mutate.* and calib.drift.* families")
+    ap.add_argument("--wal", default=None, metavar="PATH",
+                    help="mutation-log path of --mutate-rate (default "
+                         "<--index-ckpt>/mutations.wal with a snapshot dir, else "
+                         "unlogged); an existing log is replayed onto a fresh base "
+                         "before serving, its torn tail truncated")
     # The reference's flags for routes the port does not serve: refused.
     ap.add_argument("--graph-shards", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--verify-degraded-oracle", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--index-ckpt", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--mutate-rate", type=float, default=0.0, help=argparse.SUPPRESS)
-    ap.add_argument("--wal", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    # The reference's flag rules first, then what the port does not serve.
+    if args.mutate_rate > 0 and args.index != "graph":
+        ap.error("--mutate-rate requires --index graph (the streaming mutable "
+                 "index is the graph route)")
+    if args.mutate_rate > 0 and args.graph_shards != 1:
+        ap.error("--mutate-rate serves a single replica (--graph-shards 1): "
+                 "mutable growth slabs are not corpus-sharded")
+    if args.continuous and args.index != "graph":
+        ap.error("--continuous requires --index graph (mid-walk admission is a "
+                 "property of the wave-synchronous beam walk)")
+    if args.continuous and args.mutate_rate > 0:
+        ap.error("--continuous and --mutate-rate are separate drills; run them "
+                 "in separate serves")
     for name, item in UNPORTED_FLAGS.items():
         if getattr(args, name) != ap.get_default(name):
             ap.error(f"--{name.replace('_', '-')} {getattr(args, name)}: not ported "
                      f"(ROADMAP {item})")
-    if args.continuous and args.index != "graph":
-        ap.error("--continuous requires --index graph (mid-walk admission is a "
-                 "property of the wave-synchronous beam walk)")
     graph = args.index == "graph"
     if args.corpus is None:
         args.corpus = GRAPH_NODES if graph else CONFIG.corpus_per_device
@@ -209,14 +270,17 @@ class Service:
         return torch.nn.functional.pad(x, (0, self.d_pad - self.svc.dim)).to(self.rows.dtype)
 
 
-def prepare_service(svc: ServiceConfig, method: str, device) -> Service:
-    """Build the estimator on a corpus sample, then rotate and encode the
-    ``synthetic_vectors(seed=0)`` corpus on ``device``."""
+def prepare_service(svc: ServiceConfig, method: str, device,
+                    est: Estimator | None = None) -> Service:
+    """Build the estimator on a corpus sample (unless ``est``, a restored
+    one, is given), then rotate and encode the ``synthetic_vectors(seed=0)``
+    corpus on ``device``."""
     dev = resolve_device(device)
     corpus = synthetic_vectors(svc.corpus_per_device, svc.dim, seed=0)
     corpus_t = as_tensor(corpus, dev)
-    est = build_estimator(method, corpus_t[:50000], torch.Generator().manual_seed(0),
-                          p_s=svc.p_s, delta_d=svc.delta_d, device=dev)
+    if est is None:
+        est = build_estimator(method, corpus_t[:50000], torch.Generator().manual_seed(0),
+                              p_s=svc.p_s, delta_d=svc.delta_d, device=dev)
     kernel_spec(est, svc.dim, svc.delta_d)  # refuse what the kernel can't express
     eps, scale, d_pad, eps_lo = block_table(est.table, svc.dim, svc.delta_d)
     c_rot = torch.nn.functional.pad(est.rotate(corpus_t), (0, d_pad - svc.dim))
@@ -238,6 +302,14 @@ class GraphService:
     index: GraphIndex
 
 
+def graph_estimator(svc: ServiceConfig, method: str, corpus_t: torch.Tensor) -> Estimator:
+    """The graph routes' estimator: fitted on a corpus sample as the flat
+    route's, with the int8 policy, on the corpus's device."""
+    return build_estimator(method, corpus_t[:50000], torch.Generator().manual_seed(0),
+                           p_s=svc.p_s, delta_d=svc.delta_d, quant="int8",
+                           device=corpus_t.device)
+
+
 def prepare_graph(svc: ServiceConfig, method: str, *, m: int, ef: int,
                   device) -> GraphService:
     """Build the estimator on a corpus sample as the flat route does, then
@@ -247,11 +319,21 @@ def prepare_graph(svc: ServiceConfig, method: str, *, m: int, ef: int,
     dev = resolve_device(device)
     corpus = synthetic_vectors(svc.corpus_per_device, svc.dim, seed=0)
     corpus_t = as_tensor(corpus, dev)
-    est = build_estimator(method, corpus_t[:50000], torch.Generator().manual_seed(0),
-                          p_s=svc.p_s, delta_d=svc.delta_d, quant="int8", device=dev)
-    index = build_graph(corpus_t, estimator=est, m=m,
-                        ef_construction=max(2 * ef, 64), quant="int8", device=dev)
+    index = build_graph(corpus_t, estimator=graph_estimator(svc, method, corpus_t),
+                        m=m, ef_construction=max(2 * ef, 64), quant="int8", device=dev)
     return GraphService(corpus=corpus, corpus_t=corpus_t, index=index)
+
+
+def maybe_corrupt_snapshot(directory: str) -> None:
+    """The ``slab_corruption`` drill: flip one byte of a committed snapshot
+    leaf (when one exists) so the restore's digest check must catch it."""
+    step_dir = os.path.join(directory, f"step_{0:09d}")
+    if not os.path.isdir(step_dir):
+        return
+    spec = current_chaos().take_corruption()
+    if spec is not None:
+        path = corrupt_checkpoint_leaf(step_dir, leaf=spec.leaf)
+        print(f"chaos: corrupted snapshot leaf {spec.leaf} ({path})", flush=True)
 
 
 class ServeRun:
@@ -352,6 +434,15 @@ class ServeRun:
         self.reg.counter("serve.queries").add(sum(len(g) for _, g in served))
         return served, shed
 
+    @staticmethod
+    def ids_digest(served) -> str:
+        """sha256 of every served request's ids, in request order: two runs
+        that served the same neighbours give the same digest."""
+        h = hashlib.sha256()
+        for req, _ in served:
+            h.update(np.ascontiguousarray(req.result[1], np.int64).tobytes())
+        return h.hexdigest()
+
     def recall(self, served) -> float:
         """Mean recall@k over the served requests (shed ones have none)."""
         k = self.svc.k
@@ -426,8 +517,30 @@ def serve_graph(run: ServeRun, prepared: GraphService | None) -> dict:
     engine; prints the report line and returns it as a dict."""
     args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
     t0 = time.perf_counter()
-    srv = prepared or prepare_graph(svc, args.method, m=args.m, ef=args.ef, device=dev)
-    build_note = "" if prepared else f" build_s={time.perf_counter() - t0:.1f}"
+    srv, restored = prepared, False
+    graph_cfg = {"corpus": svc.corpus_per_device, "dim": svc.dim, "method": args.method,
+                 "m": args.m, "ef_construction": max(2 * args.ef, 64), "quant": "int8"}
+    if args.index_ckpt:
+        maybe_corrupt_snapshot(args.index_ckpt)
+        gidx = None
+        try:
+            gidx = load_graph_index(args.index_ckpt, expect_config=graph_cfg, device=dev)
+        except IOError as e:
+            print(f"index-ckpt: {e}; falling back to rebuild", flush=True)
+        if gidx is not None:
+            restored = True
+            reg.counter("serve.ckpt.restored").add(1)
+            print(f"index-ckpt: restored graph index from {args.index_ckpt}", flush=True)
+            corpus = (prepared.corpus if prepared is not None
+                      else synthetic_vectors(svc.corpus_per_device, svc.dim, seed=0))
+            srv = GraphService(corpus=corpus, corpus_t=as_tensor(corpus, dev), index=gidx)
+    if srv is None:
+        srv = prepare_graph(svc, args.method, m=args.m, ef=args.ef, device=dev)
+    if args.index_ckpt and not restored:
+        save_graph_index(args.index_ckpt, srv.index, config=graph_cfg)
+        reg.counter("serve.ckpt.saved").add(1)
+        print(f"index-ckpt: saved graph index to {args.index_ckpt}", flush=True)
+    build_note = "" if prepared or restored else f" build_s={time.perf_counter() - t0:.1f}"
     if (srv.index.corpus_rot.shape != (svc.corpus_per_device, svc.dim)
             or srv.index.degree != args.m):
         raise ValueError("the prepared graph does not match --corpus/--dim/--m")
@@ -472,7 +585,8 @@ def serve_graph(run: ServeRun, prepared: GraphService | None) -> dict:
               "requests_served": sched.stats["served"], "requests_shed": shed,
               "batches": sched.stats["batches"], "waves": float(waves),
               "fetched_bytes_per_query": fetched, "s2_skip_rate": skip,
-              "device": str(dev)}
+              "ckpt": "restored" if restored else ("saved" if args.index_ckpt else "off"),
+              "ids_sha256": run.ids_digest(served), "device": str(dev)}
     print(f"method={args.method} index=graph quant={args.quant} devices=1 corpus={n} "
           f"requests={sched.stats['served']}/{sched.stats['submitted']} rows={total_q} "
           f"batches={sched.stats['batches']} ef={args.ef} expand={args.expand} "
@@ -569,21 +683,328 @@ def serve_continuous(run: ServeRun, srv: GraphService, build_note: str) -> dict:
     return run.emit(report)
 
 
+class _WalHolder:
+    """Append-before-apply for recalibration swaps: the new table reaches
+    the log before the serving estimator, so replay reproduces the
+    estimator's history too."""
+
+    def __init__(self, state: dict):
+        self._st = state
+
+    @property
+    def estimator(self):
+        return self._st["idx"].estimator
+
+    def set_estimator(self, e) -> None:
+        if self._st["log"] is not None:
+            self._st["log"].append_set_table(e.table)
+        self._st["idx"].set_estimator(e)
+
+
+def serve_churn(run: ServeRun) -> dict:
+    """``--index graph --mutate-rate R``: the streaming mutable index.
+
+    The graph is a ``MutableGraph``: upserts continue the graph build's
+    insertion inside pre-reserved capacity (array for array a rebuild of
+    the grown corpus), deletes tombstone.  ``round(R)`` mutations (3:1
+    upserts to deletes, upserts from ``drifted_vectors(seed=11)``) run
+    before each request, every one logged to ``--wal`` before it is
+    applied; an existing log is replayed onto a fresh base at boot, and a
+    ``torn_upsert`` crash recovers the same way.  The drift watchdog
+    checks before each request and swaps a recalibrated table in behind its
+    parity proof (suppressed under ``stale_transform``).  Recall is
+    measured against the live corpus at submit time.  With
+    ``--verify-graph-oracle`` the final index must return the ids (and,
+    to ``rtol=5e-5, atol=1e-5``, the distances) of a from-scratch
+    ``build_graph`` over the final corpus under the same tombstones.  The
+    report carries each request's split: ``mutate_ms`` (log writes and
+    upserts, the slab writes included), ``view_ms`` (the index view),
+    ``drift_ms`` and ``search_ms``, and the boot and recovery times."""
+    args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
+    n = svc.corpus_per_device
+    bq = KERNEL_TILE[0]
+    g_m, g_efc = args.m, max(2 * args.ef, 64)
+    n_mut = int(round(args.requests * args.mutate_rate))
+    cap = n + 2 * n_mut + 64
+    wal_path = args.wal or (os.path.join(args.index_ckpt, "mutations.wal")
+                            if args.index_ckpt else None)
+    corpus = synthetic_vectors(n, svc.dim, seed=0)
+    corpus_t = as_tensor(corpus, dev)
+    est = graph_estimator(svc, args.method, corpus_t)
+    # Upserts come from the drifted distribution (faster spectrum decay in
+    # the fitted basis), where a stale epsilon table over-prunes: the
+    # watchdog has a real signal.
+    pool = drifted_vectors(est.transform, max(n_mut, 1), seed=11)
+    rng_m = np.random.default_rng(13)
+    st: dict = {}
+    boot_s: list[float] = []
+
+    def boot() -> None:
+        """(Re)build the serving state: a fresh base and the log's replay;
+        at start-up and after a torn-append crash (the torn record was
+        never applied, so truncating it is exactly right)."""
+        t0 = time.perf_counter()
+        st["log"] = MutationLog(wal_path) if wal_path else None
+        st["idx"] = MutableGraph(corpus_t, m=g_m, ef_construction=g_efc, capacity=cap,
+                                 estimator=est, quant="int8", device=dev)
+        st["wd"] = DriftWatchdog(corpus, reservoir=min(1024, n), p_s=svc.p_s,
+                                 num_pairs=1024)
+        st["ups"] = []
+        log = st["log"]
+        if log is not None and (log.seq or log.recovered_torn):
+            recs = log.replay()
+            for rec in recs:
+                if rec["op"] == "upsert":
+                    st["wd"].observe(rec["vec"])
+                    st["ups"].append(np.asarray(rec["vec"], np.float32))
+            counts = replay_into(st["idx"], recs)
+            reg.counter("serve.wal.replayed").add(len(recs))
+            if log.recovered_torn:
+                reg.counter("serve.wal.recovered_torn").add(1)
+                st["torn"] = st.get("torn", 0) + 1
+            print(f"wal: replayed {counts} from {wal_path}"
+                  + (" (torn tail truncated)" if log.recovered_torn else ""), flush=True)
+        dead = {g for b, c in st["idx"].tombstones for g in range(b, b + c)}
+        st["live"] = [g for g in range(st["idx"].count) if g not in dead]
+        boot_s.append(time.perf_counter() - t0)
+
+    boot()
+    holder = _WalHolder(st)
+
+    def mutate_once() -> None:
+        idx, log = st["idx"], st["log"]
+        if st["live"] and rng_m.random() < 0.25:
+            gid = st["live"][int(rng_m.integers(len(st["live"])))]
+            if log is not None:
+                log.append_delete(gid)
+            idx.delete(gid)
+            st["live"].remove(gid)
+            return
+        vec = pool[min(idx.ledger.upserts, len(pool) - 1)]
+        if idx.count >= idx.capacity:
+            # Refused mutations never reach the log: it holds applied
+            # operations only, so replay cannot diverge at capacity.
+            idx.ledger.applied += 1
+            idx.ledger.rejected += 1
+            return
+        if log is not None:
+            log.append_upsert(idx.count, vec)
+        gid = idx.upsert(vec)
+        st["wd"].observe(vec)
+        st["ups"].append(np.asarray(vec, np.float32))
+        st["live"].append(gid)
+
+    def crash_recover(e: Exception) -> None:
+        print(f"chaos: {e}", flush=True)
+        if st["log"] is not None:
+            st["log"].close()
+        print("chaos: simulated crash — recovering (fresh base + wal replay)", flush=True)
+        boot()
+
+    def apply_mutations(count: int) -> None:
+        for _ in range(count):
+            try:
+                mutate_once()
+            except ChaosError as e:
+                crash_recover(e)
+                mutate_once()  # the fault is one-shot; the retry commits
+
+    def drift_tick() -> None:
+        try:
+            rep = st["wd"].maybe_recalibrate(holder)
+        except ChaosError as e:
+            crash_recover(e)
+            return
+        if rep["swapped"]:
+            print(f"drift: stat={rep['stat']:.3f} > {rep['threshold']:.3f}; epsilon "
+                  f"table recalibrated and swapped in (parity proof passed)", flush=True)
+        elif rep.get("suppressed"):
+            print(f"drift: stat={rep['stat']:.3f} fired but the swap was suppressed "
+                  f"(stale_transform drill)", flush=True)
+        elif rep["fired"]:
+            print(f"drift: fired (stat={rep['stat']:.3f}) but the parity proof "
+                  f"failed; the stale table stays", flush=True)
+
+    def m_step(batch_np):
+        with current_tracer().span("engine.step", route="graph-churn", batch=len(batch_np)):
+            d, i, _ = st["idx"].search(batch_np, k=svc.k, ef=args.ef, expand=args.expand,
+                                       block_q=bq)
+        return d.cpu().numpy(), i.cpu().numpy()
+
+    compile_ms = run.warmup(m_step, synthetic_queries(svc.query_batch, svc.dim, corpus,
+                                                      seed=999))
+    sched = run.scheduler(m_step)
+    lat = reg.histogram("serve.request.latency_ms")
+    reqs, gts, lat_ms = [], [], []
+    split = {"mutate_ms": [], "drift_ms": [], "view_ms": [], "search_ms": []}
+    rng_q = np.random.default_rng(9)
+    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms else None
+    t0 = time.perf_counter()
+    with current_tracer().span("serve.drive", churn=True):
+        for r in range(args.requests):
+            t_a = time.perf_counter()
+            apply_mutations(int(round(args.mutate_rate)))
+            t_b = time.perf_counter()
+            drift_tick()
+            t_c = time.perf_counter()
+            st["idx"].index  # the view the request searches
+            t_d = time.perf_counter()
+            nq = int(rng_q.integers(svc.query_batch // 2, 2 * svc.query_batch))
+            q = synthetic_queries(nq, svc.dim, corpus, seed=100 + r)
+            # Ground truth against the LIVE corpus at submit time.
+            live = np.asarray(sorted(st["live"]), np.int64)
+            rows = (np.concatenate([corpus, np.stack(st["ups"])])
+                    if st["ups"] else corpus)[live]
+            _, gt = exact_knn(q, rows, svc.k, device=dev)
+            t_e = time.perf_counter()
+            reqs.append(sched.submit(q, deadline_s=deadline_s))
+            gts.append(live[gt.cpu().numpy()])
+            done = sched.drain(force=True)
+            t_done = time.perf_counter()
+            for req in done:
+                ms = (t_done - req.enqueued_at) * 1e3
+                lat.observe(ms)
+                lat_ms.append(ms)
+            split["mutate_ms"].append((t_b - t_a) * 1e3)
+            split["drift_ms"].append((t_c - t_b) * 1e3)
+            split["view_ms"].append((t_d - t_c) * 1e3)
+            split["search_ms"].append((t_done - t_e) * 1e3)
+    dt = time.perf_counter() - t0
+
+    served, shed = run.accounting(sched, reqs, gts)
+    rec = run.recall(served)
+    total_q = sum(len(g) for _, g in served)
+    lat_note = run.latency_note(lat_ms)
+    idx, wd = st["idx"], st["wd"]
+    idx.ledger.check()
+    n_tomb = idx.count - idx.live_count
+    record_mutations(reg, idx.ledger, tombstones=n_tomb)
+    record_drift(reg, wd)
+    wal_records = st["log"].records_written if st["log"] else 0
+    if st["log"] is not None:
+        reg.counter("serve.wal.appended").add(wal_records)
+
+    verified = False
+    if args.verify_graph_oracle:
+        # The churn acceptance check: the mutated index returns the ids of
+        # a from-scratch build_graph over the final corpus under the same
+        # tombstones (and the same, possibly recalibrated, estimator).
+        t_v = time.perf_counter()
+        full = np.concatenate([corpus, np.stack(st["ups"])]) if st["ups"] else corpus
+        ridx = build_graph(as_tensor(full, dev), estimator=idx.estimator, m=g_m,
+                           ef_construction=g_efc, quant="int8", device=dev)
+        rebuild_s = time.perf_counter() - t_v
+        vq = synthetic_queries(svc.query_batch, svc.dim, corpus, seed=77)
+        t = idx.tombstones
+        dv, iv, _ = idx.search(vq, k=svc.k, ef=args.ef, expand=args.expand, block_q=bq)
+        do, io_, _ = search_graph_fused(ridx, vq, k=svc.k, ef=args.ef, expand=args.expand,
+                                        block_q=bq, tombstones=t, exclude=t, device=dev)
+        if not torch.equal(iv, io_):
+            raise SystemExit("post-churn: mutated index ids diverge from the "
+                             "from-scratch rebuild oracle")
+        if not torch.allclose(dv, do, rtol=5e-5, atol=1e-5):
+            raise SystemExit("post-churn: mutated index distances diverge from the "
+                             "from-scratch rebuild oracle")
+        live_idx = idx.index
+        differ = [f for f in CHURN_ARRAYS
+                  if not torch.equal(getattr(live_idx, f), getattr(ridx, f))]
+        if differ or live_idx.entry != ridx.entry:
+            raise SystemExit(f"post-churn: mutated index arrays differ from the "
+                             f"rebuild's: {differ or ['entry']}")
+        verified = True
+        print(f"verify-churn: mutated index ({idx.ledger.upserts} upserts, "
+              f"{idx.ledger.deletes} deletes, {idx.ledger.requantizes} requantizes) "
+              f"returns the from-scratch rebuild's ids ({svc.query_batch} queries), "
+              f"its arrays the rebuild's bit for bit ({', '.join(CHURN_ARRAYS)}, "
+              f"entry; rebuild {rebuild_s:.1f} s)", flush=True)
+
+    mean = (lambda xs: float(np.mean(xs)) if xs else 0.0)
+    print(f"method={args.method} index=graph churn corpus={n} live={idx.live_count} "
+          f"requests={len(served)}/{sched.stats['submitted']} rows={total_q} "
+          f"QPS={total_q/dt:.0f} recall@{svc.k}={rec:.3f} compile_ms={compile_ms:.0f} "
+          f"mutate(applied={idx.ledger.applied} upserts={idx.ledger.upserts} "
+          f"deletes={idx.ledger.deletes} rejected={idx.ledger.rejected} "
+          f"requantize={idx.ledger.requantizes} tombstones={n_tomb}) "
+          f"wal(records={wal_records}) drift(checks={wd.checks} fired={wd.fired} "
+          f"recal={wd.recalibrations} suppressed={wd.suppressed} "
+          f"stat={wd.last_stat:.3f}) per_request_ms(mutate={mean(split['mutate_ms']):.1f} "
+          f"drift={mean(split['drift_ms']):.1f} view={mean(split['view_ms']):.3f} "
+          f"search={mean(split['search_ms']):.1f}) boot_s="
+          f"{'/'.join(f'{b:.1f}' for b in boot_s)} device={dev}"
+          f"{run.shed_note(sched)}{lat_note}", flush=True)
+    report = {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
+              "queries": total_q, "requests_submitted": sched.stats["submitted"],
+              "requests_served": sched.stats["served"], "requests_shed": shed,
+              "mutations_applied": idx.ledger.applied, "upserts": idx.ledger.upserts,
+              "deletes": idx.ledger.deletes, "rejected": idx.ledger.rejected,
+              "requantizes": idx.ledger.requantizes, "tombstones": n_tomb,
+              "drift_checks": wd.checks, "drift_fired": wd.fired,
+              "drift_recalibrations": wd.recalibrations,
+              "drift_suppressed": wd.suppressed, "wal_records": wal_records,
+              "wal_recovered_torn": st.get("torn", 0),
+              "boots": len(boot_s), "boot_s": boot_s[0],
+              "recovery_s": boot_s[1] if len(boot_s) > 1 else 0.0,
+              "verified": verified, "device": str(dev),
+              **{f"mean_{k}": mean(v) for k, v in split.items()}, "split": split}
+    if st["log"] is not None:
+        st["log"].close()
+    return run.emit(report)
+
+
 def serve_flat(run: ServeRun) -> dict:
     """The flat route: batched requests through the fused wave scan."""
     args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
-    srv = prepare_service(svc, args.method, dev)
+    est = None
+    est_cfg = {"corpus": svc.corpus_per_device, "dim": svc.dim, "method": args.method,
+               "p_s": svc.p_s, "delta_d": svc.delta_d}
+    if args.index_ckpt:
+        maybe_corrupt_snapshot(args.index_ckpt)
+        try:
+            est = load_estimator(args.index_ckpt, expect_config=est_cfg, device=dev)
+        except IOError as e:
+            print(f"index-ckpt: {e}; recalibrating", flush=True)
+        if est is not None:
+            reg.counter("serve.ckpt.restored").add(1)
+            print(f"index-ckpt: restored estimator from {args.index_ckpt}", flush=True)
+    srv = prepare_service(svc, args.method, dev, est=est)
+    if args.index_ckpt and est is None:
+        save_estimator(args.index_ckpt, srv.est, config=est_cfg)
+        reg.counter("serve.ckpt.saved").add(1)
+        print(f"index-ckpt: saved estimator to {args.index_ckpt}", flush=True)
     corpus, n, d_pad = srv.corpus, svc.corpus_per_device, srv.d_pad
-    step = build_search_step(svc, with_stats=True, shards=args.shards)
+    quant = None if args.quant == "none" else args.quant
+    fused = quant == "int8" and args.fused == "on"
+    route_note, operands = " fused=megakernel", (srv.codes, srv.bscales)
+    if quant == "int8" and not fused:
+        # The reference's unfused int8 route: per-dimension codes of the
+        # padded rotated corpus (padded dims get scale 0), a refine budget
+        # autotuned from the stage-1 band unless given.
+        c_rot = srv.rows.float()
+        qc = quantize_corpus(c_rot)
+        operands = (qc.codes, qc.scales)
+        budget = args.refine_per_wave
+        if budget == 0:
+            budget, diag = autotune_refine_budget(
+                qc.scales, c_rot[:4096].cpu().numpy(), k=svc.k, wave=svc.wave)
+            route_note = (f" fused=off refine_per_wave={budget}(auto,"
+                          f"band={diag['band_width']:.3g},"
+                          f"in_band={diag['in_band_frac']:.4f})")
+        else:
+            route_note = f" fused=off refine_per_wave={budget}(fixed)"
+        svc = dataclasses.replace(svc, refine_per_wave=budget)
+    elif quant is None:
+        route_note, operands = " quant=none", ()
+    step = (build_search_step(svc, with_stats=True, shards=args.shards) if fused
+            else build_search_step(svc, quant=quant, fused=False))
     scan_totals = np.zeros((6,), np.float64)
 
     def fixed_step(batch_np):
         with current_tracer().span("engine.step", route="flat", batch=len(batch_np)):
             q = torch.as_tensor(batch_np, device=dev).to(srv.rows.dtype)
-            d, i, st = step(srv.rows, srv.codes, srv.bscales, q, srv.eps, srv.scale,
-                            srv.eps_lo)
-            scan_totals[:] += st.cpu().numpy()
-            return d.cpu().numpy(), i.cpu().numpy()
+            out = step(srv.rows, *operands, q, srv.eps, srv.scale, srv.eps_lo)
+            if fused:
+                scan_totals[:] += out[2].cpu().numpy()
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
 
     def prep(q):
         # Queries travel as the row dtype (rounded), held in float32 numpy.
@@ -599,41 +1020,45 @@ def serve_flat(run: ServeRun) -> dict:
     served, shed = run.accounting(sched, reqs, gts)
     rec = run.recall(served)
     total_q = sum(len(g) for _, g in served)
-
-    # Stage-2 fetch report: every scanned wave tile ships its int8 block;
-    # fp rows move in (128, Δd) slabs fetched only while stage 2 still has
-    # active candidates.  A wave spans wave // 128 candidate tiles.
-    s1_tiles, s2_slabs = scan_totals[5], scan_totals[4]
-    fp_bytes = srv.rows.element_size()
-    fetched, skipped, skip, _ = stage2_fetch_report(
-        s1_tiles, s2_slabs, block_c=FUSED_BLOCK_C, d_pad=d_pad,
-        block_d=svc.delta_d, fp_bytes=fp_bytes)
-    waves = max(s1_tiles / (svc.wave // FUSED_BLOCK_C), 1.0)
-    s1_bytes = fetched_tile_bytes(s1_tiles, block_c=FUSED_BLOCK_C, dims=d_pad,
-                                  bytes_per_dim=1, id_bytes=ID_BYTES)
-    record_fused_serve_totals(
-        reg, s1_tiles=float(s1_tiles), s2_slabs=float(s2_slabs),
-        s1_bytes=float(s1_bytes), s2_bytes=float(fetched),
-        sem_bytes=float(two_stage_bytes(scan_totals[0], scan_totals[1],
-                                        fp_bytes=fp_bytes)))
-    # Fetched bytes of whole batches (pad rows included) per query served.
-    fetched_q = (s1_bytes + fetched) / max(sched.stats["rows"], 1)
     lat_note = run.latency_note(lat_ms)
     report = {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
               "queries": total_q, "requests_submitted": sched.stats["submitted"],
               "requests_served": sched.stats["served"], "requests_shed": shed,
-              "shards": args.shards, "fetched_bytes_per_query": float(fetched_q),
-              "s2_skip_rate": float(skip), "device": str(dev)}
-    print(f"method={args.method} quant={args.quant} devices=1 shards={args.shards} "
-          f"corpus={n} "
+              "shards": args.shards if fused else 1,
+              "ckpt": ("off" if not args.index_ckpt else "restored" if est is not None
+                       else "saved"),
+              "ids_sha256": run.ids_digest(served), "device": str(dev)}
+    fetch_note = ""
+    if fused:
+        # Stage-2 fetch report: every scanned wave tile ships its int8
+        # block; fp rows move in (128, Δd) slabs fetched only while stage 2
+        # still has active candidates.  A wave spans wave // 128 tiles.
+        s1_tiles, s2_slabs = scan_totals[5], scan_totals[4]
+        fp_bytes = srv.rows.element_size()
+        fetched, skipped, skip, _ = stage2_fetch_report(
+            s1_tiles, s2_slabs, block_c=FUSED_BLOCK_C, d_pad=d_pad,
+            block_d=svc.delta_d, fp_bytes=fp_bytes)
+        waves = max(s1_tiles / (svc.wave // FUSED_BLOCK_C), 1.0)
+        s1_bytes = fetched_tile_bytes(s1_tiles, block_c=FUSED_BLOCK_C, dims=d_pad,
+                                      bytes_per_dim=1, id_bytes=ID_BYTES)
+        record_fused_serve_totals(
+            reg, s1_tiles=float(s1_tiles), s2_slabs=float(s2_slabs),
+            s1_bytes=float(s1_bytes), s2_bytes=float(fetched),
+            sem_bytes=float(two_stage_bytes(scan_totals[0], scan_totals[1],
+                                            fp_bytes=fp_bytes)))
+        # Fetched bytes of whole batches (pad rows included) per query served.
+        fetched_q = (s1_bytes + fetched) / max(sched.stats["rows"], 1)
+        report.update(fetched_bytes_per_query=float(fetched_q), s2_skip_rate=float(skip))
+        fetch_note = (f" s2_fetched_B_per_wave={fetched/waves:.0f}"
+                      f" s2_skipped_B_per_wave={skipped/waves:.0f}"
+                      f" s2_skip_rate={skip:.3f} fetched_B_per_q={fetched_q:.0f}")
+    print(f"method={args.method} quant={args.quant} devices=1 "
+          f"shards={report['shards']} corpus={n} "
           f"requests={len(served)}/{sched.stats['submitted']} rows={total_q} "
           f"batches={sched.stats['batches']} "
           f"pad_frac={sched.stats['padded_rows']/max(sched.stats['rows'], 1):.2f} "
           f"QPS={total_q/dt:.0f} recall@{svc.k}={rec:.3f} "
-          f"compile_ms={compile_ms:.0f} fused=megakernel"
-          f" s2_fetched_B_per_wave={fetched/waves:.0f}"
-          f" s2_skipped_B_per_wave={skipped/waves:.0f}"
-          f" s2_skip_rate={skip:.3f} fetched_B_per_q={fetched_q:.0f}"
+          f"compile_ms={compile_ms:.0f}{route_note}{fetch_note}"
           f" device={dev}{run.shed_note(sched)}{lat_note}", flush=True)
     return run.emit(report)
 
@@ -666,6 +1091,8 @@ def main(argv=None, *, graph: GraphService | None = None) -> dict:
     set_tracer(tracer)
     set_chaos(chaos)
     try:
+        if args.index == "graph" and args.mutate_rate > 0:
+            return serve_churn(run)
         if args.index == "graph":
             return serve_graph(run, graph)
         return serve_flat(run)

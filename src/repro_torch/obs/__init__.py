@@ -16,7 +16,7 @@ from repro_torch.obs.metrics import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, merge_snapshots,
     LATENCY_BUCKETS_MS, WAVE_DEPTH_BUCKETS, record_fused_scan,
     record_graph_scan, record_fused_serve_totals, record_dco_method,
-    DCO_METHODS,
+    DCO_METHODS, record_mutations, record_drift,
 )
 from repro_torch.obs.trace import (  # noqa: F401
     Tracer, NullTracer, NULL_TRACER, current_tracer, set_tracer, use_tracer,

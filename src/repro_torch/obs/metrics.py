@@ -16,8 +16,8 @@ friends), which map each stats family onto stable dotted metric names.
     re-registering a name as a different type (or a histogram with
     different bounds) raises, naming the colliding key.
 
-The sharded-graph, mutation and drift bridges of the reference wait for
-the port of those routes.
+The sharded-graph bridge of the reference waits for the port of that route
+(ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "merge_snapshots",
     "LATENCY_BUCKETS_MS", "WAVE_DEPTH_BUCKETS",
     "record_fused_scan", "record_graph_scan", "record_fused_serve_totals",
-    "record_dco_method", "DCO_METHODS",
+    "record_dco_method", "DCO_METHODS", "record_mutations", "record_drift",
 ]
 
 _NAME_RE = re.compile(r"^[a-z0-9_]+(\.[a-z0-9_]+)*$")
@@ -290,6 +290,36 @@ def record_graph_scan(reg: MetricsRegistry, st, *, queries: int) -> None:
     reg.counter("graph.scan.s2_slabs_total").add(st.s2_slabs_total)
     reg.counter("graph.scan.s2_slabs_fetched").add(st.s2_slabs_fetched)
     reg.gauge("graph.scan.s2_skip_rate").set(st.s2_skip_rate)
+
+
+def record_mutations(reg: MetricsRegistry, ledger, *,
+                     tombstones: int | None = None) -> None:
+    """Feed a ``MutationLedger`` (``index.mutable``) into the registry as
+    the ``mutate.*`` family, once per snapshot (the ledger is cumulative).
+    The family closes by construction, and the schema check holds the
+    snapshot to ``mutate.applied == mutate.upserts + mutate.deletes +
+    mutate.rejected``; ``tombstones`` (live deleted rows) is a gauge."""
+    reg.counter("mutate.applied").add(ledger.applied)
+    reg.counter("mutate.upserts").add(ledger.upserts)
+    reg.counter("mutate.deletes").add(ledger.deletes)
+    reg.counter("mutate.rejected").add(ledger.rejected)
+    reg.counter("mutate.requantize").add(ledger.requantizes)
+    if tombstones is not None:
+        reg.gauge("mutate.tombstones").set(float(tombstones))
+
+
+def record_drift(reg: MetricsRegistry, watchdog) -> None:
+    """Feed a ``DriftWatchdog`` (``index.mutable``) into the registry as
+    the ``calib.drift.*`` family, once per snapshot: checks taken,
+    threshold crossings, completed swaps, chaos-suppressed swaps, swaps
+    refused by the parity proof, and ``calib.drift.stat``, the last worst
+    non-final-checkpoint violation rate."""
+    reg.counter("calib.drift.checks").add(watchdog.checks)
+    reg.counter("calib.drift.fired").add(watchdog.fired)
+    reg.counter("calib.drift.recalibrations").add(watchdog.recalibrations)
+    reg.counter("calib.drift.suppressed").add(watchdog.suppressed)
+    reg.counter("calib.drift.parity_failed").add(watchdog.parity_failed)
+    reg.gauge("calib.drift.stat").set(float(watchdog.last_stat))
 
 
 def record_fused_serve_totals(reg: MetricsRegistry, *, s1_tiles: float,

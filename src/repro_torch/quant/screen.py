@@ -20,10 +20,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.calibration import EpsilonTable
 from repro_torch.core.dco import block_partial_sq, dco_screen_batch, first_reject
+from repro_torch.core.dco_host import dco_screen_host
 from repro_torch.core.topk import KnnResult, merge_topk, pad_waves
 from repro_torch.quant.accounting import two_stage_bytes
 from repro_torch.quant.scalar import (
@@ -32,7 +34,8 @@ from repro_torch.quant.scalar import (
 
 __all__ = ["Stage1Result", "QuantScreenResult", "quant_lb_screen",
            "two_stage_screen", "bytes_scanned", "QuantSearchStats",
-           "knn_search_waves_quant"]
+           "knn_search_waves_quant", "HostQuantResult", "two_stage_screen_host",
+           "knn_search_quant_host"]
 
 
 class Stage1Result(NamedTuple):
@@ -132,3 +135,96 @@ def knn_search_waves_quant(queries_rot: torch.Tensor, corpus_rot: torch.Tensor,
     result = KnnResult(dists=torch.sqrt(torch.clamp_min(top_sq, 0.0)), ids=top_ids,
                        avg_dims=(fp_acc / (qn * n)).float())
     return result, QuantSearchStats(lb_dims_total=lb_acc, fp_dims_total=fp_acc)
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) engines with actual work skipping and byte accounting
+# ---------------------------------------------------------------------------
+
+
+class HostQuantResult(NamedTuple):
+    est_sq: np.ndarray
+    passed: np.ndarray
+    dims_used: np.ndarray  # fp32 dims (0 for stage-1-pruned rows)
+    lb_dims: np.ndarray  # int8 dims
+    bytes_scanned: int  # lb_dims * 1 + fp dims * 4, summed
+
+
+def _cum_err(scales: np.ndarray, dims: np.ndarray) -> np.ndarray:
+    """E(d) at each checkpoint, float32, as ``scalar.cum_err_sq`` sums it."""
+    h = np.asarray(scales, np.float32) * np.float32(0.5)
+    return np.sqrt(np.cumsum(h * h, dtype=np.float32)[np.asarray(dims) - 1])
+
+
+def two_stage_screen_host(q_rot: np.ndarray, codes: np.ndarray, scales: np.ndarray,
+                          rows_fp: np.ndarray, dims: np.ndarray, eps: np.ndarray,
+                          scale: np.ndarray, r_sq: float, *,
+                          slack: float = DEFAULT_SLACK) -> HostQuantResult:
+    """One query's two-stage screen with candidate-set compaction."""
+    c = codes.shape[0]
+    est_sq = np.zeros((c,), np.float32)
+    lb_dims = np.zeros((c,), np.int32)
+    s_count = len(dims)
+    ecum = _cum_err(scales, dims)
+    active_idx = np.arange(c)
+    psum = np.zeros((c,), np.float32)
+    int8_dims_read = 0
+    prev_d = 0
+    for s in range(s_count):
+        d = int(dims[s])
+        blk = codes[active_idx, prev_d:d].astype(np.float32) * scales[prev_d:d] - q_rot[prev_d:d]
+        psum[active_idx] += np.einsum("cd,cd->c", blk, blk)
+        int8_dims_read += blk.size  # one int8 code per dim read
+        lb = np.maximum(np.sqrt(np.maximum(psum[active_idx], 0.0)) - ecum[s], 0.0) ** 2
+        lb *= (1.0 - slack) * float(scale[s])
+        thresh = (1.0 + float(eps[s])) ** 2 * r_sq
+        reject = lb > thresh
+        retired = active_idx[reject]
+        est_sq[retired] = lb[reject]
+        lb_dims[retired] = d
+        active_idx = active_idx[~reject]
+        if active_idx.size == 0:
+            break
+        prev_d = d
+    lb_dims[active_idx] = int(dims[-1])
+    passed = np.zeros((c,), bool)
+    dims_used = np.zeros((c,), np.int32)
+    if active_idx.size:
+        ref = dco_screen_host(q_rot, rows_fp[active_idx], dims, eps, scale, r_sq)
+        est_sq[active_idx] = ref.est_sq
+        passed[active_idx] = ref.passed
+        dims_used[active_idx] = ref.dims_used
+    return HostQuantResult(
+        est_sq=est_sq, passed=passed, dims_used=dims_used, lb_dims=lb_dims,
+        bytes_scanned=int(two_stage_bytes(int8_dims_read, int(dims_used.sum()))))
+
+
+def knn_search_quant_host(q_rot: np.ndarray, codes: np.ndarray, scales: np.ndarray,
+                          corpus_rot: np.ndarray, k: int, dims: np.ndarray,
+                          eps: np.ndarray, scale: np.ndarray,
+                          wave: int = 4096) -> tuple[np.ndarray, np.ndarray, dict]:
+    """Two-stage wave K-NN for one query; mirrors
+    ``core.dco_host.knn_search_host``.  Returns (ids, dists, stats)."""
+    n = corpus_rot.shape[0]
+    top_ids = np.full((k,), -1, np.int64)
+    top_sq = np.full((k,), np.inf, np.float32)
+    r_sq = np.inf
+    bytes_total = fp_dims_total = lb_dims_total = 0
+    for start in range(0, n, wave):
+        stop = min(start + wave, n)
+        res = two_stage_screen_host(q_rot, codes[start:stop], scales,
+                                    corpus_rot[start:stop], dims, eps, scale, r_sq)
+        bytes_total += res.bytes_scanned
+        fp_dims_total += int(res.dims_used.sum())
+        lb_dims_total += int(res.lb_dims.sum())
+        surv = np.nonzero(res.passed)[0]
+        if surv.size:
+            cand_sq = np.concatenate([top_sq, res.est_sq[surv]])
+            cand_id = np.concatenate([top_ids, surv + start])
+            order = np.argsort(cand_sq, kind="stable")[:k]
+            top_sq = cand_sq[order]
+            top_ids = cand_id[order]
+            r_sq = float(top_sq[-1])
+    stats = {"bytes_scanned": bytes_total, "fp_dims": fp_dims_total,
+             "lb_dims": lb_dims_total, "avg_fp_dims": fp_dims_total / n}
+    return top_ids, np.sqrt(top_sq), stats

@@ -21,10 +21,14 @@ Fault kinds (specs parse from ``kind[:key=val]*`` joined by ``;``):
     (exercises the queue-depth watermark shed).
   * ``shard_stall``    — injects ``ms`` of latency into ``count`` frontier
     waves once armed (the deadline/shedding path is what absorbs it).
-  * ``shard_death``, ``slab_corruption``, ``torn_upsert`` and
-    ``stale_transform`` parse and keep the reference's hooks, but no port
-    code calls those hooks yet: they belong to the sharded walk and to the
-    mutable index, snapshots and write-ahead log, which are not ported.
+  * ``slab_corruption`` — flips one byte of a committed index snapshot
+    leaf before restore (``serve --index-ckpt``; the digest must catch it).
+  * ``torn_upsert``    — the write-ahead log truncates the record it is
+    appending and raises (``checkpoint.wal``; replay must recover).
+  * ``stale_transform`` — suppresses the drift watchdog's recalibration
+    swap (``index.mutable.DriftWatchdog``).
+  * ``shard_death`` parses and keeps the reference's hook, but no port
+    code calls it yet: it belongs to the sharded walk, which is not ported.
 
 Every fired fault is appended to ``ChaosController.events`` and counted
 under ``serve.fault.*`` when a metrics registry is attached.
@@ -33,12 +37,13 @@ under ``serve.fault.*`` when a metrics registry is attached.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 __all__ = [
     "ChaosError", "FaultSpec", "FAULT_KINDS", "parse_fault", "parse_chaos",
     "NullChaos", "NULL_CHAOS", "ChaosController", "current_chaos",
-    "set_chaos", "use_chaos",
+    "set_chaos", "use_chaos", "corrupt_checkpoint_leaf",
 ]
 
 FAULT_KINDS = ("shard_death", "shard_stall", "step_error", "queue_overload",
@@ -328,6 +333,24 @@ class ChaosController:
 # ---------------------------------------------------------------------------
 
 _current: NullChaos | ChaosController = NULL_CHAOS
+
+
+def corrupt_checkpoint_leaf(step_dir: str, *, leaf: int = 0) -> str:
+    """Flip the last byte of ``leaf_<leaf>.npy`` inside a committed
+    checkpoint step directory — the minimal slab rot a digest must catch.
+    The last byte sits in the array payload (never the npy header), so the
+    corrupted file still loads; only the sha256 can tell.  Returns the
+    corrupted path."""
+    path = os.path.join(step_dir, f"leaf_{leaf:05d}.npy")
+    size = os.path.getsize(path)
+    if size == 0:
+        raise ValueError(f"cannot corrupt empty leaf file {path}")
+    with open(path, "r+b") as f:
+        f.seek(size - 1)
+        byte = f.read(1)
+        f.seek(size - 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return path
 
 
 def current_chaos():

@@ -423,3 +423,111 @@ def test_tracer_fence_waits_for_the_card(monkeypatch):
     assert calls == []
     Tracer().fence((x, [x.cpu()]))
     assert calls == [x.device]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 7, 8192, 32768])
+def test_cuda_row_rotation_does_not_depend_on_the_batch(batch):
+    """The rotation of corpus rows (``apply_rows``: what ``build_graph``
+    and the mutable index's upserts use) gives each row the bits it gets
+    alone: ``rotate(x[i:i+1]) == rotate(x[:batch])[i]``, checked on every
+    row up to 8,192 and on every 64th beyond.  (A matmul does not: cuBLAS
+    picks its kernel by shape, and on an H100 every row of a batch of 7 rows
+    or more rounds differently from its one-row product.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: cuBLAS's shape-dependent kernels are the case")
+    from repro_torch.core.transforms import fit_pca
+    from repro_torch.data.pipeline import synthetic_vectors
+
+    x = torch.as_tensor(synthetic_vectors(batch, 256, seed=0), device="cuda")
+    t = fit_pca(x if batch >= 256 else torch.as_tensor(
+        synthetic_vectors(4096, 256, seed=0), device="cuda"), device="cuda")
+    full = t.apply_rows(x)
+    rows = range(batch) if batch <= 8192 else range(0, batch, 64)
+    for i in rows:
+        assert torch.equal(t.apply_rows(x[i: i + 1])[0], full[i]), i
+    import dataclasses
+    on_cpu = dataclasses.replace(t, basis=t.basis.cpu())
+    assert torch.equal(full.cpu(), on_cpu.apply_rows(x.cpu()))  # as on the CPU
+
+
+@pytest.fixture(scope="module")
+def churned_cuda_graph():
+    """A MutableGraph of 1,000 rows x 64 dims on the card after 120 upserts
+    (drifted rows, so some requantize) and 40 deletes, and its rebuild."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graph_walk kernel has no CPU mode")
+    import numpy as np
+    from repro_torch.core.estimators import build_estimator
+    from repro_torch.data.pipeline import drifted_vectors, synthetic_vectors
+    from repro_torch.index.mutable import MutableGraph
+
+    corpus = synthetic_vectors(1000, 64, seed=0)
+    est = build_estimator("dade", corpus, torch.Generator().manual_seed(0), delta_d=32,
+                          quant="int8", device="cuda")
+    ups = drifted_vectors(est.transform, 120, seed=11) * 1.5
+    mg = MutableGraph(corpus, m=12, ef_construction=32, estimator=est, quant="int8",
+                      capacity=1200, device="cuda")
+    for row in ups:
+        assert mg.upsert(row) >= 0
+    for gid in np.random.default_rng(3).choice(mg.count, 40, replace=False):
+        assert mg.delete(int(gid))
+    return mg, np.concatenate([corpus, ups])
+
+
+@pytest.mark.gpu
+def test_cuda_mutable_graph_equals_rebuild(churned_cuda_graph):
+    """On the card, the mutated slabs (written row by row) equal a
+    from-scratch ``build_graph`` of the final corpus, array for array, and
+    both walks return the same ids under the same tombstones."""
+    from repro_torch.data.pipeline import synthetic_queries
+    from repro_torch.index.graph import build_graph, search_graph_fused
+
+    mg, full = churned_cuda_graph
+    assert mg.ledger.requantizes >= 1
+    ref = build_graph(full, estimator=mg.estimator, m=12, ef_construction=32,
+                      quant="int8", device="cuda")
+    idx = mg.index
+    assert idx.entry == ref.entry
+    for f in ("neighbors", "corpus_rot", "qscales", "corpus_q", "gscales", "adj_ids",
+              "adj_codes", "adj_rot"):
+        assert torch.equal(getattr(idx, f), getattr(ref, f)), f
+    q = synthetic_queries(40, 64, full, seed=4)
+    t = mg.tombstones
+    d, i, _ = mg.search(q, k=10)
+    d_r, i_r, _ = search_graph_fused(ref, q, k=10, tombstones=t, exclude=t, device="cuda")
+    assert torch.equal(i, i_r) and torch.equal(d, d_r)
+
+
+@pytest.mark.gpu
+def test_cuda_walk_with_tombstones_matches_plain_walk(churned_cuda_graph):
+    """The walk kernel on the churned index's own inputs, deleted rows
+    pre-set in its starting bitmap, equals ``ref.graph_walk_ref`` bit for
+    bit (window, ids, every wave's stats, the bitmap, wave counts); no
+    tile expands a tombstoned node (its bit was set before the first wave,
+    and no wave's picks hold it)."""
+    import numpy as np
+    from repro_torch.data.pipeline import synthetic_queries
+    from repro_torch.index.graph import walk_inputs
+    from repro_torch.kernels.graph_scan import graph_walk_kernel_call
+    from repro_torch.kernels.ops import unpack_vis
+    from repro_torch.kernels.ref import graph_walk_ref
+
+    mg, full = churned_cuda_graph
+    q = synthetic_queries(77, 64, full, seed=6)
+    args, wkw, _ = walk_inputs(mg.index, q, k=10, ef=48, expand=2, block_q=8, max_waves=64,
+                               seed_r=False, decoupled=True, route_mult=1.0,
+                               tombstones=mg.tombstones)
+    vis0 = unpack_vis(args[6], mg.count)
+    dead = np.zeros(mg.count, bool)
+    for b, c in mg.tombstones:
+        dead[b: b + c] = True
+    assert (vis0 == dead[None, :]).all()
+    out_k = graph_walk_kernel_call(*args, **wkw)
+    out_p = graph_walk_ref(*args, **wkw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    # Expanded nodes are the bits the walk added; none is tombstoned.
+    added = unpack_vis(out_k[3], mg.count) & ~vis0
+    assert added.any() and not (added & dead[None, :]).any()

@@ -16,13 +16,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.checkpoint.index_io import load_graph_index  # noqa: E402
 from repro_torch.core.estimators import build_estimator  # noqa: E402
 from repro_torch.core.topk import exact_knn  # noqa: E402
 from repro_torch.core.transforms import fit_pca  # noqa: E402
 from repro_torch.index.flat import build_flat  # noqa: E402
 from repro_torch.index.graph import build_graph, search_graph_fused  # noqa: E402
-from repro_torch.index.ivf import build_ivf  # noqa: E402
+from repro_torch.index.ivf import build_ivf, search_ivf  # noqa: E402
 from repro_torch.index.kmeans import kmeans  # noqa: E402
+from repro_torch.index.mutable import MutableGraph  # noqa: E402
 from repro_torch.kernels import _screen, graph_scan, ivf_scan, l2_scan, ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.annservice import build_graph_engine  # noqa: E402
@@ -53,7 +55,9 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.ops, repro_torch.kernels.l2_scan, repro_torch.core.dco, "
             "repro_torch.core.topk, repro_torch.quant.screen, repro_torch.obs, "
             "repro_torch.runtime.chaos, repro_torch.runtime.scheduler, "
-            "repro_torch.launch.annservice; "
+            "repro_torch.launch.annservice, repro_torch.index.mutable, "
+            "repro_torch.checkpoint.manager, repro_torch.checkpoint.index_io, "
+            "repro_torch.checkpoint.wal, repro_torch.core.dco_host; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -66,6 +70,20 @@ def _cpu_graph(d):
     return build_graph(d, m=4, ef_construction=8, delta_d=16, device="cpu")
 
 
+def _cpu_ivf(d):
+    return build_ivf(d, n_clusters=4, delta_d=16, device="cpu")
+
+
+def _graph_snapshot(d):
+    """A directory holding a graph snapshot written on the CPU."""
+    import tempfile
+
+    from repro_torch.checkpoint.index_io import save_graph_index
+    path = tempfile.mkdtemp()
+    save_graph_index(path, _cpu_graph(d))
+    return path
+
+
 ENTRY_POINTS = [
     (fit_pca, lambda d: fit_pca(d)),
     (build_estimator, lambda d: build_estimator("dade", d)),
@@ -76,6 +94,9 @@ ENTRY_POINTS = [
     (build_graph, lambda d: build_graph(d, m=4, ef_construction=8, delta_d=16)),
     (search_graph_fused, lambda d: search_graph_fused(_cpu_graph(d), d)),
     (build_graph_engine, lambda d: build_graph_engine(_cpu_graph(d), k=2)),
+    (MutableGraph, lambda d: MutableGraph(d, m=4, ef_construction=8, delta_d=16)),
+    (load_graph_index, lambda d: load_graph_index(_graph_snapshot(d))),
+    (search_ivf, lambda d: search_ivf(_cpu_ivf(d), d[:4], k=2)),
 ]
 
 
