@@ -113,7 +113,28 @@ on any fault.  Phases, one line each:
      graph saved by ``serve --index-ckpt`` and restored by a second serve
      that builds nothing serves the same ids, its arrays and searches equal
      the original's bit for bit, and the flat route's estimator snapshot
-     serves the ids the built estimator served.
+     serves the ids the built estimator served;
+ 15. multi-device serving (run after phase 14, from its snapshot of phase
+     7's graph), ranks sharing the one card: (a) ``search_graph_sharded``
+     for S = 1, 2, 4 (one one-wave launch per shard a wave over its slab
+     rows, the threshold frozen), ids and distances bit-identical across S
+     and to the plain oracle (``num_shards=1, use_ref=True``), the same
+     waves, per-shard fetch tuples summing to the S = 1 totals, each S
+     timed; one sliced-slab launch (S = 4, shard 3, a middle wave) against
+     ``ref.graph_scan_ref`` bit for bit; (b) the process-group engine
+     (``annservice.sharded_graph_engine``) spawned at S = 2 and 4 over gloo,
+     each rank loading its slab rows from the snapshot: (a)'s ids and
+     distances, every rank's window and bitmap equal after every wave, the
+     exchange bytes, the all-gather's ms a wave and the card's busy share;
+     (c) ``serve --graph-shards 4`` (4 requests of phase 8's sizes, metrics
+     schema), then under ``shard_death:shard=1:after=2`` with
+     ``--verify-degraded-oracle``; (d)
+     ``serve --continuous --graph-shards 2`` on a short closed loop, every
+     retired query equal to its solo sharded walk (ids, distances,
+     ledger); (e) ``serve --index flat --ranks 2 --shards 4`` with phase
+     4's arguments (40 requests) returning phase 4's one-process ``--shards
+     4`` ids, its QPS, recall@100 and merge ms.  Each serve's timed window is printed
+     beside its rate.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -125,7 +146,11 @@ graph_scan's one-wave launches in phase 12 and their time at the
 launches in phase 13 and their median time (``continuous_launches``,
 ``continuous_ms``), graph_scan's walk launches in phase 14's churn serving
 and snapshot serves (``churn_launches``, ``snapshot_launches``) and
-ivf_scan's in phase 14's flat snapshot serves (``snapshot_launches``).
+ivf_scan's in phase 14's flat snapshot serves (``snapshot_launches``);
+phase 15's one-wave launches over every rank (``sharded_launches``) and the
+S = 4 host-simulated search's median ms (``sharded_s4_search_ms``), and
+ivf_scan's launches in its flat serve over 2 ranks, every rank's
+(``ranked_launches``).
 
 Kernel parity rule: the top-K ids, the squared distances, every stats
 counter, the visited bitmap and every screen output (estimates, flags,
@@ -196,6 +221,17 @@ CHURN_REQUESTS = 40
 CHURN_RATE = 32
 CHURN_CAPTURE = 30
 SNAPSHOT_REQUESTS = 4
+# Phase 15: the shard counts of the host-simulated walk and its timed runs
+# each; the requests of each sharded graph serve (phase 8's sizes; few, so
+# that the whole script stays well inside its time limit: at about 1,300
+# queries/s they still make a window of seconds), and the batch of the
+# continuous sharded serve (requests of 32-127 queries, each retired query
+# then checked against its solo walk).  The flat route over ranks serves
+# phase 4's FLAT_REQUESTS.
+SHARDED_COUNTS = (1, 2, 4)
+SHARDED_REPS = 3
+SHARDED_REQUESTS = 4
+SHARDED_CONT_BATCH = 64
 
 
 def log(msg: str) -> None:
@@ -325,8 +361,9 @@ def awkward_case(seed, *, k, block_q=8, block_c=128, n_rows=4096, dim=256,
 
 
 def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
-        slice_queries: int, card: str) -> dict:
-    """Phases 2-5 on ``DEV``; returns the ivf_scan kernels entry."""
+        slice_queries: int, card: str) -> tuple:
+    """Phases 2-5 on ``DEV``; returns the ivf_scan kernels entry and phase
+    4's served ``--shards`` run (its arguments and report)."""
     import torch
     from repro_torch.core.topk import exact_knn
     from repro_torch.data.pipeline import synthetic_queries
@@ -445,6 +482,9 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     for g in dict.fromkeys([1, SHARDS]):
         kernel.launches = 0
         report = serve.main(serve_argv + ["--shards", str(g)])
+        if g == SHARDS:
+            # Phase 15's flat route over ranks serves the same requests.
+            served = (serve_argv + ["--shards", str(g)], report)
         serve_launches = kernel.launches
         check(serve_launches > 0, "the serving route launched no ivf_scan kernel")
         check(report["recall"] >= 0.95, f"serving recall@{svc.k} {report['recall']} < 0.95")
@@ -529,7 +569,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         f"({entry['bound_by']}) library_ms(_int_mm {qn}x{n}x{dim})={library_ms:.3f} "
         f"at block_q={bq} segments={SHARDS} on {card}; phases 2-5 took "
         f"{time.perf_counter() - t_start:.0f}s")
-    return entry
+    return entry, served
 
 
 def scan_design(svc, srv, qb, gt, card, *, widths, segment_counts, served) -> dict:
@@ -696,8 +736,10 @@ def agree_walk(name, out_k, out_p, block_q):
     return err
 
 
-def run_graph(card: str) -> dict:
-    """Phases 6-8 on ``DEV``; returns the graph_scan kernels entry."""
+def run_graph(card: str, flat_served) -> dict:
+    """Phases 6-8 (and 12, 14, 15) on ``DEV``; ``flat_served`` is phase 4's
+    served flat run (:func:`run`), phase 15's one-process reference.
+    Returns the graph_scan kernels entry."""
     import dataclasses
 
     import torch
@@ -1008,6 +1050,10 @@ def run_graph(card: str) -> dict:
     max_err = max(max_err, churn["max_err"])
     cont = run_continuous_graph(gsrv, gsvc, (queries, gt.cpu().numpy(), rec), card)
     max_err = max(max_err, cont["max_err"])
+    shard = run_sharded(gsrv, gsvc, queries, gt, churn["snapshot"], card, flat_served)
+    max_err = max(max_err, shard["max_err"])
+    sharded_launches = (shard["host_launches"] + shard["pg_launches"]
+                        + shard["serve_launches"] + shard["cont_launches"])
     entry = {
         "name": "graph_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/graph_scan.cu",
@@ -1017,6 +1063,8 @@ def run_graph(card: str) -> dict:
         "churn_launches": churn["launches"], "churn_walk_ms": churn["tombstoned_walk_ms"],
         "snapshot_launches": churn["snapshot_walks"],
         "flat_snapshot_launches": churn["snapshot_scans"],
+        "sharded_launches": sharded_launches, "sharded_s4_search_ms": shard["s4_ms"],
+        "ranked_flat_launches": shard["flat_launches"],
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
@@ -1024,13 +1072,14 @@ def run_graph(card: str) -> dict:
     }
     log(f"kernels: graph_scan launches={entry['launches']} (the walk: route={route_launches} "
         f"serve={serve_launches}; churn_launches={churn['launches']} in churn serving, "
-        f"snapshot_launches={churn['snapshot_walks']}; one_wave_launches={cont['launches']} in continuous "
+        f"snapshot_launches={churn['snapshot_walks']}; sharded_launches={sharded_launches} "
+        f"one-wave launches in phase 15; one_wave_launches={cont['launches']} in continuous "
         f"serving, {cont['ms']:.4f} ms a launch at {CONT_MAX_LIVE} tiles) "
         f"max_abs_err={max_err:.3e} "
         f"ms={ms:.4f} per search plain_ms={plain_ms:.1f} "
         f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}); the search's waves "
         f"through the one-wave kernel {waves_sum_ms:.4f} ms summed, the widest "
-        f"{wave_ms:.4f} ms; on {card}; phases 6-8 and 12 took "
+        f"{wave_ms:.4f} ms; on {card}; phases 6-8, 12, 14 and 15 took "
         f"{time.perf_counter() - t_start:.0f}s")
     return entry
 
@@ -1206,9 +1255,234 @@ def run_churn(gsrv, gsvc, queries, card) -> dict:
         f"estimator saved and restored, the same ids served ({t4 - t3:.1f} s for both "
         f"serves); walk launches {graph_launches}, ivf_scan launches {flat_launches}; "
         f"phase 14 took {time.perf_counter() - t_start:.0f}s")
-    shutil.rmtree(work, ignore_errors=True)
+    # Phase 15 serves from the graph's snapshot, then removes the directory.
     return {"max_err": max_err, "launches": churn_launches, "snapshot_walks": graph_launches,
-            "snapshot_scans": flat_launches, "tombstoned_walk_ms": tomb_ms}
+            "snapshot_scans": flat_launches, "tombstoned_walk_ms": tomb_ms,
+            "snapshot": str(work / "graph_ckpt")}
+
+
+def run_sharded(gsrv, gsvc, queries, gt, snapshot, card, flat_served) -> dict:
+    """Phase 15: multi-device serving on phase 7's graph, as ranks on one card.
+
+    (a) ``search_graph_sharded`` at S = 1, 2, 4 (the host-simulated walk, one
+    launch of the one-wave kernel per shard a wave over the shard's slab
+    rows, ``tighten=False``, ``vis_base`` the shard's first node) against
+    the plain oracle (``num_shards=1, use_ref=True``): ids and distances
+    bit for bit across S and to the oracle, the same waves, per-shard
+    fetch tuples that sum to the S = 1 totals; one captured sliced-slab
+    launch (S = 4, shard 3, a middle wave) against ``ref.graph_scan_ref``
+    bit for bit.  (b) The process-group engine spawned at S = 2 and 4 over
+    gloo, its ranks loading their slabs from phase 14's snapshot of this
+    graph: (a)'s ids and distances, every rank's merged window and bitmap
+    equal after every wave; the exchange and all-gather figures.  (c)
+    ``serve --graph-shards 4`` (metrics through the schema check), then a
+    ``shard_death`` drill with ``--verify-degraded-oracle``.  (d) ``serve --continuous --graph-shards
+    2``: every retired query equals its solo sharded walk.  (e) ``serve
+    --index flat --ranks 2 --shards 4`` with phase 4's arguments returns
+    the ids of phase 4's one-process run (``flat_served``).  Returns the
+    launch counts and times."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.index import graph as graph_mod
+    from repro_torch.kernels import graph_scan, ref
+    from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call
+    from repro_torch.launch import serve
+    from repro_torch.launch.annservice import sharded_graph_engine
+
+    t_start = time.perf_counter()
+    gidx = gsrv.index
+    wave_kernel = graph_scan.graph_scan_kernel_call
+    kw = dict(k=10, ef=48, expand=2, device=DEV)
+    max_err = 0.0
+
+    # (a) the host-simulated walk at S = 1, 2, 4 against the plain oracle.
+    t0 = time.perf_counter()
+    d_o, i_o, st_o = graph_mod.search_graph_sharded(gidx, queries, num_shards=1,
+                                                    use_ref=True, **kw)
+    sync()
+    oracle_s = time.perf_counter() - t0
+    wave_kernel.launches = 0
+    runs, times = {}, {}
+    for shards in SHARDED_COUNTS:
+        before = wave_kernel.launches
+        runs[shards] = graph_mod.search_graph_sharded(gidx, queries, num_shards=shards, **kw)
+        sync()
+        d, i, st = runs[shards]
+        check(torch.equal(i, i_o) and torch.equal(d, d_o),
+              f"the {shards}-shard walk diverges from the plain oracle")
+        check(st.waves == st_o.waves, f"{shards} shards walked {st.waves} waves, the "
+              f"oracle {st_o.waves}")
+        check(sum(st.shard_s1_tiles_fetched) == sum(runs[1][2].shard_s1_tiles_fetched)
+              and sum(st.shard_s2_slabs_fetched) == sum(runs[1][2].shard_s2_slabs_fetched),
+              f"{shards} shards' fetch tuples do not sum to one shard's")
+        check(wave_kernel.launches - before == shards * st.waves,
+              f"{shards} shards made {wave_kernel.launches - before} launches in "
+              f"{st.waves:.0f} waves")
+        ts = []
+        for _ in range(SHARDED_REPS):
+            t0 = time.perf_counter()
+            graph_mod.search_graph_sharded(gidx, queries, num_shards=shards, **kw)
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[shards] = ts
+    host_launches = wave_kernel.launches
+    # One sliced-slab launch captured mid-walk: S = 4, shard 3.
+    waves4 = int(runs[4][2].waves)
+    target = 4 * (waves4 // 2) + 3
+    captured = {}
+
+    def capturing(*a, **k):
+        out = wave_kernel(*a, **k)
+        captured["n"] = captured.get("n", 0) + 1
+        if captured["n"] == target + 1:
+            captured["case"] = (a, dict(k), out)
+        return out
+
+    graph_mod.graph_scan_kernel_call = capturing
+    try:
+        graph_mod.search_graph_sharded(gidx, queries, num_shards=4, **kw)
+    finally:
+        graph_mod.graph_scan_kernel_call = wave_kernel
+    args, ckw, out_k = captured["case"]
+    check(args[14] == 3 * gidx.corpus_rot.shape[0] // 4 and not ckw["tighten"],
+          "the captured launch is not shard 3's frozen wave")
+    out_p = ref.graph_scan_ref(*args, **ckw)
+    sync()
+    max_err = max(max_err, agree_graph(f"graph_sliced_slab_s4_shard3_wave{waves4 // 2}",
+                                       out_k, out_p, 8))
+    st4 = runs[4][2]
+    log(f"sharded walk: {len(queries)} queries, S=1/2/4 ids and distances bit-identical "
+        f"to the plain oracle ({oracle_s:.1f} s), {st_o.waves:.0f} waves each; per search "
+        + "; ".join(f"S={s} {statistics.median(t):.2f} ms (runs {' '.join(f'{x:.2f}' for x in t)})"
+                    for s, t in times.items())
+        + f"; S=4 fetch tuples s1={st4.shard_s1_tiles_fetched} "
+        f"s2={st4.shard_s2_slabs_fetched}, exchange {st4.exchange_bytes_per_wave:.0f} B a "
+        f"wave, {st4.exchange_bytes_per_query:.0f} B a query; one-wave launches "
+        f"{host_launches}; on {card}")
+
+    # (b) the process-group engine, ranks spawned on this card.
+    pg = {}
+    for shards in (2, 4):
+        t0 = time.perf_counter()
+        with sharded_graph_engine(gidx, snapshot, num_shards=shards, backend="gloo", k=10,
+                                  ef=48, expand=2, record=True, timed=True,
+                                  device=DEV) as engine:
+            spawn_s = time.perf_counter() - t0
+            d, i, st = engine(queries)
+            sync()
+            eng = engine.local
+            base_gather, base_waves = eng.gather_ms, eng.waves
+            t1 = time.perf_counter()
+            d2, i2, _ = engine(queries)
+            sync()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            gather_ms = (eng.gather_ms - base_gather) / max(eng.waves - base_waves, 1)
+        check(np.array_equal(i, i_o.cpu().numpy()) and np.array_equal(d, d_o.cpu().numpy())
+              and np.array_equal(i, i2) and np.array_equal(d, d2),
+              f"the {shards}-rank engine diverges from the walks")
+        ranks = engine.ranks
+        digests = ranks[0]["digests"]
+        check(all(r["digests"] == digests for r in ranks.values()) and len(digests) == 2 * st.waves,
+              f"the {shards} ranks ended a wave with different windows or bitmaps")
+        launches = sum(r["launches"] for r in ranks.values())
+        check(launches == 2 * shards * st.waves,
+              f"{shards} ranks made {launches} launches in {2 * st.waves:.0f} waves")
+        kernel_ms = sum(r["kernel_ms"] for r in ranks.values()) / 2  # per search
+        pg[shards] = dict(launches=launches, wall_ms=wall_ms, gather_ms=gather_ms,
+                          busy=kernel_ms / wall_ms)
+        log(f"process-group engine: {shards} ranks on one card, backend gloo (each "
+            f"collective staged through the host), spawned and "
+            f"loaded in {spawn_s:.1f} s; {len(queries)} queries, {st.waves:.0f} waves, "
+            f"ids and distances equal to (a)'s; every rank's window and bitmap equal after "
+            f"each of {len(digests)} waves; exchange {st.exchange_bytes_per_wave:.0f} B a "
+            f"wave, {st.exchange_bytes_per_query:.0f} B a query; a search {wall_ms:.1f} ms, "
+            f"its all-gather {gather_ms:.3f} ms a wave on rank 0, the kernels "
+            f"{kernel_ms:.2f} ms summed over ranks (card busy {100 * kernel_ms / wall_ms:.1f} %"
+            f" of the search); launches {launches}; on {card}")
+
+    # (c) serve --graph-shards 4 from phase 14's snapshot, then a shard death.
+    g_argv = ["--index", "graph", "--device", DEV, "--corpus", str(gsvc.corpus_per_device),
+              "--dim", str(gsvc.dim), "--k", "10", "--batch", "1024", "--delta-d",
+              str(gsvc.delta_d), "--p-s", "0.02", "--ef", "48", "--expand", "2", "--m", "16",
+              "--index-ckpt", snapshot, "--requests", str(SHARDED_REQUESTS),
+              "--graph-shards", "4", "--dist-backend", "gloo"]
+    work = Path(snapshot).parent
+    serves = {}
+    for name, extra in (("healthy", []),
+                        ("degraded", ["--chaos", "shard_death:shard=1:after=2",
+                                      "--verify-degraded-oracle"])):
+        path = work / f"sharded_{name}.json"
+        t0 = time.perf_counter()
+        rep = serve.main(g_argv + extra + ["--metrics-json", str(path)])
+        serves[name] = (rep, time.perf_counter() - t0)
+        check(rep["requests_served"] == SHARDED_REQUESTS and rep["requests_shed"] == 0,
+              f"sharded serving ({name}) did not answer every request")
+        out = subprocess.run([sys.executable, str(ROOT / "scripts" / "check_metrics_schema.py"),
+                              str(path)], capture_output=True, text=True, timeout=60)
+        check(out.returncode == 0, f"sharded metrics schema ({name}): {out.stdout}")
+    rep_h, rep_d = serves["healthy"][0], serves["degraded"][0]
+    check(rep_d.get("degraded_requests", 0) > 0, "the shard death degraded no request")
+    serve_launches = sum(sum(r["rank_launches"]) for r, _ in serves.values())
+    log(f"sharded serve: --graph-shards 4, backend {rep_h['backend']}, {SHARDED_REQUESTS} requests "
+        f"({rep_h['queries']} queries, {rep_h['batches']} batches) from phase 14's snapshot: "
+        f"QPS {rep_h['qps']:.1f} over {window_s(rep_h):.2f} s (4 ranks on one card, not 4 "
+        f"chips) recall@10 "
+        f"{rep_h['recall']:.4f}, exchange {rep_h['exchange_bytes_per_wave']:.0f} B a wave, "
+        f"metrics schema ok, "
+        f"{serves['healthy'][1]:.0f} s; shard_death:shard=1:after=2: QPS "
+        f"{rep_d['qps']:.1f} over {window_s(rep_d):.2f} s, {rep_d['degraded_requests']} degraded requests at recall@10 "
+        f"{rep_d['degraded_recall']:.4f} (delta {rep_d['degraded_recall_delta']:+.4f}), "
+        f"survivors equal to the surviving-corpus oracle, {serves['degraded'][1]:.0f} s; "
+        f"rank launches {rep_h['rank_launches']} / {rep_d['rank_launches']}; on {card}")
+
+    # (d) continuous sharded serving: every retired query against its solo walk.
+    c_argv = [a for a in g_argv if a not in ("--dist-backend", "gloo")]
+    c_argv[c_argv.index("--batch") + 1] = str(SHARDED_CONT_BATCH)
+    c_argv[c_argv.index("--graph-shards") + 1] = "2"
+    before = wave_kernel.launches
+    with served_walks() as done:
+        rep_c = serve.main(c_argv + ["--continuous", "--max-live", str(CONT_MAX_LIVE),
+                                     "--verify-graph-oracle"])
+    cont_launches = wave_kernel.launches - before
+    rows = np.stack([r for r, _ in done])
+    for row, rq in done:
+        d, i, st = graph_mod.search_graph_sharded(gidx, row[None], num_shards=2, **kw)
+        check(np.array_equal(rq.ids, i.cpu().numpy()[0])
+              and np.array_equal(rq.dists, d.cpu().numpy()[0]) and rq.stats == st,
+              "a continuous sharded query diverges from its solo sharded walk")
+    log(f"continuous sharded serve: --graph-shards 2 (host-simulated), "
+        f"{SHARDED_REQUESTS} requests of {SHARDED_CONT_BATCH // 2}-"
+        f"{2 * SHARDED_CONT_BATCH - 1} queries: QPS {rep_c['qps']:.1f} over "
+        f"{window_s(rep_c):.2f} s, recall@10 "
+        f"{rep_c['recall']:.4f}, {rep_c['waves']:.0f} waves; all {len(rows)} retired "
+        f"queries (warm-up and verify included) equal their solo sharded walks: ids, "
+        f"distances, ledgers; one-wave launches {cont_launches}; on {card}")
+
+    # (e) the flat route over two ranks against phase 4's one-process run of
+    # the same requests.
+    f_argv, one = flat_served
+    ivf_scan_kernel_call.launches = 0
+    ranked = serve.main(f_argv + ["--ranks", "2", "--dist-backend", "gloo"])
+    check(ranked["ids_sha256"] == one["ids_sha256"],
+          "the flat route over 2 ranks served other ids than phase 4's one-process run")
+    log(f"flat over ranks: {FLAT_REQUESTS} requests ({one['queries']} queries), --ranks 2 "
+        f"--shards 4 (backend {ranked['backend']}, 2 ranks on one card) QPS "
+        f"{ranked['qps']:.1f} over {window_s(ranked):.2f} s, recall@100 "
+        f"{ranked['recall']:.4f}, the rank merge "
+        f"{ranked['merge_ms_per_batch']:.3f} ms a batch; phase 4's one process --shards 4: "
+        f"QPS {one['qps']:.1f} over {window_s(one):.2f} s, recall@100 {one['recall']:.4f}; "
+        f"the same ids; ivf_scan "
+        f"launches {ivf_scan_kernel_call.launches} (ranks {ranked['rank_launches']}); "
+        f"on {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 15 took {time.perf_counter() - t_start:.0f}s on {card}")
+    return {"max_err": max_err, "host_launches": host_launches,
+            "pg_launches": sum(p["launches"] for p in pg.values()),
+            "serve_launches": serve_launches, "cont_launches": cont_launches,
+            "flat_launches": ivf_scan_kernel_call.launches + sum(ranked["rank_launches"][1:]),
+            "s4_ms": statistics.median(times[4]), "pg": pg}
 
 
 def run_continuous_ivf(idx, queries, k: int, card: str) -> dict:
@@ -1307,6 +1581,11 @@ def per_slot_wave_ms(eng) -> dict:
     [(sq[t * bq: (t + 1) * bq], ids[t * bq: (t + 1) * bq], vis[t: t + 1]) for t in range(n)]
     t3 = time.perf_counter()
     return {"select": (t1 - t0) * 1e3, "stack": (t2 - t1) * 1e3, "readback": (t3 - t2) * 1e3}
+
+
+def window_s(report: dict) -> float:
+    """The seconds of a serve run's timed window (its queries over its QPS)."""
+    return report["queries"] / report["qps"]
 
 
 def requests_queries(gsrv, gsvc):
@@ -1941,12 +2220,13 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    ivf = run(CONFIG, n_clusters=1024, n_queries=1024, slice_rows=65536,
-              slice_queries=64, card=card)
-    graph = run_graph(card)
+    ivf, flat_served = run(CONFIG, n_clusters=1024, n_queries=1024, slice_rows=65536,
+                           slice_queries=64, card=card)
+    graph = run_graph(card, flat_served)
     flat = run_flat(CONFIG, card)
     ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
-    log(f"phases 2-14 took {time.perf_counter() - t0:.0f}s")
+    ivf["ranked_launches"] = graph.pop("ranked_flat_launches")
+    log(f"phases 2-15 took {time.perf_counter() - t0:.0f}s")
     log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,11 +30,11 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.calibration import EpsilonTable
 from repro_torch.core.estimators import Estimator
 from repro_torch.core.transforms import OrthogonalTransform
-from repro_torch.index.graph import GraphIndex
+from repro_torch.index.graph import GraphIndex, GraphSlab, shard_graph_nodes
 from repro_torch.quant.scalar import QuantConfig
 
-__all__ = ["save_graph_index", "load_graph_index", "save_estimator",
-           "load_estimator"]
+__all__ = ["save_graph_index", "load_graph_index", "load_graph_slab",
+           "save_estimator", "load_estimator"]
 
 _STEP = 0  # one snapshot per directory
 
@@ -132,6 +132,37 @@ def load_graph_index(directory: str, *, expect_config: dict | None = None,
         adj_block=int(extra.get("adj_block", 0)),
         scan_block_d=int(extra.get("scan_block_d", 0)),
         **opt)
+
+
+def load_graph_slab(directory: str, *, shard: int, num_shards: int,
+                    device: str | torch.device = "cuda") -> GraphSlab:
+    """Shard ``shard`` of ``num_shards`` of the graph snapshotted in
+    ``directory`` (``index.graph.shard_graph_nodes``), on ``device``: only
+    its adjacency rows reach the device.  Every leaf read is digest-checked;
+    a snapshot without the int8 layout is refused."""
+    dev = resolve_device(device)
+    mgr = CheckpointManager(directory, keep=1, async_save=False)
+    if mgr.latest_step() is None:
+        raise IOError(f"no graph snapshot in {directory}")
+    est_names = {"est." + f for f in ("basis", "variances", "cum_variances", "dims",
+                                      "eps", "scale", "eps_lo")}
+    arrays, extra = mgr.restore_named(
+        _STEP, only=est_names | {"adj_rot", "adj_codes", "adj_ids", "gscales"})
+    if extra.get("kind") != "graph_index" or "adj_codes" not in extra.get("optional", []):
+        raise IOError(f"{directory} holds no int8 graph index snapshot")
+    a_block = int(extra["adj_block"])
+    n = arrays["adj_ids"].shape[0] // a_block
+    base, count = shard_graph_nodes(n, num_shards)[shard]
+    rows = slice(base * a_block, (base + count) * a_block)
+    rot = torch.as_tensor(arrays["adj_rot"][rows], device=dev)
+    if extra.get("adj_dtype") == "bfloat16":
+        rot = rot.to(torch.bfloat16)
+    return GraphSlab(
+        estimator=_unpack_estimator(arrays, extra["estimator"], dev), adj_rot=rot,
+        adj_codes=torch.as_tensor(arrays["adj_codes"][rows], device=dev),
+        adj_ids=torch.as_tensor(arrays["adj_ids"][rows], device=dev),
+        gscales=torch.as_tensor(arrays["gscales"], device=dev), adj_block=a_block,
+        scan_block_d=int(extra["scan_block_d"]), n_nodes=n, base=base)
 
 
 def save_estimator(directory: str, est: Estimator, *,

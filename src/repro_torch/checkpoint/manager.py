@@ -18,7 +18,7 @@ Layout per step::
 Trees are nested dicts (keys in sorted order), lists and tuples of tensors
 or arrays, flattened in the reference's order with its path strings
 (``['key']``, ``[0]``).  Restoring onto a device mesh (``shardings=``)
-waits for the multi-device port (ROADMAP queue 1 item 7).
+waits for the training port (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -186,8 +186,8 @@ class CheckpointManager:
         device of ``like``'s leaf there (the CPU for an array)."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=...) re-places leaves on a device mesh: not "
-                "ported (ROADMAP queue 1 item 7)")
+                "restore(shardings=...) re-places leaves on a device mesh for "
+                "training: not ported (ROADMAP queue 1 item 8)")
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "tree.json")) as f:
             meta = json.load(f)
@@ -221,10 +221,11 @@ class CheckpointManager:
         self._write(step, [to_host(arrays[k]) for k in names],
                     [f"[{k!r}]" for k in names], extra=meta)
 
-    def restore_named(self, step: int, *,
-                      verify: bool = True) -> tuple[dict[str, np.ndarray], dict]:
+    def restore_named(self, step: int, *, verify: bool = True,
+                      only=None) -> tuple[dict[str, np.ndarray], dict]:
         """Load a :meth:`save_named` step -> ``(arrays, extra)``, numpy on
-        the host.  A digest mismatch raises ``IOError`` naming the leaf."""
+        the host (``only``: just those names).  A digest mismatch raises
+        ``IOError`` naming the leaf."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "tree.json")) as f:
             meta = json.load(f)
@@ -234,4 +235,4 @@ class CheckpointManager:
             raise ValueError(f"step {step} was not written by save_named "
                              f"(names metadata missing or inconsistent)")
         return ({name: _load_leaf(path, i, meta, name, verify)
-                 for i, name in enumerate(names)}, extra)
+                 for i, name in enumerate(names) if only is None or name in only}, extra)

@@ -33,7 +33,17 @@ frontier picked between waves by ``_select_wave``.
 ``search_graph`` is the reference's greedy per-query walk (plain PyTorch,
 the only search of an unquantized build).  Tombstones (pre-visited nodes)
 and the delete filter (``exclude``) serve the mutable index
-(``index.mutable``).  Not ported here: sharded walks.
+(``index.mutable``) and shard failover.
+
+Sharded walks (``search_graph_sharded``): the corpus split into
+``num_shards`` contiguous node ranges (``shard_graph_nodes``), each wave
+screened by one one-wave launch per shard over the shard's slab rows with
+the wave-start threshold frozen, the shards' windows merged
+(``merge_shard_windows``) and their bitmaps OR-ed between waves, the host
+picking each wave's frontier.  A frozen wave commutes across shards, so
+every shard count returns the ``num_shards=1`` walk's results bit for bit.
+``wave_step`` swaps the host-simulated launches for a process group's
+(``launch.annservice.build_sharded_graph_engine``).
 """
 
 from __future__ import annotations
@@ -51,15 +61,19 @@ from repro_torch.core.estimators import (
 from repro_torch.core.dco import dco_screen
 from repro_torch.core.topk import _smallest
 from repro_torch.core.transforms import as_tensor
-from repro_torch.kernels.graph_scan import KERNEL_TILE, graph_walk_kernel_call
+from repro_torch.kernels import ref
+from repro_torch.kernels.graph_scan import (
+    KERNEL_TILE, graph_scan_kernel_call, graph_walk_kernel_call,
+)
 from repro_torch.kernels.ops import (
-    fused_fetch_totals, graph_walk_inputs, pack_vis_ranges,
+    fused_fetch_totals, graph_scan_inputs, graph_vis_words, graph_walk_inputs,
+    pack_vis_ranges, pow2_bucket,
 )
 from repro_torch.kernels.ref import graph_walk_ref, select_wave_ref
 from repro_torch.obs.trace import current_tracer
 from repro_torch.quant.accounting import (
-    ID_BYTES, fetched_tile_bytes, row_gather_bytes, stage2_fetch_report,
-    two_stage_bytes,
+    ID_BYTES, fetched_tile_bytes, frontier_exchange_bytes, row_gather_bytes,
+    stage2_fetch_report, two_stage_bytes,
 )
 from repro_torch.quant.scalar import (
     QuantizedCorpus, fit_block_scales, quantize_block, quantize_corpus, wants_quant,
@@ -69,7 +83,10 @@ from repro_torch.runtime.chaos import current_chaos
 
 __all__ = ["GraphIndex", "build_graph", "graph_from_rotated", "search_graph",
            "adjacency_rows", "search_graph_fused", "search_graph_beam_host", "GraphScanStats",
-           "walk_inputs", "SENTINEL"]
+           "walk_inputs", "SENTINEL", "shard_graph_nodes", "dead_shard_tombstones",
+           "merge_shard_windows", "GraphShardedStats", "search_graph_sharded", "slab_rows",
+           "GraphSlab", "graph_slab", "localize_frontier", "merge_shard_state",
+           "frozen_wave_inputs", "shard_launches"]
 
 SENTINEL = 1e18  # pad rows of a neighbour block: masked by id, never read as data
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -821,3 +838,420 @@ def search_graph_beam_host(index: GraphIndex, queries, *, k: int = 10,
                       decoupled=decoupled, route_mult=route_mult,
                       use_ref=True, device=device, tombstones=tombstones,
                       exclude=exclude)
+
+
+# ---------------------------------------------------------------------------
+# The corpus-sharded walk: cross-shard frontier exchange
+# ---------------------------------------------------------------------------
+
+
+def shard_graph_nodes(n: int, num_shards: int):
+    """Contiguous node ranges of the corpus-sharded walk: shard s owns nodes
+    ``[s·(n/S), (s+1)·(n/S))`` and so rows ``[base·adj_block,
+    (base+count)·adj_block)`` of the adjacency-flat slab.  Fails fast,
+    naming the values, when the split is uneven."""
+    if num_shards < 1:
+        raise ValueError(
+            f"sharded graph serving needs num_shards >= 1, got "
+            f"num_shards={num_shards}")
+    if n % num_shards:
+        raise ValueError(
+            f"sharded graph serving needs the node count to split evenly "
+            f"across shards: corpus nodes n={n} % num_shards={num_shards} "
+            f"!= 0 (pad the corpus or pick a shard count that divides it)")
+    per = n // num_shards
+    return [(s * per, per) for s in range(num_shards)]
+
+
+def dead_shard_tombstones(n: int, num_shards: int, dead) -> tuple:
+    """(base, count) node ranges of the ``dead`` shards (indices under the
+    ``shard_graph_nodes(n, num_shards)`` split): what a failover run passes
+    as ``tombstones``.  The ranges are node spans, so the same tombstones
+    drive the degraded S-shard walk and its ``num_shards=1`` oracle."""
+    ranges = shard_graph_nodes(n, num_shards)
+    out = []
+    for s in sorted({int(d) for d in dead}):
+        if not 0 <= s < num_shards:
+            raise ValueError(
+                f"dead shard {s} out of range for num_shards={num_shards}")
+        out.append(ranges[s])
+    return tuple(out)
+
+
+def merge_shard_windows(g_sq: torch.Tensor, g_ids: torch.Tensor, *, ef: int):
+    """Cross-shard beam-window merge: (S, Q, EF) per-shard windows -> (Q, EF),
+    the EF best distinct ids by distance, in the reference's order.
+
+      * a stable sort on distance over the shards' windows concatenated in
+        shard order, so ties go to the lower shard, then the lower column;
+      * of equal real ids the first in that order is kept (an id admitted
+        by two shards carries the same distance from both: its adjacency
+        rows are byte-equal copies), found with one stable sort by id,
+        which makes equal ids adjacent in distance order;
+      * dropped entries become inf / -1 and sort last.
+
+    ``torch.topk`` would not do: its order among equal values is not
+    defined.  For S = 1 the merge is the identity."""
+    s, qn, ef2 = g_sq.shape
+    if ef2 != ef:
+        raise ValueError(
+            f"shard windows carry ef={ef2} columns, merge asked for ef={ef}")
+    sq = g_sq.transpose(0, 1).reshape(qn, s * ef)
+    ids = g_ids.transpose(0, 1).reshape(qn, s * ef)
+    sq_s, order = torch.sort(sq, dim=1, stable=True)
+    ids_s = torch.gather(ids, 1, order)
+    order_id = torch.argsort(ids_s, dim=1, stable=True)
+    by_id = torch.gather(ids_s, 1, order_id)
+    adj_dup = torch.cat([torch.zeros((qn, 1), dtype=torch.bool, device=sq.device),
+                         (by_id[:, 1:] == by_id[:, :-1]) & (by_id[:, 1:] >= 0)], dim=1)
+    dup = torch.zeros_like(adj_dup).scatter_(1, order_id, adj_dup)
+    sq_d = torch.where(dup, torch.full_like(sq_s, float("inf")), sq_s)
+    ids_d = torch.where(dup, torch.full_like(ids_s, -1), ids_s)
+    sq_f, order2 = torch.sort(sq_d, dim=1, stable=True)
+    return sq_f[:, :ef].contiguous(), torch.gather(ids_d, 1, order2[:, :ef])
+
+
+def merge_shard_state(g_sq: torch.Tensor, g_ids: torch.Tensor, g_vis: torch.Tensor, *,
+                      ef: int):
+    """What every shard carries into the next wave: the shards' (S, Q, EF)
+    windows merged (:func:`merge_shard_windows`) and their (S, q_tiles, W)
+    bitmaps OR-ed (for S = 1, the shard's own)."""
+    if g_sq.shape[0] == 1:
+        return g_sq[0], g_ids[0], g_vis[0]
+    sq, ids = merge_shard_windows(g_sq, g_ids, ef=ef)
+    vis = g_vis[0]
+    for v in g_vis[1:]:
+        vis = vis | v
+    return sq, ids, vis
+
+
+def frozen_wave_inputs(estimator: Estimator, q_sorted, top_sq, top_ids, vis, slab,
+                       gscales, *, base: int, n_nodes: int, ef: int, thresh_col: int,
+                       block_q: int, block_c: int, block_d: int):
+    """The inputs every frozen-threshold wave of a search shares over one
+    shard's ``slab`` (adj_rot, adj_codes, adj_ids): ``(queries, table,
+    kwargs)`` of ``graph_scan_kernel_call`` — the query codes, padded rows
+    and scales; the block scales and the blocked table; the launch's
+    keywords (``tighten=False``).  The window, r², bitmap and step table
+    are the wave's own."""
+    args, kw = graph_scan_inputs(
+        estimator, q_sorted, torch.full((vis.shape[0], 1), -1, dtype=torch.int32), top_sq,
+        top_ids, torch.zeros_like(top_sq[:, 0]), *slab, gscales, vis, vis_base=base,
+        vis_nodes=n_nodes, ef=ef, thresh_col=thresh_col, block_q=block_q,
+        block_c=block_c, block_d=block_d, tighten=False)
+    return args[1:4], args[11:14], kw
+
+
+def shard_launches(scan, parts, inputs, top_sq, top_ids, r0, vis):
+    """One frozen-threshold wave over the shards in ``parts``: (offs, slab,
+    base) each, the shard's localized frontier (:func:`localize_frontier`),
+    its (adj_rot, adj_codes, adj_ids) rows and its first node, screened by
+    ``scan`` (``graph_scan_kernel_call`` or ``ref.graph_scan_ref``) with the
+    wave's shared ``inputs`` (:func:`frozen_wave_inputs`).  Returns the
+    shards' outputs stacked in ``parts`` order: (S', Q, EF) windows and ids,
+    (S', Q, 6) stats, (S', q_tiles, W) bitmaps; :func:`merge_shard_state`
+    merges them once every shard's are in (a process group gathers first)."""
+    q_in, table, kw = inputs
+    outs = [scan(offs, *q_in, top_sq, top_ids, r0, vis, codes, rot, ids, *table, base, **kw)
+            for offs, (rot, codes, ids), base in parts]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(4))
+
+
+class GraphShardedStats(NamedTuple):
+    """Per-batch accounting of the corpus-sharded beam scan.
+
+    The fetch ledgers are per shard (what each shard's memory shipped) plus
+    their sum; the exchange ledger counts the cross-shard frontier traffic
+    (``quant.accounting.frontier_exchange_bytes``).  Totals equal the
+    single-shard walk's: splitting a frozen wave moves bytes between
+    ledgers, it creates no work."""
+
+    waves: float  # frontier waves until convergence (shard-count-invariant)
+    num_shards: int
+    rows_per_query: float  # valid neighbour rows screened / query (all shards)
+    passed_per_query: float  # rows surviving the full screen / query
+    bytes_per_query: float  # semantic dims-consumed ledger, summed
+    fetched_bytes_per_query: float  # DMA ledger summed over shards
+    shard_fetched_bytes_per_query: tuple  # per-shard DMA ledger
+    shard_s1_tiles_fetched: tuple  # per-shard int8 adjacency tiles fetched
+    shard_s2_slabs_fetched: tuple  # per-shard fp slabs fetched on demand
+    s2_skip_rate: float  # fetch elision over all shards
+    exchange_bytes_per_wave: float  # cross-shard frontier traffic / wave
+    exchange_bytes_per_query: float  # total exchange / query
+    # Failover accounting; zero / empty on a healthy run.
+    tombstoned_nodes: float = 0.0  # nodes pre-visited by tombstones
+    dead_shards: tuple = ()  # shards fully covered by tombstones
+
+
+def _graph_sharded_stats(index: GraphIndex, *, dim: int, k: int, seed_r: bool,
+                         qn: int, waves: float, sem, s1_tiles, s2_slabs,
+                         exch_bytes: float, num_shards: int,
+                         tombstones=()) -> GraphShardedStats:
+    """The ``GraphShardedStats`` ledger arithmetic, shared by the sharded
+    batch epilogue and the continuous engine's per-query ledger."""
+    a_block = index.adj_block
+    rows = max(float(sem[2]), 1.0)
+    d_pad = index.adj_rot.shape[1]
+    fp_bytes = index.adj_rot.element_size()
+    seed_bytes = (index.degree * dim + 4 * k * dim) if seed_r else 0
+    shard_fetched = []
+    s2_total_all = 0.0
+    for s in range(num_shards):
+        s2_fetched_b, _, _, s2_total = stage2_fetch_report(
+            s1_tiles[s], s2_slabs[s], block_c=a_block, d_pad=d_pad,
+            block_d=index.scan_block_d, fp_bytes=fp_bytes)
+        s2_total_all += s2_total
+        shard_fetched.append(
+            (fetched_tile_bytes(s1_tiles[s], block_c=a_block, dims=d_pad,
+                                bytes_per_dim=1, id_bytes=ID_BYTES)
+             + s2_fetched_b) / qn)
+    skip = ((1.0 - float(np.asarray(s2_slabs).sum()) / s2_total_all)
+            if s2_total_all else 0.0)
+    tomb_nodes = 0
+    dead = ()
+    if tombstones:
+        n = index.corpus_rot.shape[0]
+        alive = _alive_mask(n, tombstones)
+        tomb_nodes = int((~alive).sum())
+        dead = tuple(s for s, (b, c) in enumerate(shard_graph_nodes(n, num_shards))
+                     if not alive[b: b + c].any())
+    return GraphShardedStats(
+        waves=float(waves),
+        num_shards=num_shards,
+        rows_per_query=rows / qn,
+        passed_per_query=float(sem[3]) / qn,
+        bytes_per_query=float(two_stage_bytes(
+            sem[0], sem[1], fp_bytes=fp_bytes)) / qn + seed_bytes,
+        fetched_bytes_per_query=float(sum(shard_fetched)) + seed_bytes,
+        shard_fetched_bytes_per_query=tuple(shard_fetched),
+        shard_s1_tiles_fetched=tuple(np.asarray(s1_tiles).tolist()),
+        shard_s2_slabs_fetched=tuple(np.asarray(s2_slabs).tolist()),
+        s2_skip_rate=skip,
+        exchange_bytes_per_wave=exch_bytes / max(waves, 1),
+        exchange_bytes_per_query=exch_bytes / qn,
+        tombstoned_nodes=float(tomb_nodes),
+        dead_shards=dead,
+    )
+
+
+def slab_rows(index, base: int, count: int):
+    """(adj_rot, adj_codes, adj_ids): the adjacency-flat rows of nodes
+    ``[base, base + count)``, views of the slabs of ``index`` (a GraphIndex
+    or anything with its slab fields)."""
+    a = index.adj_block
+    rows = slice(base * a, (base + count) * a)
+    return index.adj_rot[rows], index.adj_codes[rows], index.adj_ids[rows]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSlab:
+    """What one shard of a corpus-sharded walk screens with: the adjacency
+    rows of its nodes ``[base, base + count)`` of an ``n_nodes``-node
+    graph, the block scales and the estimator (its table)."""
+
+    estimator: Estimator
+    adj_rot: torch.Tensor  # (count*A, D_pad)
+    adj_codes: torch.Tensor  # (count*A, D_pad) int8
+    adj_ids: torch.Tensor  # (count*A,) int32, global ids
+    gscales: torch.Tensor
+    adj_block: int
+    scan_block_d: int
+    n_nodes: int
+    base: int
+
+
+def graph_slab(index: GraphIndex, base: int, count: int) -> GraphSlab:
+    """Shard ``[base, base + count)`` of ``index`` as a :class:`GraphSlab`
+    (views, nothing copied)."""
+    rot, codes, ids = slab_rows(index, base, count)
+    return GraphSlab(estimator=index.estimator, adj_rot=rot, adj_codes=codes,
+                     adj_ids=ids, gscales=index.gscales, adj_block=index.adj_block,
+                     scan_block_d=index.scan_block_d,
+                     n_nodes=index.corpus_rot.shape[0], base=int(base))
+
+
+def localize_frontier(offs: torch.Tensor, ranges) -> torch.Tensor:
+    """(q_tiles, steps) global frontier -> (S, q_tiles, steps): shard s sees
+    the nodes it owns as offsets into its slab, at the same step positions,
+    and -1 elsewhere."""
+    minus = torch.full_like(offs, -1)
+    return torch.stack([torch.where((offs >= b) & (offs < b + c), offs - b, minus)
+                        for b, c in ranges])
+
+
+def _run_sharded_wave_loop(index: GraphIndex, queries, *, k: int, ef: int,
+                           expand: int, block_q: int, max_waves: int, seed_r: bool,
+                           decoupled: bool, route_mult: float, num_shards: int,
+                           use_ref: bool, wave_step=None, tombstones=(), exclude=()):
+    """The reference's sharded wave loop: one wave at a time, the threshold
+    frozen at each wave's start (``tighten=False``).
+
+    Each wave: r0 = min(seed, window[thresh_col]); wave 0 expands the entry
+    point, every later wave the frontier ``_select_wave`` picks with the
+    gate r0 · ``route_mult``, until no tile has one; the frontier goes into
+    a power-of-two ``steps`` table and is scattered per shard
+    (:func:`localize_frontier`); each shard screens it with one launch of
+    the one-wave kernel over its slab rows (``vis_base`` its first node, the
+    bitmap the global one), or ``ref.graph_scan_ref`` with ``use_ref``;
+    then the windows merge (:func:`merge_shard_windows`), the bitmaps OR,
+    and the host books each shard's fetch counters and the wave's exchange
+    bytes.  ``wave_step(offs_sh, q_sorted, top_sq, top_ids, r0, vis, *,
+    wave)`` replaces the launches and the merge (a process group's step);
+    it returns the merged window, bitmap and the (S, Q, 6) stats.
+
+    Tombstones are pre-set in the starting bitmap (the entry and the seed
+    fall back to the surviving corpus); ``exclude`` drops ids from the
+    final windows.  The per-wave spans and instants are the reference's.
+    Returns ``(dists, ids, acc)``, numpy, ``acc`` the raw accounting."""
+    thresh_col = (k - 1) if decoupled else (ef - 1)
+    est = index.estimator
+    n = index.corpus_rot.shape[0]
+    ranges = shard_graph_nodes(n, num_shards)
+    a_block, block_d = index.adj_block, index.scan_block_d
+    inv, q_sorted, q_tiles, q_pad, qn, entry, top_sq, top_ids, seed = _prep_wave_state(
+        index, queries, k=k, ef=ef, block_q=block_q, seed_r=seed_r, tombstones=tombstones)
+    dev = index.device
+    words = graph_vis_words(n)
+    vis = torch.zeros((q_tiles, words), dtype=torch.int32, device=dev)
+    if tombstones:
+        vis |= torch.as_tensor(pack_vis_ranges(n, tombstones), device=dev)[None, :]
+    chaos = current_chaos()  # NULL_CHAOS: every on_wave below is a no-op
+    if wave_step is None:
+        slabs = [slab_rows(index, b, c) for b, c in ranges]
+        inputs = frozen_wave_inputs(
+            est, q_sorted, top_sq, top_ids, vis, slabs[0], index.gscales, base=0,
+            n_nodes=n, ef=ef, thresh_col=thresh_col, block_q=block_q, block_c=a_block,
+            block_d=block_d)
+    sem = np.zeros((4,), np.float64)  # stats cols 0-3 summed over waves
+    s1_tiles = np.zeros((num_shards,), np.float64)
+    s2_slabs = np.zeros((num_shards,), np.float64)
+    exch_bytes = 0.0
+    waves = 0
+    tr = current_tracer()
+    d_pad = index.adj_rot.shape[1]
+    fp_bytes = index.adj_rot.element_size()
+    mult = torch.tensor(route_mult, dtype=torch.float32, device=dev)
+    while waves < max_waves:
+        chaos.on_wave(waves)  # injected shard-stall latency (chaos drills)
+        with tr.span("graph.wave", wave=waves, num_shards=num_shards) as wsp:
+            with tr.span("graph.route"):
+                r0 = torch.minimum(seed, top_sq[:, thresh_col])
+                if waves == 0:
+                    # The entry point is expanded unconditionally: its own
+                    # distance may exceed a seeded threshold, but its
+                    # neighbourhood is what fills the window.
+                    offs = torch.full((q_tiles, 1), entry, dtype=torch.int32, device=dev)
+                    width = 1
+                else:
+                    offs = _select_wave(top_sq, top_ids, vis, r0 * mult, block_q=block_q,
+                                        qn=qn, expand=expand, ef=ef)
+                    width = int((offs >= 0).sum(dim=1).max())
+                if width == 0:
+                    wsp.annotate(terminal=True)
+                    break  # no window entry can improve any query's result
+                steps = pow2_bucket(width)
+                offs = torch.nn.functional.pad(offs, (0, max(steps - offs.shape[1], 0)),
+                                               value=-1)[:, :steps]
+                offs_sh = localize_frontier(offs, ranges)
+            wsp.annotate(width=width, steps=steps)
+
+            if wave_step is not None:
+                # The process group's step holds the launches, the
+                # all-gather and the merge: no separate merge span.
+                with tr.span("graph.launch", steps=steps):
+                    t_sq, t_ids, t_vis, st_sh = tr.fence(wave_step(
+                        offs_sh, q_sorted, top_sq, top_ids, r0, vis, wave=waves))
+                tr.instant("graph.merge", in_step=True)
+            else:
+                # Looked up at call time: a caller may wrap the launch.
+                scan = ref.graph_scan_ref if use_ref else graph_scan_kernel_call
+                with tr.span("graph.launch", steps=steps):
+                    g_sq, g_ids, st_sh, g_vis = shard_launches(
+                        scan, [(offs_sh[s], slabs[s], b) for s, (b, _) in enumerate(ranges)],
+                        inputs, top_sq, top_ids, r0, vis)
+                    tr.fence(g_sq)
+                with tr.span("graph.merge", num_shards=num_shards):
+                    t_sq, t_ids, t_vis = merge_shard_state(g_sq, g_ids, g_vis, ef=ef)
+                    t_sq, t_ids = tr.fence((t_sq, t_ids))
+
+            with tr.span("graph.host_commit"):
+                top_sq, top_ids, vis = t_sq, t_ids, t_vis
+                st_np = st_sh.cpu().numpy()
+                for s in range(num_shards):
+                    sem += st_np[s][:qn, :4].sum(axis=0)
+                    w1, w2 = fused_fetch_totals(st_np[s], block_q)
+                    s1_tiles[s] += w1
+                    s2_slabs[s] += w2
+                    tr.instant("graph.stage1_dma", shard=s, wave=waves, tiles=w1,
+                               bytes=fetched_tile_bytes(w1, block_c=a_block, dims=d_pad,
+                                                        bytes_per_dim=1, id_bytes=ID_BYTES))
+                    tr.instant("graph.stage2", shard=s, wave=waves, slabs=w2,
+                               bytes=fetched_tile_bytes(w2, block_c=a_block, dims=block_d,
+                                                        bytes_per_dim=fp_bytes))
+                wave_exch = frontier_exchange_bytes(
+                    num_shards=num_shards, queries=q_pad, ef=ef,
+                    vis_words=q_tiles * words, q_tiles=q_tiles, steps=steps)
+                tr.instant("graph.exchange", wave=waves, bytes=wave_exch)
+                exch_bytes += wave_exch
+            waves += 1
+
+    top_sq_f, top_ids_f = top_sq[:qn].cpu().numpy(), top_ids[:qn].cpu().numpy()
+    if exclude:
+        top_sq_f, top_ids_f = _exclude_ids(top_sq_f, top_ids_f, n, exclude)
+    inv = inv.cpu().numpy()
+    dists = np.sqrt(np.maximum(top_sq_f, 0.0))[inv][:, :k]
+    ids = top_ids_f[inv][:, :k]
+    acc = dict(waves=waves, sem=sem, s1_tiles=s1_tiles, s2_slabs=s2_slabs,
+               exch_bytes=exch_bytes, qn=qn)
+    return dists, ids, acc
+
+
+def search_graph_sharded(index: GraphIndex, queries, *, num_shards: int, k: int = 10,
+                         ef: int = 48, expand: int = 2, block_q: int = KERNEL_TILE[0],
+                         max_waves: int = 64, seed_r: bool = False,
+                         decoupled: bool = True, route_mult: float = 1.0,
+                         use_ref: bool = False, wave_step=None,
+                         device: str | torch.device = "cuda", tombstones=(),
+                         exclude=()):
+    """Corpus-sharded batched graph search on ``device`` (the index's): the
+    walk split over ``num_shards`` contiguous node ranges with cross-shard
+    frontier exchange between waves.  Returns (dists (Q, k), ids (Q, k),
+    GraphShardedStats).
+
+    It differs from :func:`search_graph_fused` in one way: the DCO threshold
+    is frozen at the wave-start r² for the whole wave (``tighten=False``),
+    because a frozen wave is order-independent, so shards screening their
+    parts of it commute.  So every shard count returns the same ids and
+    distances, and ``num_shards=1, use_ref=True`` (the plain one-wave scan
+    on the whole slab) is the oracle of every sharded run, on the card or
+    across a process group (``wave_step``).  On CUDA tensors each shard's
+    screen is one launch of the one-wave kernel; on CPU tensors, or with
+    ``use_ref``, its plain version.
+
+    Failover: ``tombstones`` ((base, count) node ranges, normally
+    ``dead_shard_tombstones(n, S, dead)``) pre-visit the dead shards' nodes
+    in the bitmap, so the surviving shards serve the walk over the rest of
+    the corpus, equal to ``num_shards=1, use_ref=True`` with the same
+    tombstones (the surviving-corpus oracle); the threshold seed samples
+    only alive neighbours of the (possibly fallback) entry.  ``exclude``
+    drops those ids from the result windows (mutable-index deletes)."""
+    dev = resolve_device(device)
+    if not index.has_fused:
+        raise ValueError("the batched beam scan needs build_graph(..., quant='int8')")
+    if dev.type != index.device.type or dev.index not in (None, index.device.index):
+        raise ValueError(f"the index lives on {index.device}, the search was "
+                         f"asked to run on {dev}")
+    tombstones = tuple((int(b), int(c)) for b, c in tombstones)
+    dists, ids, acc = _run_sharded_wave_loop(
+        index, queries, k=k, ef=ef, expand=expand, block_q=block_q,
+        max_waves=max_waves, seed_r=seed_r, decoupled=decoupled,
+        route_mult=route_mult, num_shards=num_shards, use_ref=use_ref,
+        wave_step=wave_step, tombstones=tombstones,
+        exclude=tuple((int(b), int(c)) for b, c in exclude))
+    stats = _graph_sharded_stats(
+        index, dim=index.corpus_rot.shape[1], k=k, seed_r=seed_r, qn=acc["qn"],
+        waves=acc["waves"], sem=acc["sem"], s1_tiles=acc["s1_tiles"],
+        s2_slabs=acc["s2_slabs"], exch_bytes=acc["exch_bytes"],
+        num_shards=num_shards, tombstones=tombstones)
+    return (torch.as_tensor(dists, device=index.device),
+            torch.as_tensor(ids, device=index.device), stats)

@@ -35,6 +35,7 @@ from repro_torch.kernels.ref import STATS_COLS, ivf_scan_ref
 
 __all__ = ["ivf_scan_kernel_call", "ivf_scan_plain", "ivf_scan_phase_clocks", "build",
            "build_clocks", "library_path", "split_segments", "merge_segments",
+           "merge_windows",
            "smem_bytes",
            "STATS_COLS", "PHASES", "MAX_SMEM_BYTES", "KERNEL_TILE",
            "KERNEL_BLOCK_QS"]
@@ -125,17 +126,27 @@ def split_segments(tile_offs: torch.Tensor, segments: int) -> torch.Tensor:
         segments * q_tiles, per, cap)
 
 
+def merge_windows(g_sq, g_ids, k: int):
+    """(A, Q, K') windows -> (Q, k): the (Q, A·K') concatenation in window
+    order sorted ascending, ties to the lower position (``lax.top_k``'s
+    order), cut to k.  One rule for the segments of a launch and for the
+    ranks of a mesh (``distributed.collectives.hierarchical_topk``)."""
+    a, qn, kk = g_sq.shape
+    sq = g_sq.transpose(0, 1).reshape(qn, a * kk)
+    ids = g_ids.transpose(0, 1).reshape(qn, a * kk)
+    sq, order = torch.sort(sq, dim=1, stable=True)
+    return sq[:, :k].contiguous(), torch.gather(ids, 1, order[:, :k])
+
+
 def merge_segments(top_sq, top_ids, stats, segments: int, k: int):
     """The windows of ``segments`` walks ((G·Q, K), segment-major) merged as
-    the reference's ``hierarchical_topk``: the (Q, G·K) concatenation in
-    segment order sorted ascending, ties to the lower position, cut to K;
-    the counters summed over segments (in float64, then rounded once)."""
+    the reference's ``hierarchical_topk`` (:func:`merge_windows`); the
+    counters summed over segments (in float64, then rounded once)."""
     qn = top_sq.shape[0] // segments
-    sq = top_sq.reshape(segments, qn, k).transpose(0, 1).reshape(qn, segments * k)
-    ids = top_ids.reshape(segments, qn, k).transpose(0, 1).reshape(qn, segments * k)
-    sq, order = torch.sort(sq, dim=1, stable=True)
+    sq, ids = merge_windows(top_sq.reshape(segments, qn, k),
+                            top_ids.reshape(segments, qn, k), k)
     st = stats.reshape(segments, qn, -1).double().sum(0).float()
-    return sq[:, :k].contiguous(), torch.gather(ids, 1, order[:, :k]), st
+    return sq, ids, st
 
 
 def ivf_scan_kernel_call(

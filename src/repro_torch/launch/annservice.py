@@ -35,29 +35,42 @@ served alone by the batch search.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import math
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.dade_ivf import ServiceConfig
 from repro_torch.core.estimators import SEED_SLACK, first_enabled_eps
 from repro_torch.core.topk import _smallest, merge_topk
 from repro_torch.core.transforms import as_tensor
+from repro_torch.distributed import collectives as coll
 from repro_torch.index.graph import (
-    _graph_stats, _prep_wave_state, _select_wave, search_graph_fused,
+    _graph_sharded_stats, _graph_stats, _prep_wave_state, _select_wave,
+    dead_shard_tombstones, frozen_wave_inputs, graph_slab, localize_frontier,
+    merge_shard_state, search_graph_fused, search_graph_sharded, shard_graph_nodes,
+    shard_launches, slab_rows,
 )
 from repro_torch.index.ivf import BLOCK_Q, _fused_stats, _quant_seed_rsq, _route_tiles
-from repro_torch.kernels import ops
+from repro_torch.kernels import graph_scan, ops
 from repro_torch.kernels.ivf_scan import KERNEL_TILE, ivf_scan_kernel_call
+from repro_torch.launch.mesh import LeadRank, make_mesh, mesh_device_type
+from repro_torch.quant.accounting import frontier_exchange_bytes
 from repro_torch.obs.trace import current_tracer
 from repro_torch.quant.scalar import cum_err_sq, quantize_queries_block
 from repro_torch.runtime.chaos import current_chaos
 
 __all__ = ["build_search_step", "build_graph_engine", "seed_rsq",
-           "autotune_refine_budget",
+           "autotune_refine_budget", "mesh_rank", "search_input_specs", "InputSpec",
+           "build_sharded_graph_engine", "ShardedGraphEngine", "sharded_graph_engine",
+           "graph_shard_worker", "RankedFlatStep", "flat_rank_worker",
            "fused_scan_inputs", "FUSED_BLOCK_C", "FUSED_BLOCK_Q", "SHARDS",
            "slo_signal", "slo_effort", "SLOPolicy", "parse_slo", "RetiredQuery",
            "ContinuousGraphEngine", "ContinuousIVFEngine"]
@@ -72,7 +85,7 @@ FUSED_BLOCK_Q, FUSED_BLOCK_C = KERNEL_TILE
 SHARDS = 4
 
 
-def seed_rsq(svc: ServiceConfig, corpus, queries, eps, segments: int = 1):
+def seed_rsq(svc: ServiceConfig, corpus, queries, eps, segments: int = 1, mesh=None):
     """Two-phase threshold seed: first-block estimates over a segment's first
     wave pick k candidates per query, verified exactly; the k-th exact
     distance bounds the final k-th from above.  With ``segments`` G > 1 the
@@ -83,8 +96,11 @@ def seed_rsq(svc: ServiceConfig, corpus, queries, eps, segments: int = 1):
     reference's G-shard step takes the ``pmin`` over its shards' seeds.
     Where ``waves % G != 0`` the runs are not the reference's shards (it has
     no such split); the rule is kept, and a segment whose run holds no wave
-    adds nothing to the minimum.  Runs in float32 on the upcast rows, the
-    arithmetic the kernel uses."""
+    adds nothing to the minimum.  With ``mesh`` (each rank holding its own
+    rows) the k-th distances are all-reduced with ``MIN`` along every mesh
+    dimension before the single widening, the reference's ``pmin`` over its
+    devices.  Runs in float32 on the upcast rows, the arithmetic the kernel
+    uses."""
     k, block_d, wave = svc.k, svc.delta_d, svc.wave
     n = corpus.shape[0]
     waves = -(-n // wave)
@@ -101,6 +117,8 @@ def seed_rsq(svc: ServiceConfig, corpus, queries, eps, segments: int = 1):
         diff = sample[idx] - q[:, None, :]
         kth_g = torch.amax(torch.sum(diff * diff, dim=-1), dim=1)
         kth = kth_g if kth is None else torch.minimum(kth, kth_g)
+    for d in (mesh.mesh_dim_names if mesh is not None else ()):
+        coll.all_reduce(kth, op=dist.ReduceOp.MIN, group=mesh.get_group(d))
     # Widen by the first ENABLED checkpoint's overshoot band; SEED_SLACK
     # keeps the zero-widening case sound under float reassociation.
     t = 1.0 + first_enabled_eps(eps)
@@ -162,9 +180,18 @@ def autotune_refine_budget(scales, sample_rot, *, k: int, wave: int,
     return budget, {"band_width": 2.0 * e_band, "in_band_frac": in_band}
 
 
+def mesh_rank(mesh) -> int:
+    """The linear index of this rank in ``mesh``, row-major (the last
+    dimension fastest): the reference's ``shard_base`` order."""
+    lin = 0
+    for d, c in enumerate(mesh.get_coordinate()):
+        lin = lin * mesh.size(d) + c
+    return lin
+
+
 def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
                       shards: int | None = None, quant: str | None = "int8",
-                      fused: bool = True):
+                      fused: bool = True, mesh=None, timings: dict | None = None):
     """Returns the one-card search step of ``svc``, on its tensors' device.
 
     The main path (``quant="int8"``, ``fused``): ``step(corpus, codes,
@@ -177,6 +204,18 @@ def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
     counters summed over queries and shards (the tile-level fetch counters
     4-5 counted once per tile).
 
+    ``mesh`` (a ``DeviceMesh`` of R ranks, every rank calling the step on
+    its own ``corpus_per_device`` rows and codes with the same queries) is
+    the reference's (R, G/R) mesh step: each rank walks its rows as
+    ``shards // R`` segments of one launch, the segments' seeds are
+    all-reduced with ``MIN`` across the ranks before the widening
+    (:func:`seed_rsq`), the ids are offset by the rank's first row, the
+    windows merge over the mesh dimensions in reversed order
+    (``collectives.hierarchical_topk``) and the stats are summed: every
+    rank returns the whole corpus's results.  ``timings`` (a dict) gathers
+    the rank merge's wall ms under ``merge_ms``.  R = 1 is the one-process
+    step.
+
     The unfused routes are the reference's one-device step in plain
     PyTorch (``shards`` must be 1, no stats), each seeded by ``seed_rsq``:
     ``quant="int8", fused=False`` takes per-dimension ``codes`` and
@@ -187,22 +226,40 @@ def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
     k, wave, block_d = svc.k, svc.wave, svc.delta_d
     if quant == "int8" and fused:
         shards = SHARDS if shards is None else shards
+        ranks = 1 if mesh is None else mesh.size()
+        if shards % ranks:
+            raise ValueError(f"{ranks} ranks must divide shards={shards}")
+        segments = shards // ranks
+        dims = () if mesh is None else tuple(mesh.mesh_dim_names)
 
         def step(corpus, codes, bscales, queries, eps, scale, eps_lo):
             del eps_lo  # the fused route widens from eps alone
-            r0 = seed_rsq(svc, corpus, queries, eps, segments=shards)
+            r0 = seed_rsq(svc, corpus, queries, eps, segments=segments, mesh=mesh)
             args, kwargs = fused_scan_inputs(svc, corpus, codes, bscales, queries,
                                              eps, scale, r0)
-            top_sq, top_ids, stats = ivf_scan_kernel_call(*args, segments=shards,
+            top_sq, top_ids, stats = ivf_scan_kernel_call(*args, segments=segments,
                                                           **kwargs)
+            if mesh is not None:
+                t0 = _now_ms(corpus.device) if timings is not None else 0.0
+                base = mesh_rank(mesh) * corpus.shape[0]
+                top_ids = torch.where(top_ids >= 0, top_ids + base, top_ids)
+                top_sq, top_ids = coll.hierarchical_topk(top_sq, top_ids, mesh, dims[::-1],
+                                                         svc.k)
+                if timings is not None:
+                    timings["merge_ms"] = (timings.get("merge_ms", 0.0)
+                                           + _now_ms(corpus.device) - t0)
             dists = torch.sqrt(torch.clamp_min(top_sq, 0.0))
             if not with_stats:
                 return dists, top_ids
             st = stats.double()
             scan = torch.cat([st[:, :4].sum(0), st[::FUSED_BLOCK_Q, 4:].sum(0)])
+            for d in dims:
+                coll.all_reduce(scan, group=mesh.get_group(d))
             return dists, top_ids, scan
 
         return step
+    if mesh is not None:
+        raise ValueError("the unfused routes run on one rank (mesh=None)")
     if shards not in (None, 1) or with_stats:
         raise ValueError("the unfused routes run one shard and report no scan stats")
     refine_per_wave = min(svc.refine_per_wave or 2 * k, wave)
@@ -272,6 +329,49 @@ def build_search_step(svc: ServiceConfig, *, with_stats: bool = False,
     return local_search_quant if quant == "int8" else local_search
 
 
+def _now_ms(dev) -> float:
+    """Wall-clock ms, read once ``dev``'s queue has drained."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() * 1e3
+
+
+class InputSpec(NamedTuple):
+    """One search-step argument over a mesh: its global shape and dtype,
+    and its placement on each mesh dimension (``Shard(0)``: row-sharded;
+    ``Replicate()``)."""
+
+    shape: tuple
+    dtype: torch.dtype
+    placements: tuple
+
+
+def search_input_specs(svc: ServiceConfig, mesh, *, quant: str | None = None,
+                       fused: bool = False):
+    """The search step's arguments over ``mesh``, as :class:`InputSpec` in
+    call order: the corpus rows (and with ``quant="int8"`` their codes)
+    row-sharded over every mesh dimension, ``corpus_per_device`` rows a
+    rank; the code scales, the queries and the blocked table (eps, scale,
+    eps_lo) replicated.  ``fused`` gives the kernel's per-block scales (one
+    per Δd block), else one per dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d_pad = -(-svc.dim // svc.delta_d) * svc.delta_d
+    s_steps = d_pad // svc.delta_d
+    row, rep = (Shard(0),) * mesh.ndim, (Replicate(),) * mesh.ndim
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[svc.dtype]
+    corpus = InputSpec((mesh.size() * svc.corpus_per_device, d_pad), dt, row)
+    queries = InputSpec((svc.query_batch, d_pad), dt, rep)
+    table = (InputSpec((s_steps,), torch.float32, rep),) * 3
+    if quant == "int8":
+        codes = InputSpec(corpus.shape, torch.int8, row)
+        qscales = InputSpec((s_steps,) if fused else (d_pad,), torch.float32, rep)
+        return (corpus, codes, qscales, queries, *table)
+    if quant not in (None, "none"):
+        raise ValueError(f"unknown quant mode: {quant!r}")
+    return (corpus, queries, *table)
+
+
 def build_graph_engine(index, *, k: int, ef: int = 48, expand: int = 2,
                        device: str | torch.device = "cuda"):
     """Serving engine of the graph route: ``step(batch_np) -> (dists, ids,
@@ -290,6 +390,338 @@ def build_graph_engine(index, *, k: int, ef: int = 48, expand: int = 2,
             return d.cpu().numpy(), i.cpu().numpy(), st
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Corpus-sharded graph serving over a process group
+# ---------------------------------------------------------------------------
+
+# What rank 0 broadcasts to the other ranks of a sharded engine, as the
+# first word of a fixed-size int64 header.
+_STOP, _BATCH, _WAVE = 0, 1, 2
+_HEADER_WORDS = 8
+
+
+def _header(dev, words=None) -> list:
+    """Broadcast rank 0's header (``words``; None on the receiving ranks)."""
+    h = torch.zeros((_HEADER_WORDS,), dtype=torch.int64, device=dev)
+    if words is not None:
+        h[: len(words)] = torch.as_tensor(words, dtype=torch.int64)
+    return [int(x) for x in coll.broadcast(h).cpu()]
+
+
+def _bcast(x: torch.Tensor) -> torch.Tensor:
+    return coll.broadcast(x.contiguous())
+
+
+class _ShardWave:
+    """One rank's part of a sharded wave: its slab, the batch's launch
+    inputs, and the walk state (window, bitmap) every rank carries.
+
+    :meth:`wave` launches the one-wave kernel over the rank's slab
+    (``vis_base`` its first node, the threshold frozen), all-gathers the
+    ranks' windows, bitmaps and stats over ``group``, and merges them as
+    the host-simulated walk does (``merge_shard_windows``, the bitmaps
+    OR-ed): every rank ends the wave with the same window and bitmap.
+    Every rank screens as ``serve``'s walk does (decoupled: threshold
+    column ``k - 1``; the kernel's query tile), which the engine's
+    ``search_graph_sharded`` defaults match.  ``record`` keeps a sha256 of
+    each wave's merged state (the check that the ranks agree); ``timed``
+    sums the kernel's ms (CUDA events) and the all-gather's wall ms."""
+
+    def __init__(self, slab, *, group, k: int, ef: int, record: bool = False,
+                 timed: bool = False):
+        self.slab, self.group = slab, group
+        self.ef, self.thresh_col, self.block_q = ef, k - 1, graph_scan.KERNEL_TILE[0]
+        self.record, self.timed = record, timed
+        self.digests: list[str] = []
+        self.kernel_ms = self.gather_ms = 0.0
+        self.waves = 0
+        self._events: list = []
+
+    def begin(self, q_sorted, top_sq, top_ids, vis) -> None:
+        sl = self.slab
+        self.inputs = frozen_wave_inputs(
+            sl.estimator, q_sorted, top_sq, top_ids, vis,
+            (sl.adj_rot, sl.adj_codes, sl.adj_ids), sl.gscales, base=sl.base,
+            n_nodes=sl.n_nodes, ef=self.ef, thresh_col=self.thresh_col,
+            block_q=self.block_q, block_c=sl.adj_block, block_d=sl.scan_block_d)
+        self.top_sq, self.top_ids, self.vis = top_sq, top_ids, vis
+
+    def wave(self, offs: torch.Tensor, r0: torch.Tensor):
+        sl, dev = self.slab, self.top_sq.device
+        timed = self.timed and dev.type == "cuda"
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        local = shard_launches(graph_scan.graph_scan_kernel_call,
+                               [(offs, (sl.adj_rot, sl.adj_codes, sl.adj_ids), sl.base)],
+                               self.inputs, self.top_sq, self.top_ids, r0, self.vis)
+        if timed:
+            ev[1].record()
+            self._events.append(ev)
+        t0 = _now_ms(dev) if self.timed else 0.0
+        g_sq, g_ids, g_st, g_vis = (coll.all_gather(t[0], self.group) for t in local)
+        if self.timed:
+            self.gather_ms += _now_ms(dev) - t0
+        m_sq, m_ids, m_vis = merge_shard_state(g_sq, g_ids, g_vis, ef=self.ef)
+        self.top_sq, self.top_ids, self.vis = m_sq, m_ids, m_vis
+        self.waves += 1
+        if self.record:
+            h = hashlib.sha256()
+            for t in (m_sq, m_ids, m_vis):
+                h.update(t.cpu().numpy().tobytes())
+            self.digests.append(h.hexdigest())
+        return m_sq, m_ids, m_vis, g_st
+
+    def report(self) -> dict:
+        """The rank's counters: waves, kernel and all-gather ms, digests."""
+        if self._events:
+            torch.cuda.synchronize()
+            self.kernel_ms += sum(a.elapsed_time(b) for a, b in self._events)
+            self._events = []
+        return {"waves": self.waves, "kernel_ms": self.kernel_ms,
+                "gather_ms": self.gather_ms, "digests": list(self.digests)}
+
+
+class ShardedGraphEngine:
+    """Rank 0's serving engine of the corpus-sharded graph walk over a
+    process group: ``engine(batch_np) -> (dists, ids, GraphShardedStats)``,
+    numpy; :meth:`close` releases the other ranks.  Built by
+    :func:`build_sharded_graph_engine`."""
+
+    def __init__(self, index, local: _ShardWave, *, num_shards: int, search_kw: dict):
+        self.index, self.local, self.num_shards = index, local, num_shards
+        self.search_kw = search_kw
+        self._dead_mask = 0
+        self.closed = False
+
+    def _wave_step(self, offs_sh, q_sorted, top_sq, top_ids, r0, vis, *, wave):
+        """One wave across the group: the batch's state at wave 0 (queries,
+        starting window and bitmap, dead shards), then the scattered
+        frontier and r0; every rank launches, gathers and merges."""
+        dev = q_sorted.device
+        if wave == 0:
+            _header(dev, [_BATCH, q_sorted.shape[0], q_sorted.shape[1], vis.shape[0],
+                          vis.shape[1], self._dead_mask])
+            for t in (q_sorted, top_sq, top_ids, vis):
+                _bcast(t)
+            self.local.begin(q_sorted, top_sq, top_ids, vis)
+        _header(dev, [_WAVE, offs_sh.shape[2]])
+        _bcast(offs_sh)
+        _bcast(r0)
+        return self.local.wave(offs_sh[0], r0)
+
+    def __call__(self, batch_np):
+        s = self.num_shards
+        dead = current_chaos().dead_shards(s)
+        tombs = dead_shard_tombstones(self.index.corpus_rot.shape[0], s, dead) if dead else ()
+        self._dead_mask = sum(1 << int(d) for d in dead)
+        with current_tracer().span("engine.step", route="graph-sharded", shards=s,
+                                   batch=len(batch_np), dead_shards=len(dead)):
+            d, i, st = search_graph_sharded(
+                self.index, batch_np, num_shards=s, wave_step=self._wave_step,
+                tombstones=tombs, device=self.index.device, **self.search_kw)
+        return d.cpu().numpy(), i.cpu().numpy(), st
+
+    def close(self) -> None:
+        """Send the other ranks their stop (once)."""
+        if not self.closed:
+            self.closed = True
+            _header(self.index.device, [_STOP])
+
+
+def build_sharded_graph_engine(index, mesh, *, k: int, ef: int = 48, expand: int = 2,
+                               record: bool = False,
+                               timed: bool = False) -> ShardedGraphEngine:
+    """Rank 0's engine of ``serve --index graph --graph-shards N`` over a
+    one-dimensional ``mesh`` of N ranks, every other rank running
+    :func:`graph_shard_worker`.
+
+    The process-group realisation of ``index.graph.search_graph_sharded``:
+    rank s holds the adjacency rows of nodes ``shard_graph_nodes(n, N)[s]``
+    (the mesh's linear order), and each wave is one ``wave_step``: rank 0
+    picks the frontier and broadcasts the scattered offsets and r0, every
+    rank launches the one-wave kernel over its rows with the threshold
+    frozen, all-gathers the windows, bitmaps and stats and merges them
+    (``merge_shard_windows``).  Rank 0 holds the whole index (it runs the
+    prologue and the frontier selection), the others their slab rows only.
+    The walk is the one ``serve`` runs (unseeded, decoupled, no routing
+    slack, at most 64 waves), with the same settings on every rank.  The
+    results equal the host-simulated walk's, and so the ``num_shards=1,
+    use_ref=True`` oracle's, bit for bit.
+
+    Failover: each batch asks the chaos harness for dead shards; their
+    node ranges are tombstoned (``dead_shard_tombstones``) and the dead
+    rank, still in the collective, is handed only -1 offsets, so it
+    contributes its carried-in window, the merge's identity; the survivors'
+    results equal the surviving-corpus oracle.  Fails fast on a mesh of
+    more than one dimension or a node count the mesh does not divide."""
+    if mesh.ndim != 1:
+        raise ValueError(f"sharded graph serving needs a 1-D mesh, got "
+                         f"dims={mesh.mesh_dim_names}")
+    num_shards = mesh.size()
+    n = index.corpus_rot.shape[0]
+    base, count = shard_graph_nodes(n, num_shards)[mesh_rank(mesh)]
+    if mesh_rank(mesh) != 0:
+        raise ValueError("the sharded engine runs on rank 0; the others run "
+                         "graph_shard_worker")
+    if not index.has_fused:
+        raise ValueError("sharded graph serving needs build_graph(..., quant='int8')")
+    local = _ShardWave(graph_slab(index, base, count), group=mesh.get_group(0), k=k,
+                       ef=ef, record=record, timed=timed)
+    return ShardedGraphEngine(index, local, num_shards=num_shards, search_kw=dict(
+        k=k, ef=ef, expand=expand, block_q=local.block_q))
+
+
+def graph_shard_worker(rank: int, world: int, dev, snapshot: str, cfg: dict) -> dict:
+    """Rank ``rank`` (> 0) of a sharded graph engine: load its slab rows from
+    the index snapshot in ``snapshot`` (``checkpoint.index_io.load_graph_slab``)
+    and serve rank 0's waves until it stops them.  ``cfg``: ``k``, ``ef``
+    (as rank 0's), ``mesh_device_type``, ``record``, ``timed``.  Returns the
+    rank's
+    kernel launches and :meth:`_ShardWave.report`; raises if it is handed a
+    frontier node while its shard is dead."""
+    from repro_torch.checkpoint.index_io import load_graph_slab
+
+    mesh = make_mesh((world,), ("shard",), cfg["mesh_device_type"])
+    slab = load_graph_slab(snapshot, shard=mesh_rank(mesh), num_shards=world, device=dev)
+    local = _ShardWave(slab, group=mesh.get_group(0), k=cfg["k"], ef=cfg["ef"],
+                       record=cfg["record"], timed=cfg["timed"])
+    launches0 = graph_scan.graph_scan_kernel_call.launches
+    batches, dead = 0, False
+    while True:
+        cmd, *h = _header(dev)
+        if cmd == _STOP:
+            break
+        if cmd == _BATCH:
+            q_pad, dim, q_tiles, words, dead_mask = h[:5]
+            q = _bcast(torch.empty((q_pad, dim), device=dev))
+            top_sq = _bcast(torch.empty((q_pad, cfg["ef"]), device=dev))
+            top_ids = _bcast(torch.empty((q_pad, cfg["ef"]), dtype=torch.int32, device=dev))
+            vis = _bcast(torch.empty((q_tiles, words), dtype=torch.int32, device=dev))
+            local.begin(q, top_sq, top_ids, vis)
+            dead = bool((dead_mask >> rank) & 1)
+            batches += 1
+        elif cmd == _WAVE:
+            offs = _bcast(torch.empty((world, local.vis.shape[0], h[0]), dtype=torch.int32,
+                                      device=dev))
+            r0 = _bcast(torch.empty_like(local.top_sq[:, 0]))
+            if dead and bool((offs[rank] >= 0).any()):
+                raise RuntimeError(f"dead shard {rank} was handed frontier nodes")
+            local.wave(offs[rank], r0)
+        else:
+            raise RuntimeError(f"unknown sharded-engine command {cmd}")
+    return {"rank": rank, "batches": batches,
+            "launches": graph_scan.graph_scan_kernel_call.launches - launches0,
+            **local.report()}
+
+
+@contextlib.contextmanager
+def sharded_graph_engine(index, snapshot: str, *, num_shards: int, backend: str,
+                         k: int, ef: int = 48, expand: int = 2, record: bool = False,
+                         timed: bool = False, device: str = "cuda"):
+    """``with sharded_graph_engine(...) as engine:`` a sharded graph engine
+    over ``num_shards`` ranks: ranks 1.. spawned (``launch.mesh.LeadRank``)
+    to serve their slabs of the snapshot in ``snapshot`` (the one ``index``
+    was saved to), this process rank 0 over ``index`` (on rank 0's device).
+    On exit the ranks are stopped and joined; ``engine.ranks`` then holds
+    every rank's report (rank 0's included), and a failed rank raises."""
+    cfg = dict(k=k, ef=ef, record=record, timed=timed,
+               mesh_device_type=mesh_device_type(backend))
+    with LeadRank(graph_shard_worker, num_shards, backend=backend, device=device,
+                  args=(snapshot, cfg)) as lead:
+        mesh = make_mesh((num_shards,), ("shard",), cfg["mesh_device_type"])
+        launches0 = graph_scan.graph_scan_kernel_call.launches
+        engine = build_sharded_graph_engine(index, mesh, k=cfg["k"], ef=cfg["ef"],
+                                            expand=expand, record=record, timed=timed)
+        engine.backend = backend
+        yield engine
+        engine.close()
+        rank0 = {"rank": 0, "launches": graph_scan.graph_scan_kernel_call.launches - launches0,
+                 **engine.local.report()}
+    engine.ranks = {0: rank0, **lead.results}
+
+
+# ---------------------------------------------------------------------------
+# The flat route over a rank mesh
+# ---------------------------------------------------------------------------
+
+_ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class RankedFlatStep:
+    """Rank 0's flat search step over a 1-D ``mesh`` of R ranks, the others
+    running :func:`flat_rank_worker`: ``step(queries) -> (dists, ids,
+    scan)`` over the whole corpus.
+
+    At construction rank 0 keeps the first ``corpus_per_device`` rows (and
+    codes) of the served corpus and sends rank r its r-th share, with the
+    block scales and the table; each call broadcasts the queries and runs
+    ``build_search_step(svc, shards=..., mesh=mesh)`` on every rank (each
+    rank's share walked as ``shards // R`` segments, the seeds
+    ``MIN``-reduced, the windows merged by ``hierarchical_topk``).
+    ``timings["merge_ms"]`` sums rank 0's merge time."""
+
+    def __init__(self, svc: ServiceConfig, mesh, rows, codes, bscales, eps, scale,
+                 eps_lo, *, shards: int, timings: dict | None = None):
+        world = mesh.size()
+        n_local = rows.shape[0] // world
+        if rows.shape[0] % world:
+            raise ValueError(f"{rows.shape[0]} corpus rows do not split over {world} ranks")
+        dev = rows.device
+        _header(dev, [n_local, rows.shape[1], bscales.shape[0],
+                      _ROW_DTYPES.index(rows.dtype)])
+        for r in range(1, world):
+            part = slice(r * n_local, (r + 1) * n_local)
+            coll.send(rows[part], r)
+            coll.send(codes[part], r)
+        self.table = tuple(_bcast(t.float()) for t in (bscales, eps, scale, eps_lo))
+        self.rows, self.codes = rows[:n_local], codes[:n_local]
+        self.svc, self.mesh = svc, mesh
+        self.step = build_search_step(svc, with_stats=True, shards=shards, mesh=mesh,
+                                      timings=timings)
+        self.closed = False
+
+    def __call__(self, queries: torch.Tensor):
+        """``queries``: (Q, D_pad) rotated, already in the row dtype."""
+        _header(queries.device, [_BATCH, *queries.shape])
+        q = _bcast(queries.float()).to(self.rows.dtype)
+        bscales, eps, scale, eps_lo = self.table
+        return self.step(self.rows, self.codes, bscales, q, eps, scale, eps_lo)
+
+    def close(self) -> None:
+        if not self.closed:
+            self.closed = True
+            _header(self.rows.device, [_STOP])
+
+
+def flat_rank_worker(rank: int, world: int, dev, svc: ServiceConfig, shards: int,
+                     mesh_device_type: str) -> dict:
+    """Rank ``rank`` (> 0) of the flat route over ranks: receive its rows,
+    codes and the table from rank 0 (:class:`RankedFlatStep`), then run the
+    mesh step on every batch rank 0 broadcasts until it stops them.
+    Returns the rank's batches and ``ivf_scan`` launches."""
+    mesh = make_mesh((world,), ("rank",), mesh_device_type)
+    n_local, d_pad, s_steps, dt, *_ = _header(dev)
+    rows = coll.recv(torch.empty((n_local, d_pad), dtype=_ROW_DTYPES[dt], device=dev), 0)
+    codes = coll.recv(torch.empty((n_local, d_pad), dtype=torch.int8, device=dev), 0)
+    bscales = _bcast(torch.empty((s_steps,), device=dev))
+    eps, scale, eps_lo = (_bcast(torch.empty((s_steps,), device=dev)) for _ in range(3))
+    step = build_search_step(svc, with_stats=True, shards=shards, mesh=mesh)
+    launches0 = ivf_scan_kernel_call.launches
+    batches = 0
+    while True:
+        cmd, *h = _header(dev)
+        if cmd == _STOP:
+            break
+        if cmd != _BATCH:
+            raise RuntimeError(f"unknown flat-rank command {cmd}")
+        q = _bcast(torch.empty((h[0], h[1]), device=dev)).to(rows.dtype)
+        step(rows, codes, bscales, q, eps, scale, eps_lo)
+        batches += 1
+    return {"rank": rank, "batches": batches,
+            "launches": ivf_scan_kernel_call.launches - launches0}
 
 
 # ---------------------------------------------------------------------------
@@ -402,27 +834,34 @@ class ContinuousGraphEngine:
     per field in admission order (queries, beam windows, threshold floors,
     visited bitmaps, ledger sums), so a wave's selection, stacking and
     bookkeeping are a few tensor operations whatever the live count; the
-    host keeps per-slot counters (waves walked, ``expand``, the SLO state)
-    and reads back one count per slot each wave, and a retiring slot's
-    window row.
+    host keeps per-slot counters (waves walked, ``expand``, the entry, the
+    SLO state) and reads back one count per slot each wave, and a retiring
+    slot's window row.
+
+    ``num_shards`` > 1 runs the host-simulated sharded walk each wave: one
+    launch per shard over its slab rows with the threshold frozen
+    (``tighten=False``), the windows merged (``merge_shard_windows``) and
+    the bitmaps OR-ed — the ``search_graph_sharded`` schedule, so every
+    query returns what ``search_graph_sharded(index, q[None],
+    num_shards=S, use_ref=True)`` returns, with its per-shard ledger and
+    the exchange bytes its solo walk books.  Each admission and wave asks
+    the chaos harness for dead shards: a query admitted after a death
+    starts from the degraded state (fallback entry, tombstoned bitmap) and
+    equals the surviving-corpus oracle; a query mid-walk at the death gets
+    the dead ranges OR-ed into its bitmap and finishes flagged degraded.
 
     ``slo`` (an :class:`SLOPolicy` or ``--slo`` spec) adapts each query's
     ``expand`` from its threshold-tightening rate and optionally retires
     stalled walks; ``None`` keeps the engine bit-identical to the batch
     search.  The walk is the one ``serve`` runs: unseeded, decoupled
     (threshold column ``k - 1``), no routing slack, at most ``MAX_WAVES``
-    waves.  ``num_shards`` other than 1 (the host-simulated sharded walk)
-    is not ported.
+    waves.
     """
 
     MAX_WAVES = 64
 
     def __init__(self, index, *, k: int, ef: int = 48, expand: int = 2,
                  block_q: int = 8, num_shards: int = 1, slo=None):
-        if num_shards != 1:
-            raise NotImplementedError(
-                f"num_shards={num_shards}: the sharded continuous walk is not "
-                f"ported (ROADMAP queue 1 item 7)")
         if not 1 <= k <= ef:
             raise ValueError(f"need 1 <= k <= ef, got k={k} ef={ef}")
         self.index = index
@@ -431,7 +870,10 @@ class ContinuousGraphEngine:
         self.slo = parse_slo(slo)
         self.thresh_col = k - 1
         self._n, self._dim = index.corpus_rot.shape
-        words = ops.graph_vis_words(self._n)
+        self.num_shards = num_shards
+        self._ranges = shard_graph_nodes(self._n, num_shards)
+        self._words = ops.graph_vis_words(self._n)
+        self._tombs: tuple = ()
         dev = index.device
         # The live slots, stacked in admission order: tile t is rows
         # [t * block_q, (t + 1) * block_q) of the row-indexed fields.
@@ -440,14 +882,18 @@ class ContinuousGraphEngine:
         self._top_sq = torch.zeros((0, ef), device=dev)
         self._top_ids = torch.zeros((0, ef), dtype=torch.int32, device=dev)
         self._seed = torch.zeros((0,), device=dev)
-        self._vis = torch.zeros((0, words), dtype=torch.int32, device=dev)
+        self._vis = torch.zeros((0, self._words), dtype=torch.int32, device=dev)
         self._sem = torch.zeros((0, 4), dtype=torch.float64, device=dev)
-        self._fetch = torch.zeros((0, 2), dtype=torch.float64, device=dev)  # s1, s2
+        # Per shard: int8 tiles and fp slabs fetched.
+        self._fetch = torch.zeros((0, num_shards, 2), dtype=torch.float64, device=dev)
         self._depth = np.zeros((0,), np.int64)
         self._expand = np.zeros((0,), np.int64)
+        self._entry = np.zeros((0,), np.int64)
+        self._degraded = np.zeros((0,), bool)
+        self._exch = np.zeros((0,), np.float64)
         self._r_prev = np.zeros((0,), np.float64)
         self._stall = np.zeros((0,), np.int64)
-        self._pending: list[tuple[int, tuple]] = []  # admitted, not yet stacked
+        self._pending: list[tuple[int, tuple, int, bool]] = []  # admitted, not stacked
         self._live: set[int] = set()
         self._next = 0
         self._wave_idx = 0
@@ -455,16 +901,40 @@ class ContinuousGraphEngine:
     def live_count(self) -> int:
         return len(self._live)
 
+    def _sync_chaos(self) -> None:
+        """Refresh the dead-shard tombstones from the chaos harness: newly
+        dead ranges are OR-ed into every live walk's bitmap (the walk goes
+        on over the surviving corpus, flagged degraded); later admissions
+        start from the degraded state."""
+        dead = current_chaos().dead_shards(self.num_shards)
+        tombs = dead_shard_tombstones(self._n, self.num_shards, dead) if dead else ()
+        if tombs == self._tombs:
+            return
+        fresh = tuple(t for t in tombs if t not in self._tombs)
+        self._tombs = tombs
+        if fresh:
+            bits = torch.as_tensor(ops.pack_vis_ranges(self._n, fresh), device=self._vis.device)
+            self._vis = self._vis | bits[None, :]
+            self._degraded[:] = True
+            self._pending = [(h, st[:4] + (st[4] | bits[None, :],), e, True)
+                             for h, st, e, _ in self._pending]
+
     def admit(self, row) -> int:
         """Admit one query mid-walk; returns its handle.  The slot is freshly
-        seeded from ``_prep_wave_state`` on the one-query batch, so a
-        backfilled slot never inherits a retired walk's window."""
-        _, q, _, _, _, _, top_sq, top_ids, seed = _prep_wave_state(
+        seeded from ``_prep_wave_state`` on the one-query batch (under the
+        current tombstones), so a backfilled slot never inherits a retired
+        walk's window."""
+        self._sync_chaos()
+        _, q, _, _, _, entry, top_sq, top_ids, seed = _prep_wave_state(
             self.index, np.asarray(row, np.float32)[None], k=self.k, ef=self.ef,
-            block_q=self.block_q, seed_r=False)
+            block_q=self.block_q, seed_r=False, tombstones=self._tombs)
+        vis = torch.zeros((1, self._words), dtype=torch.int32, device=q.device)
+        if self._tombs:
+            vis |= torch.as_tensor(ops.pack_vis_ranges(self._n, self._tombs),
+                                   device=q.device)[None, :]
         h = self._next
         self._next += 1
-        self._pending.append((h, (q, top_sq, top_ids, seed)))
+        self._pending.append((h, (q, top_sq, top_ids, seed, vis), entry, bool(self._tombs)))
         self._live.add(h)
         return h
 
@@ -475,22 +945,24 @@ class ContinuousGraphEngine:
     def _stack_pending(self) -> None:
         if not self._pending:
             return
-        hs, states = zip(*self._pending)
+        hs, states, entries, degraded = zip(*self._pending)
         self._pending = []
-        q, top_sq, top_ids, seed = (torch.cat(f) for f in zip(*states))
+        q, top_sq, top_ids, seed, vis = (torch.cat(f) for f in zip(*states))
         dev, m = q.device, len(hs)
         self._handles.extend(hs)
         self._q = torch.cat([self._q, q])
         self._top_sq = torch.cat([self._top_sq, top_sq])
         self._top_ids = torch.cat([self._top_ids, top_ids])
         self._seed = torch.cat([self._seed, seed])
-        self._vis = torch.cat([self._vis, torch.zeros(
-            (m, self._vis.shape[1]), dtype=torch.int32, device=dev)])
+        self._vis = torch.cat([self._vis, vis])
         self._sem = torch.cat([self._sem, torch.zeros((m, 4), dtype=torch.float64, device=dev)])
         self._fetch = torch.cat([self._fetch, torch.zeros(
-            (m, 2), dtype=torch.float64, device=dev)])
+            (m, self.num_shards, 2), dtype=torch.float64, device=dev)])
         self._depth = np.concatenate([self._depth, np.zeros(m, np.int64)])
         self._expand = np.concatenate([self._expand, np.full(m, self.expand, np.int64)])
+        self._entry = np.concatenate([self._entry, np.asarray(entries, np.int64)])
+        self._degraded = np.concatenate([self._degraded, np.asarray(degraded, bool)])
+        self._exch = np.concatenate([self._exch, np.zeros(m)])
         self._r_prev = np.concatenate([self._r_prev, np.full(m, math.inf)])
         self._stall = np.concatenate([self._stall, np.zeros(m, np.int64)])
 
@@ -507,8 +979,10 @@ class ContinuousGraphEngine:
             t[rows] for t in (self._q, self._top_sq, self._top_ids, self._seed))
         self._vis, self._sem, self._fetch = (
             t[tiles] for t in (self._vis, self._sem, self._fetch))
-        self._depth, self._expand, self._r_prev, self._stall = (
-            a[keep] for a in (self._depth, self._expand, self._r_prev, self._stall))
+        (self._depth, self._expand, self._entry, self._degraded, self._exch,
+         self._r_prev, self._stall) = (
+            a[keep] for a in (self._depth, self._expand, self._entry, self._degraded,
+                              self._exch, self._r_prev, self._stall))
 
     def _finish(self, slots, reasons) -> list[RetiredQuery]:
         """Retire ``slots`` (tile indices) with ``reasons``: read back row 0
@@ -523,26 +997,61 @@ class ContinuousGraphEngine:
         sem, fetch = self._sem[tiles].cpu().numpy(), self._fetch[tiles].cpu().numpy()
         out = []
         for j, (t, reason) in enumerate(zip(slots, reasons)):
-            stats = _graph_stats(
-                self.index, dim=self._dim, k=self.k, seed_r=False, qn=1,
-                waves=int(self._depth[t]), sem=sem[j], s1_tiles=float(fetch[j, 0]),
-                s2_slabs=float(fetch[j, 1]))
+            if self.num_shards == 1:
+                stats = _graph_stats(
+                    self.index, dim=self._dim, k=self.k, seed_r=False, qn=1,
+                    waves=int(self._depth[t]), sem=sem[j], s1_tiles=float(fetch[j, 0, 0]),
+                    s2_slabs=float(fetch[j, 0, 1]))
+            else:
+                stats = _graph_sharded_stats(
+                    self.index, dim=self._dim, k=self.k, seed_r=False, qn=1,
+                    waves=int(self._depth[t]), sem=sem[j], s1_tiles=fetch[j, :, 0],
+                    s2_slabs=fetch[j, :, 1], exch_bytes=float(self._exch[t]),
+                    num_shards=self.num_shards, tombstones=self._tombs)
             h = self._handles[t]
             self._live.discard(h)
             out.append(RetiredQuery(
                 handle=h, dists=np.sqrt(np.maximum(top_sq[j], 0.0)),
                 ids=top_ids[j].astype(np.int32), stats=stats,
-                waves=int(self._depth[t]), reason=reason, degraded=False))
+                waves=int(self._depth[t]), reason=reason,
+                degraded=bool(self._degraded[t])))
         keep = np.ones(len(self._handles), bool)
         keep[list(slots)] = False
         self._keep(keep)
         return out
+
+    def _launch(self, q_cat, offs, top_sq, top_ids, r0_cat, vis_cat):
+        """One wave over the stacked tiles: one launch over the whole slab
+        (threshold tightened in the wave), or with shards one launch per
+        shard's slab rows (threshold frozen) and the merge.  Returns the
+        window, the bitmap and the per-shard stats."""
+        ix, bq, tc = self.index, self.block_q, self.thresh_col
+        if self.num_shards == 1:
+            sq, ids_, st, vis_out = ops.graph_scan_kernel(
+                ix.estimator, q_cat, offs, top_sq, top_ids, r0_cat, ix.adj_rot,
+                ix.adj_codes, ix.adj_ids, ix.gscales, vis_cat, vis_base=0,
+                vis_nodes=self._n, ef=self.ef, thresh_col=tc, block_q=bq,
+                block_c=ix.adj_block, block_d=ix.scan_block_d, tighten=True)
+            return sq, ids_, vis_out, [st]
+        slabs = [slab_rows(ix, b, c) for b, c in self._ranges]
+        inputs = frozen_wave_inputs(ix.estimator, q_cat, top_sq, top_ids, vis_cat, slabs[0],
+                                    ix.gscales, base=0, n_nodes=self._n, ef=self.ef,
+                                    thresh_col=tc, block_q=bq, block_c=ix.adj_block,
+                                    block_d=ix.scan_block_d)
+        g_sq, g_ids, g_st, g_vis = shard_launches(
+            graph_scan.graph_scan_kernel_call,
+            [(o, sl, b) for o, sl, (b, _) in zip(localize_frontier(offs, self._ranges), slabs,
+                                                 self._ranges)],
+            inputs, top_sq, top_ids, r0_cat, vis_cat)
+        sq, ids_, vis_out = merge_shard_state(g_sq, g_ids, g_vis, ef=self.ef)
+        return sq, ids_, vis_out, list(g_st)
 
     def step(self) -> list[RetiredQuery]:
         """Run one frontier wave over the whole live set; returns the
         queries that retired (converged frontier, wave budget, or SLO
         stall).  Safe to call with an empty live set (returns [])."""
         tr = current_tracer()
+        self._sync_chaos()
         current_chaos().on_wave(self._wave_idx)
         self._wave_idx += 1
         bq, tc = self.block_q, self.thresh_col
@@ -564,7 +1073,8 @@ class ContinuousGraphEngine:
                 # neighbourhood is what fills the window).
                 rows = torch.as_tensor(fresh, device=table.device)
                 table[rows] = -1
-                table[rows, 0] = self.index.entry
+                table[rows, 0] = torch.as_tensor(self._entry[fresh], dtype=table.dtype,
+                                                 device=table.device)
             counts = (table >= 0).sum(dim=1).cpu().numpy()
         with tr.span("continuous.retire"):
             budget = self._depth >= self.MAX_WAVES
@@ -593,21 +1103,27 @@ class ContinuousGraphEngine:
             q_cat = pad(self._q, n * bq, 0.0)
             top_sq, top_ids = pad(self._top_sq, n * bq, float("inf")), pad(self._top_ids, n * bq, -1)
             r0_cat, vis_cat, offs = pad(r0, n * bq, 0.0), pad(self._vis, n, 0), pad(offs, n, -1)
-        ix = self.index
-        with tr.span("continuous.wave", live=n, bucket=bucket, steps=steps):
-            sq, ids_, st, vis_out = tr.fence(ops.graph_scan_kernel(
-                ix.estimator, q_cat, offs, top_sq, top_ids, r0_cat, ix.adj_rot,
-                ix.adj_codes, ix.adj_ids, ix.gscales, vis_cat, vis_base=0,
-                vis_nodes=self._n, ef=self.ef, thresh_col=tc, block_q=bq,
-                block_c=ix.adj_block, block_d=ix.scan_block_d, tighten=True))
+        with tr.span("continuous.wave", live=n, bucket=bucket, steps=steps,
+                     shards=self.num_shards):
+            sq, ids_, vis_out, st_sh = tr.fence(self._launch(
+                q_cat, offs, top_sq, top_ids, r0_cat, vis_cat))
         with tr.span("continuous.commit"):
             self._top_sq, self._top_ids = sq[: n * bq], ids_[: n * bq]
             self._vis = vis_out[:n]
             # Row 0 of each tile is its only real query — the qn=1 crop the
-            # solo search's epilogue sums over.
-            first = st[: n * bq: bq].double()
-            self._sem += first[:, :4]
-            self._fetch += first[:, [5, 4]]
+            # solo search's epilogue sums over — shard by shard.
+            for s, st in enumerate(st_sh):
+                first = st[: n * bq: bq].double()
+                self._sem += first[:, :4]
+                self._fetch[:, s] += first[:, [5, 4]]
+            if self.num_shards > 1:
+                # The exchange bytes the query's solo walk books this wave:
+                # its own frontier width sets the step count, not the
+                # stacked launch's.
+                self._exch += [frontier_exchange_bytes(
+                    num_shards=self.num_shards, queries=bq, ef=self.ef,
+                    vis_words=self._words, q_tiles=1, steps=ops.pow2_bucket(int(c)))
+                    for c in counts]
             self._depth += 1
             if self.slo is None:
                 return retired

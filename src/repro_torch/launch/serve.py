@@ -1,11 +1,13 @@
-"""DADE vector-search serving on one card (the flat, graph, continuous
+"""DADE vector-search serving (the flat, graph, sharded graph, continuous
 graph and churn routes of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cuda] \
         [--index flat] [--requests 10] [--corpus 1048576] [--batch 1024] [--k 100] \
-        [--shards G] [--quant int8|none] [--fused on|off] [--index-ckpt DIR]
+        [--shards G] [--ranks R --dist-backend nccl|gloo] [--quant int8|none] \
+        [--fused on|off] [--index-ckpt DIR]
     PYTHONPATH=src python -m repro_torch.launch.serve --index graph \
         [--corpus 32768] [--k 10] [--ef 48] [--expand 2] [--m 16] [--index-ckpt DIR] \
+        [--graph-shards N --dist-backend nccl|gloo] [--verify-degraded-oracle] \
         [--continuous --max-live SLOTS --slo LO:HI[:STALL]] [--verify-graph-oracle]
     PYTHONPATH=src python -m repro_torch.launch.serve --index graph \
         --mutate-rate MUTS [--wal PATH] [--verify-graph-oracle]
@@ -19,20 +21,33 @@ ground truth, the warm-up step's time (``compile_ms``; it includes the
 first kernel build) and the fetch figures.  ``--shards`` is the
 reference's shard count (its ``--devices``), run on the one card as that
 many segments of each scan, merged as the reference merges shards.
-``--fused off`` and ``--quant none`` serve the reference's unfused
-one-device routes in plain PyTorch (a budget of exact refinements per wave
-over per-dimension int8 codes; the fp rows alone).
+``--ranks R`` serves the flat route over R rank processes (the
+reference's (R, G/R) mesh): each rank holds a 1/R share of the corpus and
+walks it as G/R segments, and the windows merge across the ranks
+(``annservice.RankedFlatStep``); R must divide ``--shards``.  ``--fused
+off`` and ``--quant none`` serve the reference's unfused one-device routes
+in plain PyTorch (a budget of exact refinements per wave over
+per-dimension int8 codes; the fp rows alone).
 
 The graph route builds the NSW graph (m=16, ef_construction=max(2·ef, 64),
 f32 adjacency rows, int8 codes; the insertion loop runs on the host, so
 its corpus defaults to 32,768 rows and k to 10) and serves each batch
 through one launch of the beam walk; its line adds waves and fetched
-bytes per query.  ``--continuous`` serves the same graph with continuous
+bytes per query.  ``--graph-shards N`` splits the graph's nodes over N rank
+processes (``annservice.sharded_graph_engine``): each rank holds its slab
+rows, loaded from the index snapshot (``--index-ckpt``, or one written for
+the run), and every wave is one launch per rank and an all-gather of the
+windows; the walk equals ``search_graph_sharded(num_shards=1,
+use_ref=True)``, which ``--verify-graph-oracle`` checks.  ``--chaos
+shard_death:shard=S:after=B`` kills a shard mid-run: the survivors serve on
+with its nodes tombstoned, and ``--verify-degraded-oracle`` holds them to
+the surviving-corpus oracle.  ``--continuous`` serves the same graph with continuous
 batching: queries join the one-wave kernel's wave step mid-walk
 (``annservice.ContinuousGraphEngine`` under
 ``runtime.scheduler.ContinuousScheduler``), at most ``--max-live`` at a
-time, each retired query bit-identical to its solo search.
-``--index-ckpt DIR`` warm-restarts from a digest-verified snapshot (the
+time, each retired query bit-identical to its solo search; with
+``--graph-shards N`` the host-simulated sharded walk (one launch per shard
+a wave, in this process).  ``--index-ckpt DIR`` warm-restarts from a digest-verified snapshot (the
 graph route's whole index, the flat route's estimator), or builds once and
 saves there; a corrupted leaf falls back to a rebuild.
 
@@ -54,15 +69,17 @@ reports p50/p95/p99 request latency; ``--deadline-ms``,
 ``--queue-watermark`` and ``--retries`` / ``--retry-backoff-ms`` shed late,
 excess and failing work (``submitted == served + shed`` always);
 ``--chaos SPEC`` arms fault drills (``step_error``, ``queue_overload``,
-``shard_stall``, ``slab_corruption``, ``torn_upsert``,
+``shard_stall``, ``shard_death``, ``slab_corruption``, ``torn_upsert``,
 ``stale_transform``).  Telemetry: ``--metrics-json PATH`` writes the
 schema-versioned metrics snapshot that ``scripts/check_metrics_schema.py``
 validates; ``--trace PATH`` writes a Chrome trace of the run's spans (its
 fences wait for the card at span ends: leave it off for peak QPS).
 
-Not ported (refused by name): sharded graph serving (``--graph-shards``,
-``--verify-degraded-oracle``, chaos ``shard_death``; ROADMAP queue 1 item
-7).
+Rank processes (``--ranks``, ``--graph-shards``) join a process group over
+``--dist-backend``: ``nccl`` where every rank has a card of its own,
+``gloo`` for several ranks on one card (or on the CPU); the report line
+names it.  Ranks sharing one card are not chips: their rates are not
+multi-chip rates.
 """
 
 from __future__ import annotations
@@ -71,6 +88,8 @@ import argparse
 import dataclasses
 import hashlib
 import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -89,19 +108,23 @@ from repro_torch.data.pipeline import (
     drifted_vectors, synthetic_queries, synthetic_vectors,
 )
 from repro_torch.index.graph import (
-    GraphIndex, build_graph, search_graph_beam_host, search_graph_fused,
+    GraphIndex, build_graph, dead_shard_tombstones, search_graph_beam_host,
+    search_graph_fused, search_graph_sharded,
 )
 from repro_torch.index.mutable import DriftWatchdog, MutableGraph
 from repro_torch.kernels.graph_scan import KERNEL_TILE
+from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call
 from repro_torch.kernels.ops import block_table
 from repro_torch.launch.annservice import (
-    FUSED_BLOCK_C, SHARDS, ContinuousGraphEngine, autotune_refine_budget,
-    build_graph_engine, build_search_step, parse_slo,
+    FUSED_BLOCK_C, SHARDS, ContinuousGraphEngine, RankedFlatStep,
+    autotune_refine_budget, build_graph_engine, build_search_step,
+    flat_rank_worker, parse_slo, sharded_graph_engine,
 )
+from repro_torch.launch.mesh import LeadRank, make_mesh, mesh_device_type
 from repro_torch.obs import (
     MetricsRegistry, Tracer, current_tracer, record_dco_method,
-    record_drift, record_fused_serve_totals, record_graph_scan, record_mutations,
-    set_tracer, write_chrome_trace, write_metrics_json,
+    record_drift, record_fused_serve_totals, record_graph_scan, record_graph_sharded,
+    record_mutations, set_tracer, write_chrome_trace, write_metrics_json,
 )
 from repro_torch.quant.accounting import (
     ID_BYTES, fetched_tile_bytes, stage2_fetch_report, two_stage_bytes,
@@ -117,13 +140,18 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # makes 2^20 rows an hours-long build.
 GRAPH_NODES = 32768
 GRAPH_K = 10
-# What the port does not serve yet, by flag and by chaos kind, with the
-# ROADMAP item that brings it.
-UNPORTED_FLAGS = {"graph_shards": "queue 1 item 7", "verify_degraded_oracle": "queue 1 item 7"}
-UNPORTED_FAULTS = {"shard_death": "queue 1 item 7"}
 # The arrays the churn route's oracle holds equal to the rebuild's.
 CHURN_ARRAYS = ("neighbors", "corpus_rot", "corpus_q", "qscales", "adj_rot",
                 "adj_codes", "adj_ids", "gscales")
+
+
+def backend_label(args) -> str:
+    """The process-group backend as the report line names it: a gloo group
+    on the card moves each collective's tensors through the host
+    (``distributed.collectives.staged``)."""
+    if args.dist_backend == "gloo" and args.device == "cuda":
+        return "gloo(host-staged)"
+    return args.dist_backend
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -155,6 +183,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="flat route: corpus shards, walked as segments of one "
                          "scan on the card and merged as the reference's mesh "
                          "merges them")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="flat route: rank processes, each holding 1/R of the "
+                         "corpus and walking --shards/R segments (the reference's "
+                         "(R, G/R) mesh); R must divide --shards")
+    ap.add_argument("--graph-shards", type=int, default=1,
+                    help="--index graph: rank processes the graph's nodes split "
+                         "over, with a frontier exchange every wave (with "
+                         "--continuous: the host-simulated sharded walk); the "
+                         "node count must divide evenly")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend of --ranks / --graph-shards: nccl "
+                         "(a card per rank) or gloo (ranks sharing a card, or the "
+                         "CPU); default nccl on cuda, gloo on cpu")
+    ap.add_argument("--verify-degraded-oracle", action="store_true",
+                    help="after a --chaos shard_death drill on the sharded graph "
+                         "route, require the degraded engine to return the "
+                         "surviving-corpus oracle's results")
     ap.add_argument("--quant", default="int8", choices=["int8", "none"],
                     help="int8: stream the corpus as 1-byte codes (none: the fp "
                          "rows alone, the reference's plain wave screen)")
@@ -217,12 +262,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "<--index-ckpt>/mutations.wal with a snapshot dir, else "
                          "unlogged); an existing log is replayed onto a fresh base "
                          "before serving, its torn tail truncated")
-    # The reference's flags for routes the port does not serve: refused.
-    ap.add_argument("--graph-shards", type=int, default=1, help=argparse.SUPPRESS)
-    ap.add_argument("--verify-degraded-oracle", action="store_true",
-                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    # The reference's flag rules first, then what the port does not serve.
     if args.mutate_rate > 0 and args.index != "graph":
         ap.error("--mutate-rate requires --index graph (the streaming mutable "
                  "index is the graph route)")
@@ -235,10 +275,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.continuous and args.mutate_rate > 0:
         ap.error("--continuous and --mutate-rate are separate drills; run them "
                  "in separate serves")
-    for name, item in UNPORTED_FLAGS.items():
-        if getattr(args, name) != ap.get_default(name):
-            ap.error(f"--{name.replace('_', '-')} {getattr(args, name)}: not ported "
-                     f"(ROADMAP {item})")
+    if args.graph_shards < 1 or args.ranks < 1:
+        ap.error("--graph-shards and --ranks must be >= 1")
+    if args.graph_shards > 1 and args.index != "graph":
+        ap.error(f"--graph-shards {args.graph_shards}: it shards the --index graph route")
+    if args.verify_degraded_oracle and args.index != "graph":
+        ap.error("--verify-degraded-oracle checks the sharded --index graph route")
+    if args.ranks > 1 and (args.index != "flat" or args.quant != "int8"
+                           or args.fused != "on"):
+        ap.error("--ranks serves the fused flat route (--index flat --quant int8 "
+                 "--fused on)")
+    if args.shards % args.ranks:
+        ap.error(f"--ranks {args.ranks} must divide --shards {args.shards}")
+    if args.dist_backend is None:
+        args.dist_backend = "nccl" if args.device == "cuda" else "gloo"
+    if args.dist_backend == "nccl" and args.device != "cuda":
+        ap.error("--dist-backend nccl needs --device cuda")
     graph = args.index == "graph"
     if args.corpus is None:
         args.corpus = GRAPH_NODES if graph else CONFIG.corpus_per_device
@@ -344,7 +396,13 @@ class ServeRun:
     def __init__(self, args, svc: ServiceConfig, dev, reg: MetricsRegistry, tracer):
         self.args, self.svc, self.dev, self.reg, self.tracer = args, svc, dev, reg, tracer
         self.config = {k.replace("-", "_"): v for k, v in vars(args).items()}
-        self.config.update(devices=1, corpus=svc.corpus_per_device)
+        # Rank processes (the host-simulated continuous walk runs in one),
+        # and the distinct cards they ran on: ranks sharing a card are not
+        # devices.
+        ranks = max(args.ranks,
+                    args.graph_shards if args.index == "graph" and not args.continuous else 1)
+        cards = min(ranks, torch.cuda.device_count()) if dev.type == "cuda" else 1
+        self.config.update(rank_processes=ranks, devices=cards, corpus=svc.corpus_per_device)
 
     def warmup(self, step_fn, queries) -> float:
         """Run one engine step outside every timed window (its first kernel
@@ -450,6 +508,22 @@ class ServeRun:
                         for i in range(len(gt))]) for req, gt in served]
         return float(np.mean(per)) if per else 0.0
 
+    def degraded_split(self, served) -> tuple[str, dict]:
+        """Recall of the requests served with a dead shard against the
+        healthy ones: the cost of failover, measured on this run's traffic."""
+        deg = [(r, g) for r, g in served if r.degraded]
+        if not deg:
+            return "", {}
+        healthy = [(r, g) for r, g in served if not r.degraded]
+        dr = self.recall(deg)
+        delta = self.recall(healthy) - dr if healthy else 0.0
+        self.reg.counter("graph.sharded.degraded.requests").add(len(deg))
+        self.reg.gauge("graph.sharded.degraded.recall").set(dr)
+        self.reg.gauge("graph.sharded.degraded.recall_delta").set(delta)
+        return (f" degraded(requests={len(deg)} recall={dr:.3f} delta={delta:+.3f})",
+                {"degraded_requests": len(deg), "degraded_recall": dr,
+                 "degraded_recall_delta": delta})
+
     @staticmethod
     def shed_note(sched) -> str:
         s = sched.stats
@@ -547,6 +621,8 @@ def serve_graph(run: ServeRun, prepared: GraphService | None) -> dict:
     corpus, n = srv.corpus, svc.corpus_per_device
     if args.continuous:
         return serve_continuous(run, srv, build_note)
+    if args.graph_shards > 1:
+        return serve_graph_sharded(run, srv, build_note)
     engine = build_graph_engine(srv.index, k=svc.k, ef=args.ef,
                                 expand=args.expand, device=dev)
     if args.verify_graph_oracle:
@@ -597,19 +673,158 @@ def serve_graph(run: ServeRun, prepared: GraphService | None) -> dict:
     return run.emit(report)
 
 
+def serve_graph_sharded(run: ServeRun, srv: GraphService, build_note: str) -> dict:
+    """``--index graph --graph-shards N``: the graph's nodes split over N rank
+    processes (``annservice.sharded_graph_engine``), this process rank 0.
+    The other ranks load their slab rows from the ``--index-ckpt`` snapshot,
+    or from one written for the run and removed after it.  With
+    ``--verify-graph-oracle`` the engine must return the ids and distances
+    of ``search_graph_sharded(num_shards=1, use_ref=True)`` (the
+    frozen-threshold oracle) bit for bit; with ``--verify-degraded-oracle``,
+    after a ``shard_death`` drill, those of the same oracle over the
+    surviving corpus."""
+    args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
+    corpus, n, shards = srv.corpus, svc.corpus_per_device, args.graph_shards
+    snapshot = args.index_ckpt
+    if snapshot is None:
+        snapshot = tempfile.mkdtemp(prefix="graph-shards-")
+        save_graph_index(snapshot, srv.index)
+    try:
+        with sharded_graph_engine(srv.index, snapshot, num_shards=shards,
+                                  backend=args.dist_backend, k=svc.k, ef=args.ef,
+                                  expand=args.expand, device=args.device) as engine:
+            report = _serve_sharded(run, srv, engine, build_note)
+    finally:
+        if args.index_ckpt is None:
+            shutil.rmtree(snapshot, ignore_errors=True)
+    report["rank_launches"] = [engine.ranks[r]["launches"] for r in sorted(engine.ranks)]
+    return run.emit(report)
+
+
+def _check_sharded_oracle(srv: GraphService, engine, vq, *, args, k: int, dev,
+                          tombstones=(), label: str) -> None:
+    d_e, i_e, _ = engine(vq)
+    d_o, i_o, _ = search_graph_sharded(srv.index, vq, num_shards=1, k=k, ef=args.ef,
+                                       expand=args.expand, use_ref=True, device=dev,
+                                       tombstones=tombstones)
+    if not np.array_equal(i_e, i_o.cpu().numpy()):
+        raise SystemExit(f"{label}: ids diverge from the oracle")
+    if not np.array_equal(d_e, d_o.cpu().numpy()):
+        raise SystemExit(f"{label}: distances diverge from the oracle")
+
+
+def _serve_sharded(run: ServeRun, srv: GraphService, engine, build_note: str) -> dict:
+    """The sharded graph route's serving loop on rank 0; returns the report
+    (its line printed)."""
+    args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
+    corpus, n, shards = srv.corpus, svc.corpus_per_device, args.graph_shards
+    if args.verify_graph_oracle:
+        vq = synthetic_queries(svc.query_batch, svc.dim, corpus, seed=77)
+        _check_sharded_oracle(srv, engine, vq, args=args, k=svc.k, dev=dev,
+                              label=f"graph serving over {shards} shards")
+        print(f"verify: shards={shards} engine bit-identical to the single-shard "
+              f"frozen-threshold oracle ({svc.query_batch} queries)", flush=True)
+    g_stats = []
+
+    def g_step(batch_np):
+        d, i, st = engine(batch_np)
+        g_stats.append(st)
+        return d, i
+
+    compile_ms = run.warmup(engine, synthetic_queries(svc.query_batch, svc.dim, corpus,
+                                                      seed=999))
+    sched = run.scheduler(g_step)
+    payloads = run.payloads(corpus, srv.corpus_t, lambda q: q)
+    reqs, gts, dt, lat_ms = run.drive(sched, payloads)
+    served, shed = run.accounting(sched, reqs, gts)
+    rec = run.recall(served)
+    total_q = sum(len(g) for _, g in served)
+    waves = sum(st.waves for st in g_stats)
+    mean = (lambda xs: float(np.mean(xs)) if xs else 0.0)
+    fetched = mean([st.fetched_bytes_per_query for st in g_stats])
+    skip = mean([st.s2_skip_rate for st in g_stats])
+    for st in g_stats:
+        record_graph_sharded(reg, st, queries=svc.query_batch)
+    lat_note = run.latency_note(lat_ms)
+    if args.verify_degraded_oracle:
+        dead = current_chaos().dead_shards(shards)
+        if not dead:
+            print("verify-degraded: no dead shards at the end of the run; nothing "
+                  "to check", flush=True)
+        else:
+            vq = synthetic_queries(svc.query_batch, svc.dim, corpus, seed=78)
+            _check_sharded_oracle(srv, engine, vq, args=args, k=svc.k, dev=dev,
+                                  tombstones=dead_shard_tombstones(n, shards, dead),
+                                  label="degraded serving")
+            print(f"verify-degraded: engine with dead shards {sorted(dead)} "
+                  f"bit-identical to the surviving-corpus oracle "
+                  f"({svc.query_batch} queries)", flush=True)
+    # What each shard's memory ships a wave, and what the exchange carries.
+    shard_fpw = [sum(st.shard_fetched_bytes_per_query[s] * svc.query_batch
+                     for st in g_stats) / max(waves, 1.0) for s in range(shards)]
+    exch_pw = mean([st.exchange_bytes_per_wave for st in g_stats])
+    exch_pq = mean([st.exchange_bytes_per_query for st in g_stats])
+    deg_note, deg_report = run.degraded_split(served)
+    shard_note = " ".join(f"shard{s}_fetched_B_per_wave={b:.0f}"
+                          for s, b in enumerate(shard_fpw))
+    print(f"method={args.method} index=graph shards={shards} backend={backend_label(args)} "
+          f"corpus={n} requests={len(served)}/{sched.stats['submitted']} rows={total_q} "
+          f"ef={args.ef} expand={args.expand} QPS={total_q/dt:.0f} "
+          f"recall@{svc.k}={rec:.3f} compile_ms={compile_ms:.0f}{build_note} "
+          f"waves={waves:.0f} fetched_B_per_q={fetched:.0f} {shard_note} "
+          f"exchange_B_per_wave={exch_pw:.0f} exchange_B_per_q={exch_pq:.0f} "
+          f"s2_skip_rate={skip:.3f} device={dev}{run.shed_note(sched)}{deg_note}"
+          f"{lat_note}", flush=True)
+    return {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
+            "waves": float(waves), "fetched_bytes_per_query": fetched,
+            "exchange_bytes_per_wave": exch_pw, "exchange_bytes_per_query": exch_pq,
+            "s2_skip_rate": skip, "queries": total_q, "batches": sched.stats["batches"],
+            "requests_submitted": sched.stats["submitted"],
+            "requests_served": sched.stats["served"], "requests_shed": shed,
+            "shards": shards, "backend": backend_label(args),
+            "ids_sha256": run.ids_digest(served), "device": str(dev), **deg_report}
+
+
 def serve_continuous(run: ServeRun, srv: GraphService, build_note: str) -> dict:
     """``--index graph --continuous``: the continuous engine under the
     continuous scheduler, with its warm-up and (``--verify-graph-oracle``)
     the interleaving check: 8 queries walking concurrently must equal each
-    one served alone by ``search_graph_fused`` and by the plain walk."""
+    one served alone by ``search_graph_fused`` and by the plain walk, or
+    with ``--graph-shards N`` (the host-simulated sharded walk) by
+    ``search_graph_sharded(num_shards=N, use_ref=True)``.  With
+    ``--verify-degraded-oracle``, after a ``shard_death`` drill, 8 queries
+    admitted to a fresh engine must equal the surviving-corpus oracle."""
     args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
     corpus, n = srv.corpus, svc.corpus_per_device
     max_live = args.max_live or svc.query_batch
     slo = parse_slo(args.slo)
+    shards = args.graph_shards
 
     def new_engine(policy):
         return ContinuousGraphEngine(srv.index, k=svc.k, ef=args.ef,
-                                     expand=args.expand, slo=policy)
+                                     expand=args.expand, num_shards=shards, slo=policy)
+
+    def run_solo(vq):
+        """``vq`` walked concurrently through a fresh SLO-off engine (the
+        oracles walk at fixed expand); the retired queries in row order."""
+        veng = new_engine(None)
+        hmap = {veng.admit(vq[i]): i for i in range(len(vq))}
+        out = {}
+        while veng.live_count():
+            for rq in veng.step():
+                out[hmap[rq.handle]] = rq
+        rqs = [out[i] for i in range(len(vq))]
+        return np.stack([r.dists for r in rqs]), np.stack([r.ids for r in rqs]), rqs
+
+    def sharded_oracle(vq, label, **kw):
+        dv, iv, rqs = run_solo(vq)
+        solo = [search_graph_sharded(srv.index, vq[i: i + 1], k=svc.k, ef=args.ef,
+                                     expand=args.expand, use_ref=True, device=dev, **kw)
+                for i in range(len(vq))]
+        if not (np.array_equal(iv, np.concatenate([o[1].cpu().numpy() for o in solo]))
+                and np.array_equal(dv, np.concatenate([o[0].cpu().numpy() for o in solo]))):
+            raise SystemExit(f"{label} diverges from its solo oracle")
+        return rqs, solo
 
     engine = new_engine(slo)
     reg.gauge("serve.continuous.max_live").set(float(max_live))
@@ -623,18 +838,18 @@ def serve_continuous(run: ServeRun, srv: GraphService, build_note: str) -> dict:
     compile_ms = (time.perf_counter() - t0) * 1e3
     reg.gauge("serve.compile_ms").set(compile_ms)
 
-    if args.verify_graph_oracle:
-        # Through a fresh SLO-off engine: the solo walks run at fixed expand.
-        nv = min(svc.query_batch, 8)
+    nv = min(svc.query_batch, 8)
+    if args.verify_graph_oracle and shards > 1:
         vq = synthetic_queries(nv, svc.dim, corpus, seed=77)
-        veng = new_engine(None)
-        hmap = {veng.admit(vq[i]): i for i in range(nv)}
-        out = {}
-        while veng.live_count():
-            for rq in veng.step():
-                out[hmap[rq.handle]] = rq
-        rqs = [out[i] for i in range(nv)]
-        dv, iv = np.stack([r.dists for r in rqs]), np.stack([r.ids for r in rqs])
+        rqs, solo = sharded_oracle(vq, "continuous sharded serving", num_shards=shards)
+        if not all(r.stats == o[2] for r, o in zip(rqs, solo)):
+            raise SystemExit("continuous sharded serving: ledgers diverge from the "
+                             "solo walks'")
+        print(f"verify: continuous engine (shards={shards}) bit-identical to the solo "
+              f"sharded oracle ({nv} interleaved queries)", flush=True)
+    elif args.verify_graph_oracle:
+        vq = synthetic_queries(nv, svc.dim, corpus, seed=77)
+        dv, iv, rqs = run_solo(vq)
         solo = [search_graph_fused(srv.index, vq[i: i + 1], k=svc.k, ef=args.ef,
                                    expand=args.expand, device=dev) for i in range(nv)]
         if not (np.array_equal(iv, np.concatenate([s[1].cpu().numpy() for s in solo]))
@@ -656,14 +871,29 @@ def serve_continuous(run: ServeRun, srv: GraphService, build_note: str) -> dict:
     rec = run.recall(served)
     total_q = sum(len(g) for _, g in served)
     for st in sched.scan_stats:
-        record_graph_scan(reg, st, queries=1)
+        (record_graph_sharded if shards > 1 else record_graph_scan)(reg, st, queries=1)
+    if args.verify_degraded_oracle:
+        dead = current_chaos().dead_shards(shards)
+        if not dead:
+            print("verify-degraded: no dead shards at the end of the run; nothing "
+                  "to check", flush=True)
+        else:
+            vq = synthetic_queries(nv, svc.dim, corpus, seed=78)
+            rqs, _ = sharded_oracle(vq, "continuous degraded serving", num_shards=1,
+                                    tombstones=dead_shard_tombstones(n, shards, dead))
+            if not all(r.degraded for r in rqs):
+                raise SystemExit("post-death admissions not flagged degraded")
+            print(f"verify-degraded: continuous admissions with dead shards "
+                  f"{sorted(dead)} bit-identical to the surviving-corpus oracle "
+                  f"({nv} queries)", flush=True)
+    deg_note, deg_report = run.degraded_split(served)
     s = sched.stats
     occupancy = s["live_rows"] / max(s["waves"], 1)
     scans = sched.scan_stats
     mean_depth = float(np.mean([st.waves for st in scans])) if scans else 0.0
     fetched = float(np.mean([st.fetched_bytes_per_query for st in scans])) if scans else 0.0
     lat_note = run.latency_note(lat_ms)
-    print(f"method={args.method} index=graph mode=continuous shards=1 corpus={n} "
+    print(f"method={args.method} index=graph mode=continuous shards={shards} corpus={n} "
           f"requests={len(served)}/{s['submitted']} rows={total_q} ef={args.ef} "
           f"expand={args.expand} max_live={max_live} slo={args.slo} "
           f"QPS={total_q/dt:.0f} recall@{svc.k}={rec:.3f} compile_ms={compile_ms:.0f}"
@@ -672,14 +902,14 @@ def serve_continuous(run: ServeRun, srv: GraphService, build_note: str) -> dict:
           f"retired={s['retired']} shed={s['admission_shed']}) "
           f"retire(frontier={s['retire_frontier']} budget={s['retire_budget']} "
           f"stall={s['retire_stall']}) fetched_B_per_q={fetched:.0f} device={dev}"
-          f"{run.shed_note(sched)}{lat_note}", flush=True)
+          f"{run.shed_note(sched)}{deg_note}{lat_note}", flush=True)
     report = {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
               "waves": float(s["waves"]), "occupancy": float(occupancy),
               "mean_depth": mean_depth, "fetched_bytes_per_query": fetched,
               "queries": total_q, "admitted": s["admitted"], "retired": s["retired"],
               "admission_shed": s["admission_shed"], "retries": s["retries"],
               "requests_submitted": s["submitted"], "requests_served": s["served"],
-              "requests_shed": shed, "device": str(dev)}
+              "requests_shed": shed, "shards": shards, "device": str(dev), **deg_report}
     return run.emit(report)
 
 
@@ -952,7 +1182,9 @@ def serve_churn(run: ServeRun) -> dict:
 
 
 def serve_flat(run: ServeRun) -> dict:
-    """The flat route: batched requests through the fused wave scan."""
+    """The flat route: batched requests through the fused wave scan, in
+    this process or (``--ranks R``) over R rank processes, this one rank 0
+    (``annservice.RankedFlatStep``: each rank holds ``--corpus / R`` rows)."""
     args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
     est = None
     est_cfg = {"corpus": svc.corpus_per_device, "dim": svc.dim, "method": args.method,
@@ -971,7 +1203,6 @@ def serve_flat(run: ServeRun) -> dict:
         save_estimator(args.index_ckpt, srv.est, config=est_cfg)
         reg.counter("serve.ckpt.saved").add(1)
         print(f"index-ckpt: saved estimator to {args.index_ckpt}", flush=True)
-    corpus, n, d_pad = srv.corpus, svc.corpus_per_device, srv.d_pad
     quant = None if args.quant == "none" else args.quant
     fused = quant == "int8" and args.fused == "on"
     route_note, operands = " fused=megakernel", (srv.codes, srv.bscales)
@@ -994,14 +1225,43 @@ def serve_flat(run: ServeRun) -> dict:
         svc = dataclasses.replace(svc, refine_per_wave=budget)
     elif quant is None:
         route_note, operands = " quant=none", ()
-    step = (build_search_step(svc, with_stats=True, shards=args.shards) if fused
-            else build_search_step(svc, quant=quant, fused=False))
+    if args.ranks == 1:
+        step = (build_search_step(svc, with_stats=True, shards=args.shards) if fused
+                else build_search_step(svc, quant=quant, fused=False))
+        return run.emit(_serve_flat_loop(
+            run, srv, lambda q: step(srv.rows, *operands, q, srv.eps, srv.scale, srv.eps_lo),
+            fused=fused, route_note=route_note, est=est))
+    mdt = mesh_device_type(args.dist_backend)
+    timings: dict = {}
+    with LeadRank(flat_rank_worker, args.ranks, backend=args.dist_backend,
+                  device=args.device, args=(svc, args.shards, mdt)) as lead:
+        mesh = make_mesh((args.ranks,), ("rank",), mdt)
+        ranked = RankedFlatStep(svc, mesh, srv.rows, srv.codes, srv.bscales, srv.eps,
+                                srv.scale, srv.eps_lo, shards=args.shards, timings=timings)
+        launches0 = ivf_scan_kernel_call.launches
+        report = _serve_flat_loop(
+            run, srv, ranked, fused=True, est=est, timings=timings,
+            route_note=f" fused=megakernel ranks={args.ranks} backend={backend_label(args)}")
+        ranked.close()
+        rank0 = ivf_scan_kernel_call.launches - launches0
+    report["rank_launches"] = [rank0] + [lead.results[r]["launches"]
+                                         for r in sorted(lead.results)]
+    return run.emit(report)
+
+
+def _serve_flat_loop(run: ServeRun, srv: Service, step, *, fused: bool, route_note: str,
+                     est, timings: dict | None = None) -> dict:
+    """Serve the flat route's requests through ``step(queries) -> (dists,
+    ids[, scan])``; prints the report line and returns the report.
+    ``timings`` (the ranked step's) adds the merge's ms a batch."""
+    args, svc, dev, reg = run.args, run.svc, run.dev, run.reg
+    corpus, n, d_pad = srv.corpus, svc.corpus_per_device, srv.d_pad
     scan_totals = np.zeros((6,), np.float64)
 
     def fixed_step(batch_np):
         with current_tracer().span("engine.step", route="flat", batch=len(batch_np)):
             q = torch.as_tensor(batch_np, device=dev).to(srv.rows.dtype)
-            out = step(srv.rows, *operands, q, srv.eps, srv.scale, srv.eps_lo)
+            out = step(q)
             if fused:
                 scan_totals[:] += out[2].cpu().numpy()
             return out[0].cpu().numpy(), out[1].cpu().numpy()
@@ -1014,6 +1274,8 @@ def serve_flat(run: ServeRun) -> dict:
     compile_ms = run.warmup(fixed_step, prep(synthetic_queries(
         svc.query_batch, svc.dim, corpus, seed=999)))
     scan_totals[:] = 0.0
+    if timings is not None:
+        timings.clear()
     sched = run.scheduler(fixed_step)
     payloads = run.payloads(corpus, srv.corpus_t, prep)
     reqs, gts, dt, lat_ms = run.drive(sched, payloads)
@@ -1024,10 +1286,15 @@ def serve_flat(run: ServeRun) -> dict:
     report = {"qps": total_q / dt, "recall": rec, "compile_ms": compile_ms,
               "queries": total_q, "requests_submitted": sched.stats["submitted"],
               "requests_served": sched.stats["served"], "requests_shed": shed,
-              "shards": args.shards if fused else 1,
+              "shards": args.shards if fused else 1, "ranks": args.ranks,
+              "backend": backend_label(args) if args.ranks > 1 else None,
               "ckpt": ("off" if not args.index_ckpt else "restored" if est is not None
                        else "saved"),
               "ids_sha256": run.ids_digest(served), "device": str(dev)}
+    if timings is not None:
+        report["merge_ms_per_batch"] = timings.get("merge_ms", 0.0) / max(
+            sched.stats["batches"], 1)
+        route_note += f" merge_ms_per_batch={report['merge_ms_per_batch']:.3f}"
     fetch_note = ""
     if fused:
         # Stage-2 fetch report: every scanned wave tile ships its int8
@@ -1060,7 +1327,7 @@ def serve_flat(run: ServeRun) -> dict:
           f"QPS={total_q/dt:.0f} recall@{svc.k}={rec:.3f} "
           f"compile_ms={compile_ms:.0f}{route_note}{fetch_note}"
           f" device={dev}{run.shed_note(sched)}{lat_note}", flush=True)
-    return run.emit(report)
+    return report
 
 
 def main(argv=None, *, graph: GraphService | None = None) -> dict:
@@ -1079,10 +1346,10 @@ def main(argv=None, *, graph: GraphService | None = None) -> dict:
     reg = MetricsRegistry()
     tracer = Tracer(tool="serve", index=args.index) if args.trace else None
     chaos = parse_chaos(args.chaos, registry=reg) if args.chaos else None
-    for spec in chaos.specs if chaos else ():
-        if spec.kind in UNPORTED_FAULTS:
-            raise SystemExit(f"--chaos {spec.kind}: not ported "
-                             f"(ROADMAP {UNPORTED_FAULTS[spec.kind]})")
+    if (chaos is not None and any(s.kind == "shard_death" for s in chaos.specs)
+            and (args.index != "graph" or args.graph_shards == 1)):
+        raise SystemExit("--chaos shard_death needs a sharded route (--index graph "
+                         "--graph-shards N > 1)")
     if chaos is not None:
         print("chaos: armed " + "; ".join(s.kind for s in chaos.specs), flush=True)
     if args.deadline_ms:

@@ -16,8 +16,8 @@ friends), which map each stats family onto stable dotted metric names.
     re-registering a name as a different type (or a histogram with
     different bounds) raises, naming the colliding key.
 
-The sharded-graph bridge of the reference waits for the port of that route
-(ROADMAP queue 1 item 7).
+The sharded-graph bridge (``record_graph_sharded``) adds the per-shard
+fetch counters, the exchange ledger and the failover counters.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import re
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "merge_snapshots",
     "LATENCY_BUCKETS_MS", "WAVE_DEPTH_BUCKETS",
-    "record_fused_scan", "record_graph_scan", "record_fused_serve_totals",
+    "record_fused_scan", "record_graph_scan", "record_graph_sharded",
+    "record_fused_serve_totals",
     "record_dco_method", "DCO_METHODS", "record_mutations", "record_drift",
 ]
 
@@ -290,6 +291,37 @@ def record_graph_scan(reg: MetricsRegistry, st, *, queries: int) -> None:
     reg.counter("graph.scan.s2_slabs_total").add(st.s2_slabs_total)
     reg.counter("graph.scan.s2_slabs_fetched").add(st.s2_slabs_fetched)
     reg.gauge("graph.scan.s2_skip_rate").set(st.s2_skip_rate)
+
+
+def record_graph_sharded(reg: MetricsRegistry, st, *, queries: int) -> None:
+    """Feed a ``GraphShardedStats`` (corpus-sharded beam scan) into the
+    registry: the summed ledgers plus per-shard fetch counters (shards fetch
+    concurrently, so capacity planning needs each shard's own stream) and
+    the exchange ledger.  ``graph.sharded.shard<i>.fetched_bytes`` sum to
+    ``dco.fetched.bytes``'s contribution when threshold seeding is off (the
+    serving default); the schema check asserts it."""
+    qn = float(queries)
+    reg.counter("dco.semantic.bytes").add(st.bytes_per_query * qn)
+    reg.counter("dco.fetched.bytes").add(st.fetched_bytes_per_query * qn)
+    reg.counter("dco.exchanged.bytes").add(st.exchange_bytes_per_query * qn)
+    reg.counter("graph.sharded.queries").add(qn)
+    reg.counter("graph.sharded.waves").add(st.waves)
+    reg.counter("graph.sharded.rows").add(st.rows_per_query * qn)
+    reg.counter("graph.sharded.passed").add(st.passed_per_query * qn)
+    reg.gauge("graph.sharded.num_shards").set(st.num_shards)
+    reg.gauge("graph.sharded.s2_skip_rate").set(st.s2_skip_rate)
+    reg.gauge("graph.sharded.exchange_bytes_per_wave").set(st.exchange_bytes_per_wave)
+    for s, per_q in enumerate(st.shard_fetched_bytes_per_query):
+        reg.counter(f"graph.sharded.shard{s}.fetched_bytes").add(per_q * qn)
+        reg.counter(f"graph.sharded.shard{s}.s1_tiles_fetched").add(
+            st.shard_s1_tiles_fetched[s])
+        reg.counter(f"graph.sharded.shard{s}.s2_slabs_fetched").add(
+            st.shard_s2_slabs_fetched[s])
+    # Failover telemetry: only when the batch ran with tombstoned nodes.
+    if getattr(st, "tombstoned_nodes", 0):
+        reg.counter("graph.sharded.degraded.queries").add(qn)
+        reg.gauge("graph.sharded.degraded.tombstoned_nodes").set(st.tombstoned_nodes)
+        reg.gauge("graph.sharded.degraded.num_dead").set(float(len(st.dead_shards)))
 
 
 def record_mutations(reg: MetricsRegistry, ledger, *,

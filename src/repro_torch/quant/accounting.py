@@ -8,7 +8,9 @@ parts of ``repro.quant.accounting`` this slice needs).
     (block_c, block_d) slabs fetched only while stage 2 still has valid
     active candidates;
   * gathered (row-granular) bytes: what a host gather engine ships for the
-    same screen — every screened row's full fp and int8 dims plus its id.
+    same screen — every screened row's full fp and int8 dims plus its id;
+  * exchanged bytes: what the corpus-sharded graph walk moves between its
+    shards each wave (``frontier_exchange_bytes``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ FP32_BYTES = 4   # stage-2 exact rows, bytes per dimension
 ID_BYTES = 4     # per-row id stream accompanying each scanned tile
 
 __all__ = ["INT8_BYTES", "FP32_BYTES", "ID_BYTES", "two_stage_bytes",
-           "fetched_tile_bytes", "row_gather_bytes", "stage2_skip_rate",
-           "stage2_fetch_report"]
+           "fetched_tile_bytes", "row_gather_bytes", "frontier_exchange_bytes",
+           "stage2_skip_rate", "stage2_fetch_report"]
 
 
 def two_stage_bytes(int8_dims, fp_dims, *, int8_bytes: int = INT8_BYTES,
@@ -40,6 +42,33 @@ def row_gather_bytes(rows, *, dims: int, fp_bytes: int = FP32_BYTES,
     candidates of ``dims`` dimensions: a gather reads whole rows, so each
     pays its full fp row, its full int8 code row and its id."""
     return rows * (dims * (fp_bytes + int8_bytes) + id_bytes)
+
+
+def frontier_exchange_bytes(*, num_shards: int, queries: int, ef: int,
+                            vis_words: int, q_tiles: int, steps: int,
+                            f32_bytes: int = FP32_BYTES,
+                            id_bytes: int = ID_BYTES) -> float:
+    """Cross-shard frontier-exchange bytes of ONE sharded beam-scan wave
+    (the reference's formula, whatever transport carries it).
+
+      * **all-gathered wave state** — each shard ships its (Q, EF) beam
+        window (f32 distances + i32 ids), its (Q,) carried r², and its
+        ``vis_words``-word packed visited bitmap to every other shard
+        (payload × S × (S−1): the full-exchange upper bound of the
+        all-gather);
+      * **scattered frontier offsets** — the broadcast of the wave's
+        per-shard (q_tiles, steps) localized offset tables.
+
+    Per-shard stats ride the same gather but are diagnostics, not walk
+    state, and are excluded.  Returns 0.0 for ``num_shards <= 1``.
+    """
+    if num_shards <= 1:
+        return 0.0
+    window = queries * ef * (f32_bytes + id_bytes) + queries * f32_bytes
+    payload = window + vis_words * 4
+    gathered = num_shards * (num_shards - 1) * payload
+    scattered = num_shards * q_tiles * steps * 4
+    return float(gathered + scattered)
 
 
 def stage2_skip_rate(s2_slabs_fetched, s2_slabs_total) -> float:

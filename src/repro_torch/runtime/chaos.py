@@ -27,8 +27,9 @@ Fault kinds (specs parse from ``kind[:key=val]*`` joined by ``;``):
     appending and raises (``checkpoint.wal``; replay must recover).
   * ``stale_transform`` — suppresses the drift watchdog's recalibration
     swap (``index.mutable.DriftWatchdog``).
-  * ``shard_death`` parses and keeps the reference's hook, but no port
-    code calls it yet: it belongs to the sharded walk, which is not ported.
+  * ``shard_death``    — kills shard ``shard`` once ``after`` engine steps
+    have run: the sharded graph engines ask ``dead_shards`` before each
+    batch or wave and serve on with the dead shard's nodes tombstoned.
 
 Every fired fault is appended to ``ChaosController.events`` and counted
 under ``serve.fault.*`` when a metrics registry is attached.

@@ -99,7 +99,7 @@ def test_tree_metadata_equals_the_references(tmp_path):
 def test_restore_refuses_shardings_and_shape_drift(tmp_path):
     mgr = CheckpointManager(str(tmp_path), async_save=False)
     mgr.save(1, {"a": np.zeros(3, np.float32)})
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         mgr.restore(1, {"a": np.zeros(3)}, shardings={"a": None})
     with pytest.raises(ValueError, match="shape"):
         mgr.restore(1, {"a": np.zeros(4)})

@@ -204,8 +204,9 @@ def test_backfill_is_freshly_seeded_within_pow2_buckets(pgraph, cont_queries, gr
 
 
 def test_graph_engine_refuses_unported_and_bad_configs(pgraph):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_ann.ContinuousGraphEngine(pgraph, k=K, ef=EF, num_shards=2)
+    n = pgraph.corpus_rot.shape[0]
+    with pytest.raises(ValueError, match=rf"n={n} % num_shards=7"):
+        t_ann.ContinuousGraphEngine(pgraph, k=K, ef=EF, num_shards=7)
     with pytest.raises(ValueError, match="k=20 ef=16"):
         t_ann.ContinuousGraphEngine(pgraph, k=20, ef=EF)
 

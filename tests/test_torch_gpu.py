@@ -4,8 +4,10 @@
 on the card, bit for bit, the
 repeatability of an IVF build there, the continuous engines against each
 query's solo search (the walk kernel and the plain walk for the graph, the
-fused scan for IVF), and the tracer's fence (needs no JAX, so it runs
-where only the port is installed).
+fused scan for IVF), the sharded walk (its sliced-slab launches against
+the plain version, a two-rank gloo engine against the host-simulated walk)
+and the tracer's fence (needs no JAX, so it runs where only the port is
+installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
 false, since a CUDA kernel has no CPU mode.  On the card:
@@ -531,3 +533,67 @@ def test_cuda_walk_with_tombstones_matches_plain_walk(churned_cuda_graph):
     # Expanded nodes are the bits the walk added; none is tombstoned.
     added = unpack_vis(out_k[3], mg.count) & ~vis0
     assert added.any() and not (added & dead[None, :]).any()
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_walk_sliced_slab_launch_matches_plain(walk_graph):
+    """The host-simulated sharded walk on the card at S = 1, 2, 3 returns
+    the plain single-shard oracle's ids and distances bit for bit, one
+    launch per shard a wave; a captured sliced-slab launch (S = 3, the last
+    shard, a middle wave: ``vis_base`` > 0, the threshold frozen) equals
+    ``ref.graph_scan_ref`` on its inputs, bitmap included."""
+    from repro_torch.index import graph as graph_mod
+    from repro_torch.index.graph import search_graph_sharded
+    from repro_torch.kernels.ref import graph_scan_ref
+
+    index, queries = walk_graph
+    kw = dict(k=10, ef=48, device="cuda")
+    d_o, i_o, st_o = search_graph_sharded(index, queries, num_shards=1, use_ref=True, **kw)
+    for shards in (1, 2, 3):
+        before = graph_scan_kernel_call.launches
+        d, i, st = search_graph_sharded(index, queries, num_shards=shards, **kw)
+        assert torch.equal(i, i_o) and torch.equal(d, d_o), shards
+        assert st.waves == st_o.waves
+        assert graph_scan_kernel_call.launches == before + shards * st.waves
+    kept = []
+
+    def capturing(*a, **k):
+        out = graph_scan_kernel_call(*a, **k)
+        kept.append((a, k, out))
+        return out
+
+    graph_mod.graph_scan_kernel_call = capturing
+    try:
+        search_graph_sharded(index, queries, num_shards=3, **kw)
+    finally:
+        graph_mod.graph_scan_kernel_call = graph_scan_kernel_call
+    args, ckw, out_k = kept[3 * (len(kept) // 6) + 2]
+    assert args[14] == 2 * index.corpus_rot.shape[0] // 3 and not ckw["tighten"]
+    out_p = graph_scan_ref(*args, **ckw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):  # window, ids, stats, bitmap
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_two_rank_gloo_engine_matches_host_walk(walk_graph, tmp_path):
+    """Two ranks on the card over gloo (the process-group engine, the second
+    rank loading its slab from a snapshot) return the host-simulated walk's
+    results, every rank ending every wave with the same window and bitmap."""
+    import numpy as np
+    from repro_torch.checkpoint.index_io import save_graph_index
+    from repro_torch.index.graph import search_graph_sharded
+    from repro_torch.launch.annservice import sharded_graph_engine
+
+    index, queries = walk_graph
+    save_graph_index(str(tmp_path), index)
+    with sharded_graph_engine(index, str(tmp_path), num_shards=2, backend="gloo", k=10,
+                              ef=48, record=True, device="cuda") as engine:
+        d, i, st = engine(queries)
+    do, io, so = search_graph_sharded(index, queries, num_shards=2, k=10, ef=48,
+                                      device="cuda")
+    assert np.array_equal(i, io.cpu().numpy()) and np.array_equal(d, do.cpu().numpy())
+    assert st == so
+    digests = engine.ranks[0]["digests"]
+    assert len(digests) == st.waves and engine.ranks[1]["digests"] == digests
+    assert sum(r["launches"] for r in engine.ranks.values()) == 2 * st.waves

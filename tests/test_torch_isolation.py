@@ -16,18 +16,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.checkpoint.index_io import load_graph_index  # noqa: E402
+from repro_torch.checkpoint.index_io import load_graph_index, load_graph_slab  # noqa: E402
 from repro_torch.core.estimators import build_estimator  # noqa: E402
 from repro_torch.core.topk import exact_knn  # noqa: E402
 from repro_torch.core.transforms import fit_pca  # noqa: E402
 from repro_torch.index.flat import build_flat  # noqa: E402
-from repro_torch.index.graph import build_graph, search_graph_fused  # noqa: E402
+from repro_torch.index.graph import (  # noqa: E402
+    build_graph, search_graph_fused, search_graph_sharded)
 from repro_torch.index.ivf import build_ivf, search_ivf  # noqa: E402
 from repro_torch.index.kmeans import kmeans  # noqa: E402
 from repro_torch.index.mutable import MutableGraph  # noqa: E402
 from repro_torch.kernels import _screen, graph_scan, ivf_scan, l2_scan, ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.annservice import build_graph_engine  # noqa: E402
+from repro_torch.launch.annservice import (  # noqa: E402
+    build_graph_engine, sharded_graph_engine)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -97,6 +99,10 @@ ENTRY_POINTS = [
     (MutableGraph, lambda d: MutableGraph(d, m=4, ef_construction=8, delta_d=16)),
     (load_graph_index, lambda d: load_graph_index(_graph_snapshot(d))),
     (search_ivf, lambda d: search_ivf(_cpu_ivf(d), d[:4], k=2)),
+    (search_graph_sharded, lambda d: search_graph_sharded(_cpu_graph(d), d, num_shards=2)),
+    (load_graph_slab, lambda d: load_graph_slab(_graph_snapshot(d), shard=0, num_shards=2)),
+    (sharded_graph_engine, lambda d: sharded_graph_engine(
+        _cpu_graph(d), _graph_snapshot(d), num_shards=2, backend="gloo", k=2).__enter__()),
 ]
 
 

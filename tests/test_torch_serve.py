@@ -124,9 +124,10 @@ def test_serve_cli_prints_report_line():
 @pytest.mark.parametrize("flag,value", [("--graph-shards", "2"), ("--quant", "none"),
                                         ("--fused", "off")])
 def test_serve_cli_refuses_unported_routes(flag, value):
-    """The sharded graph walk is refused by name; the reference's unfused
-    flat routes (``--quant none``, ``--fused off``), once refused here, are
-    ported and served (their report line names the route)."""
+    """``--graph-shards`` off the graph route is refused by name (the
+    sharded walk shards the graph); the reference's unfused flat routes
+    (``--quant none``, ``--fused off``), once refused here, are ported and
+    served (their report line names the route)."""
     if flag == "--graph-shards":
         out = _serve("--device", "cpu", flag, value)
         assert out.returncode != 0

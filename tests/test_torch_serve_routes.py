@@ -7,7 +7,7 @@ watermark, retries and a ``step_error`` drill) and the churn route
 ``scripts/check_metrics_schema.py`` unchanged, run as a subprocess; the
 ``--index-ckpt`` round trips of the flat and graph routes (and the
 ``slab_corruption`` drill's fallback); and the reference's flag rules and
-the flags of routes the port does not serve, refused by name."""
+the flags that do not apply to a route, refused by name."""
 
 import json
 import subprocess
@@ -99,15 +99,15 @@ def test_watermark_sheds_on_the_batch_graph_route(graph, tmp_path):
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--graph-shards", "2"], "not ported"),
-    (["--verify-degraded-oracle"], "not ported"),
+    (["--graph-shards", "2"], "--index graph"),
+    (["--verify-degraded-oracle"], "--index graph"),
     (["--mutate-rate", "0.5"], "requires --index graph"),
     (["--continuous"], "requires --index graph"),
 ], ids=lambda a: a[0] if isinstance(a, list) else "")
 def test_unported_flags_refused_by_name(argv, says, capsys):
-    """Refused by name: the sharded walk's flags (not ported) and, under
-    the reference's own rules, churn or continuous batching off the graph
-    route."""
+    """Refused by name: the sharded walk's flags, churn and continuous
+    batching off the graph route (the reference's own rules for the last
+    two)."""
     with pytest.raises(SystemExit):
         serve.parse_args(argv)
     err = capsys.readouterr().err
@@ -116,6 +116,8 @@ def test_unported_flags_refused_by_name(argv, says, capsys):
 
 @pytest.mark.parametrize("kind", ["shard_death:shard=0"])
 def test_unported_fault_kinds_refused_by_name(kind, graph):
+    """A shard death needs shards to kill: refused by name on the
+    single-replica graph route."""
     with pytest.raises(SystemExit, match=kind.split(":")[0]):
         serve.main(GRAPH + ["--chaos", kind], graph=graph)
 
