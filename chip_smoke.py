@@ -36,7 +36,7 @@ on any fault.  Phases, one line each:
      route_mult 1.2, bf16 rows and a max_waves cap, bit for bit on the
      window, every wave's stats rows, the final bitmap and each tile's wave
      count, the tiles converging at different waves;
-  7. graph route: the NSW graph of a 32,768 x 256 corpus (m = 16,
+  7. graph route: the NSW graph of a 16,384 x 256 corpus (m = 16,
      ef_construction 96, f32 rows, Δd = 64, DADE at p_s = 0.02) and
      ``search_graph_fused`` for 1024 queries (k = 10, ef = 48, expand 2):
      one walk launch per search and none of the host's per-wave selection,
@@ -98,7 +98,7 @@ on any fault.  Phases, one line each:
      engine's widest launch with carried windows (``top0_sq``/``top0_ids``)
      held against the plain version on the same inputs;
  14. churn serving (run after phase 8): ``serve --index graph --mutate-rate
-     32`` over 8,192 nodes of the same width and settings (40 requests,
+     32`` over 4,096 nodes of the same width and settings (40 requests,
      1,280 mutations, 3:1 upserts to deletes, upserts from the drifted
      distribution, a write-ahead log, ``--chaos torn_upsert:after=2`` and
      ``--verify-graph-oracle``): (a) after the crash and its recovery the
@@ -135,6 +135,21 @@ on any fault.  Phases, one line each:
      4's arguments (40 requests) returning phase 4's one-process ``--shards
      4`` ids, its QPS, recall@100 and merge ms.  Each serve's timed window is printed
      beside its rate.
+ 16. LM serving (``repro_torch.models``, plain PyTorch, no hand-written
+     kernel): (a) ``gemma2-9b`` at full width and depth in bf16 from the
+     port's seeded initializer through ``launch.steps.build_cell``: a
+     prefill of 4 x 8,192 tokens (cut from ``prefill_32k``'s 32 x 32,768),
+     the median of 3 timed runs after a warm one, and 16 decode steps after
+     2 warm ones at batch 4 against ``decode_32k``'s 32,768-token caches
+     (batch cut from 128), each beside its bound, with the peak memory;
+     (b) the same model in float32 with its window cut to 16: the
+     prefill's last-position logits of a 64-token prompt against 64
+     teacher-forced decode steps from zeroed 64-slot caches (the windowed
+     layers' 16-slot rings wrap), rtol = atol = 2e-2; (c) every LM
+     architecture at its reduced config, the port's seeded model on the
+     CPU and the same state on the card: prefill logits, every cache leaf
+     and 4 decode steps, card against CPU at rtol = atol = 1e-4 (int8 KV
+     codes equal but for near-ties, at most one in a thousand).
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -200,6 +215,11 @@ PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 FLAT_REQUESTS = 40
 GRAPH_REQUESTS = 200
 SERVE_RUNS = 3
+# Phase 7's graph (and so phases 8, 12, 14's snapshots and 15's): cut from
+# serve's default of 32,768 nodes so that the script stays well inside its
+# time limit: the host-side NSW build inserts one node at a time and took
+# 155-242 s at 32,768 nodes on the card's host.
+GRAPH_NODES = 16384
 # Phase 12's requests per closed-loop continuous run (14,425 queries),
 # chosen for a closed-loop window of 2-10 s, and its live-slot cap; the
 # open loop's request count and batch (requests of 32-127 queries), enough
@@ -210,13 +230,14 @@ OPEN_REQUESTS = 200
 OPEN_BATCH = 64
 # Phase 13: queries served through the continuous IVF engine.
 CONT_IVF_QUERIES = 64
-# Phase 14: churn serving over CHURN_NODES rows (cut from phase 7's 32,768:
-# a boot, the recovery after the torn write and the oracle's rebuild each
-# run the host NSW build), CHURN_REQUESTS requests with CHURN_RATE
-# mutations before each, the walk launch held against the plain walk (the
-# CHURN_CAPTURE-th of the run, mid-churn), and SNAPSHOT_REQUESTS requests
-# per snapshot serve.
-CHURN_NODES = 8192
+# Phase 14: churn serving over CHURN_NODES rows (cut from serve's 32,768,
+# and halved from 8,192 so that the script with phase 16 stays well inside
+# its time limit: a boot, the recovery after the torn write and the
+# oracle's rebuild each run the host NSW build), CHURN_REQUESTS requests
+# with CHURN_RATE mutations before each, the walk launch held against the
+# plain walk (the CHURN_CAPTURE-th of the run, mid-churn), and
+# SNAPSHOT_REQUESTS requests per snapshot serve.
+CHURN_NODES = 4096
 CHURN_REQUESTS = 40
 CHURN_RATE = 32
 CHURN_CAPTURE = 30
@@ -232,6 +253,26 @@ SHARDED_COUNTS = (1, 2, 4)
 SHARDED_REPS = 3
 SHARDED_REQUESTS = 4
 SHARDED_CONT_BATCH = 64
+# Phase 16: LM serving at full width.  gemma2-9b (bf16) prefills
+# LM_PREFILL_BATCH x LM_PREFILL_SEQ tokens (cut from prefill_32k's 32 x
+# 32,768 so that the phase fits the script's time; at 8,192 tokens the
+# 4,096-token window binds) LM_PREFILL_RUNS timed times, and decodes
+# LM_DECODE_STEPS timed steps after LM_DECODE_WARM at batch LM_DECODE_BATCH
+# against decode_32k's cache length (batch cut from 128, whose caches
+# would take about 811 GB).  (b)'s float32 self-consistency check: a
+# LM_CHECK_SEQ-token prompt, the window cut to LM_CHECK_WINDOW so that the
+# ring wraps, at LM_CHECK_TOL: 20x under the reference's own 2e-2
+# (tests/test_models_smoke.py::test_decode_matches_forward), about 60x over
+# what a sound run reads; the same decode with its windowed rings one slot
+# short (a wrong window) must exceed it.  (c): the card against the CPU,
+# float32 with TF32 off.
+LM_ARCH = "gemma2-9b"
+LM_PREFILL_BATCH, LM_PREFILL_SEQ, LM_PREFILL_RUNS = 4, 8192, 3
+LM_DECODE_BATCH, LM_DECODE_WARM, LM_DECODE_STEPS = 4, 2, 16
+LM_CHECK_SEQ, LM_CHECK_WINDOW, LM_CHECK_TOL = 64, 16, 1e-3
+LM_CARD_TOL = 1e-4
+# Published dense bf16 peak of one H100 SXM (NVIDIA data sheet), at 700 W.
+PEAK_BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -773,11 +814,10 @@ def run_graph(card: str, flat_served) -> dict:
         sync()
         max_err = max(max_err, agree_graph(f"graph_{name}", out_k, out_p, 8))
 
-    # ---- 7. the graph route at 32,768 x 256 ----
-    # The graph's size is serve's graph default, 32,768 nodes: the
-    # reference's host-side NSW build inserts one node at a time, so 2^20
-    # nodes would take hours to build.
-    nodes = serve.GRAPH_NODES
+    # ---- 7. the graph route at GRAPH_NODES x 256 ----
+    # The reference's host-side NSW build inserts one node at a time, so
+    # 2^20 nodes would take hours to build.
+    nodes = GRAPH_NODES
     gsvc = ServiceConfig(corpus_per_device=nodes, dim=256, query_batch=1024,
                          k=10, delta_d=64, p_s=0.02, dtype="float32")
     t0 = time.perf_counter()
@@ -2180,6 +2220,240 @@ def run_flat(svc, card: str) -> list:
     return entries
 
 
+def lm_prefill_flops(model, b: int, s: int) -> float:
+    """Operations a prefill of ``b`` x ``s`` tokens needs: 2 per token per
+    weight of every layer's matrices, QK^T and PV (2 x 2 x head_dim per
+    head) over the keys each query attends (causal, inside its window),
+    and the last position's logits."""
+    cfg = model.cfg
+    mats = sum(p.numel() for st in model.stacks for p in st.parameters() if p.ndim == 2)
+    flops = 2.0 * mats * b * s
+    for w in cfg.layer_windows():
+        w = w if 0 < w < s else s
+        attended = w * (w + 1) // 2 + (s - w) * w
+        flops += 4.0 * b * cfg.n_heads * cfg.hdim * attended
+    return flops + 2.0 * b * cfg.d_model * cfg.vocab_padded
+
+
+def profiled(fn, top: int = 6):
+    """(``fn()``, a line: the card's busy share of that call under
+    ``torch.profiler`` and its device time by ATen op (each op's own
+    kernels), largest first).  Only ATen ops count: the profiler's own
+    markers (a full launch queue, say) carry device time too."""
+    import torch
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages()
+           if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    parts = ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} ms "
+                      f"({100 * e.self_device_time_total / 1e3 / wall_ms:.1f} %, "
+                      f"{e.count} calls)" for e in ops[:top])
+    return out, (f"card busy {busy:.1f} of {wall_ms:.1f} ms ({100 * busy / wall_ms:.1f} %); "
+                 f"by op: {parts}")
+
+
+def lm_card_against_cpu(arch: str) -> tuple[float, int]:
+    """Phase 16c for one architecture: the same seeded reduced model on the
+    CPU and on the card; returns (largest absolute deviation, int8 near-
+    ties) over prefill logits, every cache leaf and 4 decode steps."""
+    import copy
+
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.interop import lm_caches_close
+    from repro_torch.models.model import build_model
+
+    cfg = reduced_config(arch)
+    cpu = build_model(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu).to(DEV)
+    g = torch.Generator().manual_seed(2)
+    b, s = 2, 64
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((b, cfg.vision_seq, cfg.vision_dim), generator=g)
+
+    def close(ref, got, what):
+        nonlocal worst
+        got = got.cpu()
+        ok = torch.allclose(got, ref, rtol=LM_CARD_TOL, atol=LM_CARD_TOL)
+        check(ok, f"lm (c) {arch} {what}: card and CPU differ by "
+                  f"{(got - ref).abs().max().item():.3e}")
+        worst = max(worst, (got - ref).abs().max().item())
+
+    lc, cc = cpu.prefill(batch)
+    lg, cg = card.prefill({k: v.to(DEV) for k, v in batch.items()})
+    worst, ties = lm_caches_close(cc, cg, rtol=LM_CARD_TOL, atol=LM_CARD_TOL,
+                                  what=f"lm (c) {arch} prefill")
+    close(lc, lg, "prefill logits")
+    cc, cg = cpu.init_caches(b, 16), card.init_caches(b, 16)
+    for t in range(4):
+        tok = batch["tokens"][:, t:t + 1]
+        lc, cc = cpu.decode_step(tok, cc, t)
+        lg, cg = card.decode_step(tok.to(DEV), cg, torch.tensor(t, device=DEV))
+        close(lc, lg, f"decode step {t} logits")
+    w, n = lm_caches_close(cc, cg, rtol=LM_CARD_TOL, atol=LM_CARD_TOL,
+                           what=f"lm (c) {arch} decode")
+    return max(worst, w), ties + n
+
+
+def run_lm(card: str) -> None:
+    """Phase 16: LM serving on the card (no hand-written kernel on this
+    path)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch.specs import SHAPES
+    from repro_torch.launch.steps import build_cell, serve_step
+
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = 1e9
+
+    # (a) full width and depth, bf16
+    t0 = time.perf_counter()
+    cell = build_cell(LM_ARCH, "prefill_32k", device=DEV)
+    model, cfg = cell.model, cell.model.cfg
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm (a): {LM_ARCH} {cfg.dtype}, {n_params:,} parameters ({param_bytes / gib:.2f} "
+        f"GB), {cfg.num_layers} layers run as {len(model.stacks)} stacks (windowed, then "
+        f"global), built in {time.perf_counter() - t0:.1f}s on {card}")
+    g = torch.Generator(device=DEV).manual_seed(0)
+    b, s = LM_PREFILL_BATCH, LM_PREFILL_SEQ
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=DEV,
+                                     dtype=torch.int32)}
+    _, pre_profile = profiled(lambda: cell.step_fn(batch))  # the warm-up run
+    times = []
+    for _ in range(LM_PREFILL_RUNS):
+        logits = caches = None
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = cell.step_fn(batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+    check(tuple(logits.shape) == (b, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "lm (a): prefill logits not finite or of the wrong shape")
+    check(all(tuple(c.k.shape) == (cfg.num_layers // 2, b, s, cfg.n_kv_heads, cfg.hdim)
+              for c in caches.values()), "lm (a): prefill caches of the wrong shape")
+    pre_s = statistics.median(times)
+    flops = lm_prefill_flops(model, b, s)
+    pre_bound = flops / PEAK_BF16_FLOPS
+    log(f"lm (a): prefill {b} x {s} tokens: {pre_s * 1e3:.1f} ms (median of "
+        f"{LM_PREFILL_RUNS} runs: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms), "
+        f"{b * s / pre_s:,.1f} tokens/s; bound {pre_bound * 1e3:.1f} ms ({flops:.4g} FLOP "
+        f"at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense), {pre_s / pre_bound:.2f}x it; "
+        f"on {card}")
+    log(f"lm (a): prefill, the profiled warm-up run: {pre_profile}")
+    logits = caches = None
+
+    spec = SHAPES["decode_32k"]
+    db = LM_DECODE_BATCH
+    caches = cell.model.init_caches(db, spec.seq)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches.values() for t in c)
+    n_steps = LM_DECODE_WARM + LM_DECODE_STEPS
+    positions = torch.arange(spec.seq - n_steps, spec.seq, device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (n_steps, db, 1), generator=g, device=DEV,
+                           dtype=torch.int32)
+    for i in range(LM_DECODE_WARM - 1):
+        logits, caches = serve_step(model, tokens[i], caches, positions[i])
+    i = LM_DECODE_WARM - 1  # the last warm step, profiled
+    (logits, caches), dec_profile = profiled(
+        lambda: serve_step(model, tokens[i], caches, positions[i]))
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    ev0.record()
+    for i in range(LM_DECODE_WARM, n_steps):
+        logits, caches = serve_step(model, tokens[i], caches, positions[i])
+    ev1.record()
+    sync()
+    step_ms = ev0.elapsed_time(ev1) / LM_DECODE_STEPS
+    check(tuple(logits.shape) == (db, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "lm (a): decode logits not finite or of the wrong shape")
+    step_bytes = param_bytes + cache_bytes
+    dec_bound_ms = step_bytes / PEAK_BYTES * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"lm (a): decode batch {db} against {spec.seq:,}-token caches ({cache_bytes / gib:.2f} "
+        f"GB): {step_ms:.3f} ms a step ({LM_DECODE_STEPS} steps after {LM_DECODE_WARM} warm, "
+        f"positions {int(positions[0])}-{int(positions[-1])}), {db / step_ms * 1e3:,.1f} "
+        f"tokens/s; bound {dec_bound_ms:.3f} ms ({step_bytes / gib:.2f} GB of weights and "
+        f"caches read a step at {PEAK_BYTES / 1e12:.2f} TB/s), {step_ms / dec_bound_ms:.2f}x it; "
+        f"on {card}")
+    log(f"lm (a): decode, the profiled last warm step: {dec_profile}")
+    log(f"lm (a): peak memory {peak / gib:.2f} GB (torch.cuda.max_memory_allocated) of the "
+        f"card's {torch.cuda.get_device_properties(0).total_memory / gib:.2f} GB; on {card}")
+    del cell, model, logits, caches, tokens, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full width in float32, the window cut so that the ring wraps
+    t0 = time.perf_counter()
+    cell = build_cell(LM_ARCH, "prefill_32k", device=DEV,
+                      cfgset={"dtype": "float32", "sliding_window": LM_CHECK_WINDOW})
+    model, cfg = cell.model, cell.model.cfg
+    n = LM_CHECK_SEQ
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=DEV)
+    p_logits, _ = cell.step_fn({"tokens": toks})
+    caches = model.init_caches(1, n)
+    check(caches["kv0"].k.shape[2] == LM_CHECK_WINDOW and caches["kv1"].k.shape[2] == n,
+          "lm (b): the windowed layers' ring is not the window's length")
+    v = cfg.vocab_size
+    p_l = p_logits[:, :v]
+
+    def decode_err(caches):
+        for t in range(n):
+            d_logits, caches = serve_step(model, toks[:, t:t + 1], caches, t)
+        d_l = d_logits[:, :v]
+        return (p_l - d_l).abs().max().item(), torch.allclose(d_l, p_l, rtol=LM_CHECK_TOL,
+                                                              atol=LM_CHECK_TOL)
+
+    err, ok = decode_err(caches)
+    check(bool(torch.isfinite(p_l).all()) and ok,
+          f"lm (b): decode and prefill logits differ by {err:.3e}")
+    # the planted fault: the windowed layers' rings one slot short
+    short = model.init_caches(1, n)
+    short["kv0"] = type(short["kv0"])(*(torch.zeros_like(t[:, :, 1:]) for t in short["kv0"]))
+    fault_err, fault_ok = decode_err(short)
+    check(not fault_ok, f"lm (b): a decode with a {LM_CHECK_WINDOW - 1}-slot window passes "
+                        f"the check (max |diff| {fault_err:.3e})")
+    log(f"lm (b): {LM_ARCH} float32, window {LM_CHECK_WINDOW}: the prefill's last logits of "
+        f"a {n}-token prompt against {n} teacher-forced decode steps from zeroed {n}-slot "
+        f"caches: max |diff| {err:.3e} (|logit| up to "
+        f"{p_l.abs().max().item():.2f}; tolerance rtol = atol = {LM_CHECK_TOL}); the planted "
+        f"fault, the windowed rings {LM_CHECK_WINDOW - 1} slots: {fault_err:.3e}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    del cell, model, caches, short, p_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) every architecture at reduced config, card against CPU
+    t0 = time.perf_counter()
+    worst = {}
+    ties = 0
+    for arch in LM_ARCHS:
+        worst[arch], n_ties = lm_card_against_cpu(arch)
+        ties += n_ties
+    log(f"lm (c): {len(LM_ARCHS)} architectures at reduced config, card against CPU within "
+        f"rtol = atol = {LM_CARD_TOL}: largest |diff| "
+        + ", ".join(f"{a} {e:.2e}" for a, e in worst.items())
+        + f"; {ties} int8 near-ties; {time.perf_counter() - t0:.1f}s")
+    log(f"phase 16 took {time.perf_counter() - t_start:.0f}s on {card}")
+
+
 def build_kernels() -> None:
     """Phase 1: the five kernels and the scan's timing build built at once,
     one nvcc each."""
@@ -2226,7 +2500,8 @@ def main() -> int:
     flat = run_flat(CONFIG, card)
     ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
     ivf["ranked_launches"] = graph.pop("ranked_flat_launches")
-    log(f"phases 2-15 took {time.perf_counter() - t0:.0f}s")
+    run_lm(card)
+    log(f"phases 2-16 took {time.perf_counter() - t0:.0f}s")
     log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

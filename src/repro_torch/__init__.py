@@ -16,7 +16,10 @@ continuous graph batching through ``launch.annservice``'s continuous
 engines), the request schedulers with deadlines, watermark shedding and
 bounded retries (``runtime.scheduler``), the fault-injection harness
 (``runtime.chaos``) and telemetry (``obs``: metrics, spans, exports).
-Importing this package imports nothing CUDA-specific.
+Beside the search system, the LM half's serving path (``configs``,
+``models``, ``launch.steps``: prefill and decode for every model family)
+runs in plain PyTorch.  Importing this package imports nothing
+CUDA-specific.
 """
 
 from repro_torch._device import resolve_device

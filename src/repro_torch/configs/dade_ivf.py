@@ -23,3 +23,9 @@ class ServiceConfig:
 
 
 CONFIG = ServiceConfig()
+
+
+def reduced() -> ServiceConfig:
+    return dataclasses.replace(
+        CONFIG, corpus_per_device=4096, query_batch=16, k=10, wave=1024,
+        delta_d=32)

@@ -19,10 +19,13 @@ from repro_torch.core.transforms import OrthogonalTransform
 from repro_torch.index.flat import FlatIndex
 from repro_torch.index.graph import GraphIndex
 from repro_torch.index.ivf import IVFIndex
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.model import LM
 from repro_torch.quant.scalar import QuantConfig
 
 __all__ = ["transform_from_arrays", "table_from_arrays", "estimator_from_arrays",
-           "flat_from_arrays", "ivf_from_arrays", "graph_from_arrays"]
+           "flat_from_arrays", "ivf_from_arrays", "graph_from_arrays", "lm_param_map",
+           "lm_from_arrays", "lm_caches_close"]
 
 
 def _t(x, dev, dtype=None) -> torch.Tensor:
@@ -115,3 +118,93 @@ def graph_from_arrays(estimator: Estimator, *, corpus_rot, neighbors, entry,
         adj_codes=_t(adj_codes, dev, torch.int8), adj_ids=_t(adj_ids, dev, torch.int32),
         gscales=_t(gscales, dev, torch.float32), adj_block=int(adj_block),
         scan_block_d=int(scan_block_d))
+
+
+# The reference's parameter-tree keys whose values are lists of stacked
+# segments (one per block-pattern position, a leading 'layers' axis each).
+_STACKED = ("stacks", "enc_stacks", "cross_stacks")
+
+
+def _leaves(tree, prefix: str):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, f"{prefix}.{key}")
+    else:
+        yield prefix, tree
+
+
+def lm_param_map(params):
+    """(port parameter name, reference leaf, layer) for every parameter of
+    the reference's ``LM.init`` tree ``params`` (nested dicts and lists of
+    arrays or shape structs).  ``layer`` indexes the leaf's leading
+    'layers' axis for stacked segments (``stacks[i]`` -> the port's
+    ``stacks.i.<layer>``) and is None elsewhere."""
+    for key, sub in params.items():
+        if key in _STACKED:
+            for i, seg in enumerate(sub):
+                for path, leaf in _leaves(seg, ""):
+                    for layer in range(leaf.shape[0]):
+                        yield f"{key}.{i}.{layer}{path}", leaf, layer
+        else:
+            for path, leaf in _leaves(sub, key):
+                yield path, leaf, None
+
+
+def _tensor(a: np.ndarray, dev) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def lm_from_arrays(cfg: ArchConfig, params, *, device="cuda") -> LM:
+    """The port's ``LM`` holding the values of the reference's parameter
+    tree ``params`` (from ``LM.init``, leaves as numpy arrays).  Every
+    parameter must be present with the port's shape and dtype."""
+    dev = resolve_device(device)
+    model = LM(cfg, device="meta")
+    want = dict(model.named_parameters())
+    state = {}
+    for name, leaf, layer in lm_param_map(params):
+        t = _tensor(np.asarray(leaf if layer is None else leaf[layer]), dev)
+        if name not in want or want[name].shape != t.shape or want[name].dtype != t.dtype:
+            ref = want.get(name)
+            raise ValueError(f"reference parameter {name} {tuple(t.shape)} {t.dtype} "
+                             f"does not fit the port's "
+                             f"{None if ref is None else (tuple(ref.shape), ref.dtype)}")
+        state[name] = torch.nn.Parameter(t, requires_grad=False)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model
+
+
+def lm_caches_close(ref, got, *, rtol: float, atol: float, near_ties: float = 1e-3,
+                    what: str = "") -> tuple[float, int]:
+    """Hold every leaf of the LM cache tree ``got`` against ``ref`` (dicts of
+    cache tuples, as ``LM.prefill`` and ``LM.init_caches`` return them;
+    leaves of either may be numpy arrays or tensors on any device).  Shapes
+    and dtypes must be equal, float leaves close at ``rtol`` / ``atol``, and
+    int8 KV codes equal but for near-ties: a code one apart where ``x /
+    scale`` lies within rounding of a half, at most ``near_ties`` of each
+    leaf's codes.  Raises AssertionError; returns (the largest absolute
+    difference of a float leaf, the int8 near-ties counted)."""
+    assert ref.keys() == got.keys(), (what, ref.keys(), got.keys())
+    worst, ties = 0.0, 0
+    for key in ref:
+        assert tuple(ref[key]._fields) == tuple(got[key]._fields), (what, key)
+        for field, r, g in zip(ref[key]._fields, ref[key], got[key]):
+            r, g = (x.cpu() if isinstance(x, torch.Tensor) else _tensor(np.asarray(x), "cpu")
+                    for x in (r, g))
+            name = f"{what} {key}.{field}".strip()
+            assert r.shape == g.shape and r.dtype == g.dtype, (name, r.shape, g.shape,
+                                                              r.dtype, g.dtype)
+            if r.dtype == torch.int8:
+                diff = (r.int() - g.int()).abs()
+                n = int(diff.count_nonzero())
+                assert int(diff.max()) <= 1 and n <= near_ties * r.numel(), (
+                    f"{name}: {n} of {r.numel()} int8 codes differ, by up to "
+                    f"{int(diff.max())}")
+                ties += n
+            else:
+                torch.testing.assert_close(g, r, rtol=rtol, atol=atol, msg=name)
+                worst = max(worst, (g.float() - r.float()).abs().max().item())
+    return worst, ties

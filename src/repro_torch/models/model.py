@@ -1,0 +1,357 @@
+"""Model assembly: embeddings, layer plans, prefill and decode steps.
+
+The port of ``repro.models.model``.  One ``LM`` covers all six families:
+
+  dense     llama-style decoder (deepseek, codeqwen, gemma, gemma2)
+  moe       mixtral / qwen2-moe (router blocks in the stack)
+  ssm       mamba2 (pure SSD stack)
+  hybrid    zamba2 (mamba backbone + one weight-shared attention block
+            invoked every ``attn_every`` layers)
+  encdec    whisper (stub frame embeddings -> encoder; decoder w/ cross)
+  vlm       llama-3.2-vision (gated cross-attn blocks between groups of
+            ``cross_every`` self-attn layers; stub patch embeddings)
+
+``LM`` is an ``nn.Module`` whose parameter tree carries the reference's
+names (``stacks.<pattern position>.<layer>.attn.wq``, ...); its entry
+points are ``prefill`` (forward returning the per-layer KV/SSM caches),
+``decode_step`` (one token against the caches) and ``init_caches``
+(zeroed caches).  ``decode_step`` updates the caches IN PLACE and returns
+the same tensors: the reference returns new caches, but a copy of a full
+cache per token (about 25 GB for gemma2-9b at batch 4 and 32k) would cost
+more than the step.  A cache tree passed to ``decode_step`` is therefore
+consumed: callers that need the old values copy them first.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.attention import KVCache, QuantKVCache, cross_memory
+from repro_torch.models.common import ArchConfig, Initializer, softcap
+from repro_torch.models.ssm import SSMCache, conv_dim
+
+__all__ = ["LM", "build_model"]
+
+# The reference's learned decoder positions table (whisper) has this many
+# rows at every config; positions past it clamp to the last row, as
+# ``lax.dynamic_slice_in_dim`` clamps.
+DEC_POS_ROWS = 32768
+
+
+def _pattern(cfg: ArchConfig) -> tuple[tuple[str, int], ...]:
+    """Repeating (kind, window) pattern of the layer stack."""
+    if cfg.family == "moe":
+        w = cfg.sliding_window if cfg.window_pattern == "all" else 0
+        return (("moe", w),)
+    if cfg.family == "ssm":
+        return (("mamba", 0),)
+    if cfg.window_pattern == "alternate":
+        return (("dense", cfg.sliding_window), ("dense", 0))
+    if cfg.window_pattern == "all":
+        return (("dense", cfg.sliding_window),)
+    return (("dense", 0),)
+
+
+def _stack_kv(kvs: list[KVCache]) -> KVCache:
+    return KVCache(k=torch.stack([c.k for c in kvs]), v=torch.stack([c.v for c in kvs]))
+
+
+def _layer(caches, i: int):
+    """Layer ``i``'s views of a stacked cache (writes go to the stack)."""
+    return type(caches)(*(t[i] for t in caches))
+
+
+class LM(nn.Module):
+    """The reference's ``LM`` facade for one ``ArchConfig``, with its
+    parameters drawn from ``seed`` on ``device`` (``"meta"``: shapes only)."""
+
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+        init = Initializer(gen, cfg.param_dtype, dev)
+        self.cfg = cfg
+        vp, d = cfg.vocab_padded, cfg.d_model
+        self.tok_embed = init.dense((vp, d), scale=0.02)
+        self.final_norm = B._init_norm(init, cfg)
+        if not cfg.tie_embeddings:
+            self.lm_head = init.dense((d, vp), scale=0.02)
+
+        fam = cfg.family
+        if fam in ("dense", "moe", "ssm"):
+            pat = _pattern(cfg)
+            groups = cfg.num_layers // len(pat)
+            self.stacks = B.init_stack(init, cfg, tuple(k for k, _ in pat), groups)
+        elif fam == "hybrid":
+            self.stacks = B.init_stack(init, cfg, ("mamba",), cfg.num_layers)
+            self.shared_attn = B.init_block(init, cfg, "dense")
+        elif fam == "encdec":
+            self.enc_pos = init.dense((cfg.encoder_seq, d), scale=0.02)
+            self.dec_pos = init.dense((DEC_POS_ROWS, d), scale=0.02)
+            self.enc_stacks = B.init_stack(init, cfg, ("enc",), cfg.encoder_layers)
+            self.stacks = B.init_stack(init, cfg, ("dec",), cfg.num_layers)
+            self.enc_norm = B._init_norm(init, cfg)
+        elif fam == "vlm":
+            if cfg.num_layers % cfg.cross_every:
+                raise ValueError(f"{cfg.arch_id}: num_layers {cfg.num_layers} is not a "
+                                 f"multiple of cross_every {cfg.cross_every}")
+            n_cross = cfg.num_layers // cfg.cross_every
+            self.stacks = B.init_stack(init, cfg, ("dense",), cfg.num_layers)
+            self.cross_stacks = B.init_stack(init, cfg, ("cross",), n_cross)
+        else:
+            raise ValueError(fam)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    # ---- shared helpers ----------------------------------------------------
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = F.embedding(tokens, self.tok_embed)
+        if cfg.embed_scale:
+            # the constant rounds to the parameter dtype first, as the
+            # reference's jnp.asarray(sqrt(d), h.dtype) does (bf16: 60.0)
+            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
+        return h
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        w = self.tok_embed.T if cfg.tie_embeddings else self.lm_head
+        logits = softcap((h @ w.to(h.dtype)).float(), cfg.final_softcap)
+        vmask = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab_size
+        return torch.where(vmask, logits, -1e30)
+
+    def _run_stack(self, stack, x, kind: str, window: int, *, collect: bool,
+                   memory: KVCache | None = None):
+        """Run a stack's layers in order.  ``memory`` (if given) is a stacked
+        per-layer KVCache.  Returns (x, stacked caches | None, aux)."""
+        cfg = self.cfg
+        n = len(stack)
+        caches = None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, layer in enumerate(stack):
+            mem = None if memory is None else _layer(memory, i)
+            x, cache, a = B.block_train(layer, x, cfg, kind, window=window, memory=mem,
+                                        collect_cache=collect)
+            aux = aux + a
+            if collect:
+                if caches is None:  # one stacked buffer per leaf, written layer by layer
+                    caches = type(cache)(*(torch.empty((n, *t.shape), dtype=t.dtype,
+                                                       device=t.device) for t in cache))
+                for dst, src in zip(caches, cache):
+                    dst[i] = src
+        return x, caches, aux
+
+    def _run_stack_decode(self, stack, x, caches, pos, kind: str, window: int, *,
+                          first: int = 0, memory: KVCache | None = None):
+        """Decode through a stack's layers; layer i uses slot ``first + i`` of
+        the stacked ``caches`` (updated in place)."""
+        for i, layer in enumerate(stack):
+            mem = None if memory is None else _layer(memory, i)
+            x, _ = B.block_decode(layer, x, _layer(caches, first + i), pos, self.cfg, kind,
+                                  window=window, memory=mem)
+        return x
+
+    # ---- forward (prefill) -------------------------------------------------
+
+    def _backbone(self, batch, *, collect: bool):
+        """Token embeddings -> final hidden states (+caches if collect)."""
+        cfg = self.cfg
+        fam = cfg.family
+        x = self._embed(batch["tokens"])
+        caches: dict[str, Any] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        if fam in ("dense", "moe", "ssm"):
+            for i, ((kind, window), stack) in enumerate(zip(_pattern(cfg), self.stacks)):
+                x, c, a = self._run_stack(stack, x, kind, window, collect=collect)
+                aux = aux + a
+                if collect:
+                    caches[f"kv{i}"] = c
+        elif fam == "hybrid":
+            x, caches, aux = self._hybrid_fwd(x, collect)
+        elif fam == "encdec":
+            frames = batch["frames"].to(x.dtype)
+            e = frames + self.enc_pos[None, :frames.shape[1]].to(x.dtype)
+            e, _, _ = self._run_stack(self.enc_stacks[0], e, "enc", 0, collect=False)
+            e = B._norm(self.enc_norm, e, cfg)
+            mem = _stack_kv([cross_memory(lp["cross"], e, cfg) for lp in self.stacks[0]])
+            s = x.shape[1]
+            start = min(max(int(batch.get("pos0", 0)), 0), DEC_POS_ROWS - s)
+            x = x + self.dec_pos[start:start + s][None].to(x.dtype)
+            x, c, _ = self._run_stack(self.stacks[0], x, "dec", 0, collect=collect,
+                                      memory=mem)
+            if collect:
+                caches["kv0"] = c
+                caches["cross_mem"] = mem
+        elif fam == "vlm":
+            vis = batch["vision"].to(x.dtype)
+            mem = _stack_kv([cross_memory(cp["cross"], vis, cfg)
+                             for cp in self.cross_stacks[0]])
+            every = cfg.cross_every
+            for g, cp in enumerate(self.cross_stacks[0]):
+                x, _, _ = B.block_train(cp, x, cfg, "cross", memory=_layer(mem, g))
+                x, c, _ = self._run_stack(self.stacks[0][g * every:(g + 1) * every], x,
+                                          "dense", 0, collect=collect)
+                if collect:
+                    caches[f"kv{g}"] = c
+            if collect:
+                caches["cross_mem"] = mem
+        else:
+            raise ValueError(fam)
+
+        return B._norm(self.final_norm, x, cfg), caches, aux
+
+    def _hybrid_fwd(self, x, collect: bool):
+        """zamba2: mamba backbone + shared attn every ``attn_every`` layers."""
+        cfg = self.cfg
+        every = cfg.attn_every
+        n_shared = cfg.num_layers // every
+        stack = self.stacks[0]
+        ssm_parts, shared_parts = [], []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(n_shared):
+            x, c, _ = self._run_stack(stack[g * every:(g + 1) * every], x, "mamba", 0,
+                                      collect=collect)
+            ssm_parts.append(c)
+            x, kv, _ = B.block_train(self.shared_attn, x, cfg, "dense",
+                                     collect_cache=collect)
+            shared_parts.append(kv)
+        if cfg.num_layers > n_shared * every:
+            x, c, _ = self._run_stack(stack[n_shared * every:], x, "mamba", 0,
+                                      collect=collect)
+            ssm_parts.append(c)
+        if not collect:
+            return x, {}, aux
+        # group caches back into one (L, ...) stack, as the reference does
+        caches = {"ssm": SSMCache(*(torch.cat(ts) for ts in zip(*ssm_parts))),
+                  "shared_kv": _stack_kv(shared_parts)}
+        return x, caches, aux
+
+    # ---- public entry points ----------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, batch: dict[str, torch.Tensor]):
+        """batch: ``tokens`` (B, S) int (+ ``frames`` / ``vision``) ->
+        (last-position logits (B, vocab_padded) float32, caches)."""
+        h, caches, _ = self._backbone(batch, collect=True)
+        return self._logits(h[:, -1:, :])[:, 0], caches
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, caches: dict, pos):
+        """token: (B, 1) int; pos: the current length (a Python int or a 0-d
+        integer tensor).  Returns (logits, caches), the caches updated in
+        place (the same tensors as given)."""
+        cfg = self.cfg
+        fam = cfg.family
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
+        x = self._embed(token)
+
+        if fam in ("dense", "moe", "ssm"):
+            for i, ((kind, window), stack) in enumerate(zip(_pattern(cfg), self.stacks)):
+                x = self._run_stack_decode(stack, x, caches[f"kv{i}"], pos, kind, window)
+        elif fam == "hybrid":
+            every = cfg.attn_every
+            n_shared = cfg.num_layers // every
+            stack = self.stacks[0]
+            for g in range(n_shared):
+                x = self._run_stack_decode(stack[g * every:(g + 1) * every], x,
+                                           caches["ssm"], pos, "mamba", 0, first=g * every)
+                x, _ = B.block_decode(self.shared_attn, x, _layer(caches["shared_kv"], g),
+                                      pos, cfg, "dense")
+            if cfg.num_layers > n_shared * every:
+                x = self._run_stack_decode(stack[n_shared * every:], x, caches["ssm"], pos,
+                                           "mamba", 0, first=n_shared * every)
+        elif fam == "encdec":
+            row = torch.clamp(pos, 0, DEC_POS_ROWS - 1).reshape(1)
+            x = x + self.dec_pos.index_select(0, row)[None].to(x.dtype)
+            x = self._run_stack_decode(self.stacks[0], x, caches["kv0"], pos, "dec", 0,
+                                       memory=caches["cross_mem"])
+        elif fam == "vlm":
+            mem = caches["cross_mem"]
+            every = cfg.cross_every
+            for g, cp in enumerate(self.cross_stacks[0]):
+                x, _, _ = B.block_train(cp, x, cfg, "cross", memory=_layer(mem, g))
+                x = self._run_stack_decode(self.stacks[0][g * every:(g + 1) * every], x,
+                                           caches[f"kv{g}"], pos, "dense", 0)
+        else:
+            raise ValueError(fam)
+
+        x = B._norm(self.final_norm, x, cfg)
+        return self._logits(x)[:, 0], caches
+
+    # ---- cache construction -------------------------------------------------
+
+    def _kv_shape(self, b: int, s: int) -> tuple[int, ...]:
+        cfg = self.cfg
+        return (b, s, cfg.n_kv_heads, cfg.hdim)
+
+    def _cache_len(self, window: int, cache_len: int) -> int:
+        return min(window, cache_len) if window > 0 else cache_len
+
+    def _zeros(self, shape, dtype=None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype or self.cfg.param_dtype, device=self.device)
+
+    def init_caches(self, b: int, cache_len: int) -> dict:
+        """Zeroed caches on the model's device (the reference's tree; its
+        logical axes are mesh placement and are not returned).  Every leaf
+        is its own tensor, since decode writes into them."""
+        cfg = self.cfg
+
+        def kv(n, s):
+            shape = (n, *self._kv_shape(b, s))
+            if cfg.kv_cache_dtype == "int8":
+                sc = (n, b, s, cfg.n_kv_heads)
+                return QuantKVCache(k=self._zeros(shape, torch.int8),
+                                    v=self._zeros(shape, torch.int8),
+                                    k_scale=self._zeros(sc, torch.float32),
+                                    v_scale=self._zeros(sc, torch.float32))
+            return KVCache(k=self._zeros(shape), v=self._zeros(shape))
+
+        fam = cfg.family
+        caches: dict[str, Any] = {}
+        if fam in ("dense", "moe"):
+            pat = _pattern(cfg)
+            groups = cfg.num_layers // len(pat)
+            for i, (_, window) in enumerate(pat):
+                caches[f"kv{i}"] = kv(groups, self._cache_len(window, cache_len))
+        elif fam == "ssm":
+            caches["kv0"] = self._ssm_cache(cfg.num_layers, b)
+        elif fam == "hybrid":
+            caches["ssm"] = self._ssm_cache(cfg.num_layers, b)
+            caches["shared_kv"] = kv(cfg.num_layers // cfg.attn_every, cache_len)
+        elif fam == "encdec":
+            caches["kv0"] = kv(cfg.num_layers, cache_len)
+            m = (cfg.num_layers, *self._kv_shape(b, cfg.encoder_seq))
+            caches["cross_mem"] = KVCache(k=self._zeros(m), v=self._zeros(m))
+        elif fam == "vlm":
+            n_cross = cfg.num_layers // cfg.cross_every
+            for g in range(n_cross):
+                caches[f"kv{g}"] = kv(cfg.cross_every, cache_len)
+            m = (n_cross, *self._kv_shape(b, cfg.vision_seq))
+            caches["cross_mem"] = KVCache(k=self._zeros(m), v=self._zeros(m))
+        else:
+            raise ValueError(fam)
+        return caches
+
+    def _ssm_cache(self, n: int, b: int) -> SSMCache:
+        cfg = self.cfg
+        return SSMCache(
+            state=self._zeros((n, b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                              torch.float32),
+            conv=self._zeros((n, b, cfg.ssm_conv - 1, conv_dim(cfg))))
+
+
+def build_model(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> LM:
+    """The ``LM`` of ``cfg`` with parameters drawn from ``seed`` on
+    ``device`` (default the card; ``"meta"`` builds shapes only)."""
+    return LM(cfg, seed=seed, device=device)

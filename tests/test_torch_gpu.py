@@ -5,8 +5,9 @@ on the card, bit for bit, the
 repeatability of an IVF build there, the continuous engines against each
 query's solo search (the walk kernel and the plain walk for the graph, the
 fused scan for IVF), the sharded walk (its sliced-slab launches against
-the plain version, a two-rank gloo engine against the host-simulated walk)
-and the tracer's fence (needs no JAX, so it runs where only the port is
+the plain version, a two-rank gloo engine against the host-simulated walk),
+the tracer's fence and every LM family's prefill and decode on the card
+against the same seeded model on the CPU (needs no JAX, so it runs where only the port is
 installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
@@ -17,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import LM_ARCHS, reduced_config  # noqa: E402
+from repro_torch.interop import lm_caches_close  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.graph_scan import graph_scan_kernel_call  # noqa: E402
 from repro_torch.kernels.ivf_scan import ivf_scan_kernel_call, ivf_scan_plain  # noqa: E402
@@ -597,3 +600,63 @@ def test_cuda_two_rank_gloo_engine_matches_host_walk(walk_graph, tmp_path):
     digests = engine.ranks[0]["digests"]
     assert len(digests) == st.waves and engine.ranks[1]["digests"] == digests
     assert sum(r["launches"] for r in engine.ranks.values()) == 2 * st.waves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_matches_cpu(arch, monkeypatch):
+    """The same seeded reduced model on the CPU and moved to the card:
+    prefill logits and every cache leaf, then 4 decode steps from zeroed
+    caches, card against CPU (float32, TF32 off; int8 codes equal but for
+    near-ties, ``interop.lm_caches_close``)."""
+    import copy
+
+    from repro_torch.models.model import build_model
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card half of the comparison")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = reduced_config(arch)
+    cpu = build_model(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(2)
+    b, s = 2, 64
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((b, cfg.vision_seq, cfg.vision_dim), generator=g)
+    lc, cc = cpu.prefill(batch)
+    lg, cg = card.prefill({k: v.cuda() for k, v in batch.items()})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    lm_caches_close(cc, cg, rtol=1e-4, atol=1e-4, what=f"{arch} prefill")
+    cc, cg = cpu.init_caches(b, 16), card.init_caches(b, 16)
+    for t in range(4):
+        tok = batch["tokens"][:, t:t + 1]
+        lc, cc = cpu.decode_step(tok, cc, t)
+        lg, cg = card.decode_step(tok.cuda(), cg, torch.tensor(t, device="cuda"))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    lm_caches_close(cc, cg, rtol=1e-4, atol=1e-4, what=f"{arch} decode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["_sdpa", "_flat_sdpa"])
+def test_cuda_bf16_attention_matches_cpu(name):
+    """bf16 attention with scores of about +-60 under a softcap of 50: the
+    card's float32-output products (``bmm``'s ``out_dtype``) against the
+    CPU's widened operands, to about one bf16 step (rtol = atol = 1e-2)."""
+    from repro_torch.models import attention
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card half of the comparison")
+    g = torch.Generator().manual_seed(5)
+    b, sq, skv, h, dh = 2, 8, 32, 4, 64
+    q_shape = (b, sq, 2, h // 2, dh) if name == "_sdpa" else (b, sq, h, dh)
+    kv_shape = (b, skv, 2 if name == "_sdpa" else h, dh)
+    q = (torch.randn(q_shape, generator=g) * 5.5).bfloat16()
+    k = (torch.randn(kv_shape, generator=g) * 5.5).bfloat16()
+    v = torch.randn(kv_shape, generator=g).bfloat16()
+    mask = torch.ones((sq, skv), dtype=torch.bool).tril(skv - sq)
+    fn = getattr(attention, name)
+    want = fn(q, k, v, mask, 50.0)
+    got = fn(q.cuda(), k.cuda(), v.cuda(), mask.cuda(), 50.0)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2, atol=1e-2)

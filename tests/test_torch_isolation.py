@@ -30,6 +30,10 @@ from repro_torch.kernels import _screen, graph_scan, ivf_scan, l2_scan, ops  # n
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.annservice import (  # noqa: E402
     build_graph_engine, sharded_graph_engine)
+from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.interop import lm_from_arrays  # noqa: E402
+from repro_torch.launch.steps import build_cell  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -59,7 +63,8 @@ def test_import_leaves_jax_out():
             "repro_torch.runtime.chaos, repro_torch.runtime.scheduler, "
             "repro_torch.launch.annservice, repro_torch.index.mutable, "
             "repro_torch.checkpoint.manager, repro_torch.checkpoint.index_io, "
-            "repro_torch.checkpoint.wal, repro_torch.core.dco_host; "
+            "repro_torch.checkpoint.wal, repro_torch.core.dco_host, repro_torch.configs, "
+            "repro_torch.models.model, repro_torch.launch.specs, repro_torch.launch.steps; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -103,6 +108,9 @@ ENTRY_POINTS = [
     (load_graph_slab, lambda d: load_graph_slab(_graph_snapshot(d), shard=0, num_shards=2)),
     (sharded_graph_engine, lambda d: sharded_graph_engine(
         _cpu_graph(d), _graph_snapshot(d), num_shards=2, backend="gloo", k=2).__enter__()),
+    (build_model, lambda d: build_model(reduced_config("gemma2-9b"))),
+    (build_cell, lambda d: build_cell("gemma2-9b", "decode_32k")),
+    (lm_from_arrays, lambda d: lm_from_arrays(reduced_config("gemma2-9b"), {})),
 ]
 
 
