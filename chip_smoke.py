@@ -145,11 +145,35 @@ on any fault.  Phases, one line each:
      (b) the same model in float32 with its window cut to 16: the
      prefill's last-position logits of a 64-token prompt against 64
      teacher-forced decode steps from zeroed 64-slot caches (the windowed
-     layers' 16-slot rings wrap), rtol = atol = 2e-2; (c) every LM
+     layers' 16-slot rings wrap), rtol = atol = 1e-3, and the same decode
+     with the rings one slot short must fail it; (c) every LM
      architecture at its reduced config, the port's seeded model on the
      CPU and the same state on the card: prefill logits, every cache leaf
      and 4 decode steps, card against CPU at rtol = atol = 1e-4 (int8 KV
-     codes equal but for near-ties, at most one in a thousand).
+     codes equal but for near-ties, at most one in a thousand);
+ 17. LM training (``launch.steps.train_step``: ``LM.loss_fn`` with its
+     backward through autograd, AdamW, gradient accumulation; plain
+     PyTorch, no hand-written kernel): (a) ``gemma-2b`` at full width and
+     depth in bf16 with remat through ``build_cell("gemma-2b", "train_4k")``
+     on ``TokenPipeline`` batches of train_4k's 4,096 tokens, the batch cut
+     from 256 to 4 (``grad_accum`` 2: two microbatches of 2): one warm-up
+     step, the median of 4 timed steps beside the FLOP bound
+     (``lm_train_flops``), tokens/s, peak memory, and one profiled step's
+     busy share and device time by op; every loss and grad_norm finite, the
+     last loss below the first; (b) float32 identities, each beside a
+     planted fault that must fail it: gemma-2b at full width cut to 2
+     layers, the same batch, grad_accum 2 against 1 at the reference's
+     ``test_grad_accum_matches_full_batch`` tolerance (rtol 2e-3, atol
+     2e-4; fault: the summed gradients not divided by 2), remat on against
+     off within 1e-6 (fault: a weight moved between the forward and its
+     recomputation), and every architecture's reduced train step on the
+     card against the CPU within 1e-4 (loss, every gradient leaf, the
+     parameters after one step); (c) the trainer drill: ``python -m
+     repro_torch.launch.train --arch mamba2-130m`` at full width, 40 steps
+     of 8 x 128 tokens, checkpoints every 20, a failure injected at step
+     27, under ``--deterministic``; one restart, the loss improves, and
+     the step-40 checkpoint equals an uninterrupted run's bit for bit
+     (every leaf's sha256: parameters, both moments, the step).
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -181,6 +205,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -271,6 +297,31 @@ LM_PREFILL_BATCH, LM_PREFILL_SEQ, LM_PREFILL_RUNS = 4, 8192, 3
 LM_DECODE_BATCH, LM_DECODE_WARM, LM_DECODE_STEPS = 4, 2, 16
 LM_CHECK_SEQ, LM_CHECK_WINDOW, LM_CHECK_TOL = 64, 16, 1e-3
 LM_CARD_TOL = 1e-4
+# Phase 17: LM training at full width.  (a) gemma-2b (bf16, remat,
+# grad_accum 2) trains on TRAIN_BATCH rows of train_4k's 4,096 tokens (cut
+# from 256 rows for memory and time: two microbatches of 2), TRAIN_WARM
+# warm-up step(s), TRAIN_STEPS timed ones, then one profiled; if the whole
+# script nears its limit, TRAIN_STEPS is cut first, never the width, depth
+# or sequence.  (b) the float32 identities at full width, depth cut to
+# TRAIN_CHECK_LAYERS, at the reference's grad-accumulation tolerance and
+# remat's; every reduced architecture card against CPU at TRAIN_CARD_TOL,
+# one AdamW step at TRAIN_CARD_LR (a near-zero gradient's sign, which the
+# two devices may round apart, then moves a parameter by at most 2 x lr,
+# inside the tolerance).  (c) the trainer drill's arguments.
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 4, 1, 4
+# (a)'s learning rate, reached at the first step: Adam moves every one of
+# the 2.5 B weights by about lr on its first steps, and at the trainer's
+# 3e-4 that overshoots (the loss rose 10.70 -> 14.05 over three steps on
+# the card); a run this short has no room for the schedule's warmup.
+TRAIN_LR = 1e-5
+TRAIN_CHECK_LAYERS = 2
+TRAIN_ACCUM_RTOL, TRAIN_ACCUM_ATOL = 2e-3, 2e-4
+TRAIN_REMAT_TOL = 1e-6
+TRAIN_CARD_TOL, TRAIN_CARD_LR = 1e-4, 3e-5
+DRILL_ARGS = ["--arch", "mamba2-130m", "--steps", "40", "--batch", "8", "--seq", "128",
+              "--ckpt-every", "20", "--deterministic"]
+DRILL_FAIL_AT = 27
 # Published dense bf16 peak of one H100 SXM (NVIDIA data sheet), at 700 W.
 PEAK_BF16_FLOPS = 989e12
 
@@ -2235,12 +2286,30 @@ def lm_prefill_flops(model, b: int, s: int) -> float:
     return flops + 2.0 * b * cfg.d_model * cfg.vocab_padded
 
 
+def lm_train_flops(model, b: int, s: int) -> float:
+    """Operations a training step over ``b`` x ``s`` tokens needs: 3 x the
+    forward's (every layer's matrices, QK^T and PV over the attended keys,
+    as :func:`lm_prefill_flops`, and the LM head over EVERY token): the
+    forward and the backward's two products for each of its products.
+    Remat's recomputed forward is not useful work and is not counted."""
+    cfg = model.cfg
+    head = 2.0 * cfg.d_model * cfg.vocab_padded
+    return 3.0 * (lm_prefill_flops(model, b, s) - b * head + b * s * head)
+
+
 def profiled(fn, top: int = 6):
     """(``fn()``, a line: the card's busy share of that call under
     ``torch.profiler`` and its device time by ATen op (each op's own
-    kernels), largest first).  Only ATen ops count: the profiler's own
-    markers (a full launch queue, say) carry device time too."""
+    kernels, copies and fills), largest first).  Only ATen ops count: the
+    profiler's own markers (a full launch queue, say) carry device time
+    too.  The device events are read raw and each is credited to the op
+    that launched it (its linked correlation id: the attribution
+    ``key_averages`` makes) without building the profiler's Python event
+    tree, which took 25 s for a training step's events."""
+    from collections import Counter, defaultdict
+
     import torch
+    from torch.autograd import DeviceType
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         sync()
@@ -2248,13 +2317,19 @@ def profiled(fn, top: int = 6):
         out = fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.key_averages()
-           if e.key.startswith("aten::") and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in ops) / 1e3
-    ops.sort(key=lambda e: -e.self_device_time_total)
-    parts = ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} ms "
-                      f"({100 * e.self_device_time_total / 1e3 / wall_ms:.1f} %, "
-                      f"{e.count} calls)" for e in ops[:top])
+    events = prof.profiler.kineto_results.events()
+    op_of, calls, dev_ns = {}, Counter(), defaultdict(int)
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name().startswith("aten::"):
+            op_of[e.correlation_id()] = e.name()
+            calls[e.name()] += 1
+    for e in events:
+        if e.device_type() != DeviceType.CPU and e.linked_correlation_id() in op_of:
+            dev_ns[op_of[e.linked_correlation_id()]] += e.duration_ns()
+    busy = sum(dev_ns.values()) / 1e6
+    parts = ", ".join(f"{name} {ns / 1e6:.1f} ms ({100 * ns / 1e6 / wall_ms:.1f} %, "
+                      f"{calls[name]} calls)"
+                      for name, ns in sorted(dev_ns.items(), key=lambda kv: -kv[1])[:top])
     return out, (f"card busy {busy:.1f} of {wall_ms:.1f} ms ({100 * busy / wall_ms:.1f} %); "
                  f"by op: {parts}")
 
@@ -2454,6 +2529,249 @@ def run_lm(card: str) -> None:
     log(f"phase 16 took {time.perf_counter() - t_start:.0f}s on {card}")
 
 
+def train_card_against_cpu(arch: str) -> float:
+    """Phase 17(b) for one architecture: the same seeded reduced model on the
+    CPU and on the card; the train step's loss and every gradient leaf,
+    then every parameter after one AdamW step, card against CPU.  Returns
+    the largest absolute deviation."""
+    import copy
+
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import train_grads, train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = reduced_config(arch)
+    cpu = build_model(cfg, seed=1, device="cpu").requires_grad_(True)
+    card = copy.deepcopy(cpu).to(DEV)
+    b = 4  # every reduced config's grad_accum (1, 2 or 4) divides it
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, batch=b, seq=64, seed=2).batch_at(0)
+    g = torch.Generator().manual_seed(3)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((b, cfg.vision_seq, cfg.vision_dim), generator=g)
+    worst = 0.0
+
+    def close(ref, got, what):
+        nonlocal worst
+        ref, got = ref.detach().float(), got.detach().float().cpu()
+        err = (got - ref).abs().max().item() if ref.numel() else 0.0
+        check(torch.allclose(got, ref, rtol=TRAIN_CARD_TOL, atol=TRAIN_CARD_TOL),
+              f"train (b) {arch} {what}: card and CPU differ by {err:.3e}")
+        worst = max(worst, err)
+
+    lc, _, gc = train_grads(cpu, batch)
+    lg, _, gg = train_grads(card, batch)
+    close(lc, lg, "loss")
+    for k in gc:
+        close(gc[k], gg[k], f"gradient {k}")
+    opt = AdamWConfig(lr=TRAIN_CARD_LR, warmup_steps=1, total_steps=10)
+    pc, pg = dict(cpu.named_parameters()), dict(card.named_parameters())
+    train_step(cpu, opt, pc, adamw_init(pc), batch)
+    train_step(card, opt, pg, adamw_init(pg), batch)
+    for k in pc:
+        close(pc[k], pg[k], f"parameter {k} after one step")
+    return worst
+
+
+def train_identities(first: dict, b: int, s: int) -> None:
+    """Phase 17(b): the float32 identities at full width, each beside its
+    planted fault, then every reduced architecture card against CPU."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch.steps import build_cell, train_grads
+
+    t0 = time.perf_counter()
+    cell = build_cell(TRAIN_ARCH, "train_4k", device=DEV,
+                      cfgset={"num_layers": TRAIN_CHECK_LAYERS, "dtype": "float32"})
+    model, cfg = cell.model, cell.model.cfg
+
+    def with_cfg(**kw):  # the blocks read the config from the model at each call
+        model.cfg = dataclasses.replace(cfg, **kw)
+
+    def diff(x, y):
+        return max((x[k] - y[k]).abs().max().item() for k in x)
+
+    def all_close(x, y, rtol, atol):
+        return all(torch.allclose(x[k], y[k], rtol=rtol, atol=atol) for k in x)
+
+    _, _, g2 = train_grads(model, first)  # grad_accum 2, remat
+    with_cfg(grad_accum=1)
+    _, _, g1 = train_grads(model, first)
+    acc_err = diff(g2, g1)
+    check(all_close(g2, g1, TRAIN_ACCUM_RTOL, TRAIN_ACCUM_ATOL),
+          f"train (b): grad_accum 2 and 1 differ by {acc_err:.3e}")
+    undivided = {k: v * 2 for k, v in g2.items()}
+    check(not all_close(undivided, g1, TRAIN_ACCUM_RTOL, TRAIN_ACCUM_ATOL),
+          "train (b): gradients not divided by grad_accum pass the check")
+    acc_fault = diff(undivided, g1)
+    del g1, undivided
+    with_cfg(remat=False)  # grad_accum 2 again, no remat
+    _, _, g2n = train_grads(model, first)
+    remat_err = diff(g2, g2n)
+    check(all_close(g2, g2n, TRAIN_REMAT_TOL, TRAIN_REMAT_TOL),
+          f"train (b): remat on and off differ by {remat_err:.3e}")
+    del g2, g2n
+    # the planted fault: a weight moved between the forward and its
+    # recomputation (one microbatch, remat on)
+    with_cfg(grad_accum=1)
+    mb = {k: torch.as_tensor(v[:b // 2], device=DEV) for k, v in first.items()}
+    _, _, clean = train_grads(model, mb)
+    own = dict(model.named_parameters())
+    loss, _ = model.loss_fn(mb)
+    w = own["stacks.0.0.mlp.w_up"]
+    saved = w.detach().clone()
+    with torch.no_grad():
+        w.mul_(1.01)
+    moved = dict(zip(own, torch.autograd.grad(loss, list(own.values()), allow_unused=True)))
+    with torch.no_grad():
+        w.copy_(saved)
+    moved = {k: torch.zeros_like(own[k]) if v is None else v for k, v in moved.items()}
+    remat_fault = diff(moved, clean)
+    check(not all_close(moved, clean, TRAIN_REMAT_TOL, TRAIN_REMAT_TOL),
+          "train (b): a recomputation with moved weights passes the remat check")
+    log(f"train (b): {TRAIN_ARCH} float32 at full width, {TRAIN_CHECK_LAYERS} layers, "
+        f"{b} x {s} tokens: grad_accum 2 against 1 max |diff| {acc_err:.3e} (rtol "
+        f"{TRAIN_ACCUM_RTOL}, atol {TRAIN_ACCUM_ATOL}; the planted fault, gradients not "
+        f"divided by 2: {acc_fault:.3e}); remat on against off {remat_err:.3e} (tolerance "
+        f"{TRAIN_REMAT_TOL}; the planted fault, a weight moved 1 % between the forward and "
+        f"its recomputation: {remat_fault:.3e}); {time.perf_counter() - t0:.1f}s")
+    del cell, model, clean, moved, loss, own, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    worst = {arch: train_card_against_cpu(arch) for arch in LM_ARCHS}
+    log(f"train (b): {len(LM_ARCHS)} architectures at reduced config, the train step card "
+        f"against CPU within rtol = atol = {TRAIN_CARD_TOL} (loss, every gradient leaf, every "
+        f"parameter after one step at lr {TRAIN_CARD_LR}): largest |diff| "
+        + ", ".join(f"{a} {e:.2e}" for a, e in worst.items())
+        + f"; {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train(card: str) -> None:
+    """Phase 17: LM training on the card (no hand-written kernel on this
+    path)."""
+    import gc
+    import re
+    import tempfile
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.specs import SHAPES
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gib = 1e9
+
+    # (a) gemma-2b at full width and depth, bf16, remat, grad_accum 2
+    t0 = time.perf_counter()
+    n_steps = TRAIN_WARM + TRAIN_STEPS + 1  # the last one profiled
+    cell = build_cell(TRAIN_ARCH, "train_4k", device=DEV,
+                      opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=n_steps))
+    model, cfg = cell.model, cell.model.cfg
+    check(cfg.remat and cfg.grad_accum == 2 and cfg.dtype == "bfloat16",
+          f"train (a): {TRAIN_ARCH}'s config is not bf16 with remat and grad_accum 2")
+    params = dict(model.named_parameters())
+    opt_state = adamw_init(params)
+    n_params = sum(p.numel() for p in params.values())
+    state_bytes = sum(p.numel() * p.element_size() for p in params.values()) + sum(
+        t.numel() * t.element_size() for m in ("m", "v") for t in opt_state[m].values())
+    sync()
+    s = SHAPES["train_4k"].seq
+    b = TRAIN_BATCH
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=b, seq=s, seed=0)
+    log(f"train (a): {TRAIN_ARCH} {cfg.dtype}, {n_params:,} parameters, {cfg.num_layers} "
+        f"layers, remat, grad_accum {cfg.grad_accum}, AdamW at lr {TRAIN_LR}; parameters and moments "
+        f"{state_bytes / gib:.2f} GB; built in {time.perf_counter() - t0:.1f}s on {card}")
+    losses, norms, times = [], [], []
+    profile = ""
+    for i in range(n_steps):
+        batch = pipe.batch_at(i)
+        sync()
+        t0 = time.perf_counter()
+        if i < n_steps - 1:
+            params, opt_state, mets = cell.step_fn(params, opt_state, batch)
+            sync()
+        else:
+            (params, opt_state, mets), profile = profiled(
+                lambda: cell.step_fn(params, opt_state, batch))
+        times.append(time.perf_counter() - t0)
+        losses.append(float(mets["loss"]))
+        norms.append(float(mets["grad_norm"]))
+    check(all(map(math.isfinite, losses + norms)),
+          f"train (a): a loss or grad_norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"train (a): the loss did not fall: {losses}")
+    timed = times[TRAIN_WARM:TRAIN_WARM + TRAIN_STEPS]
+    step_s = statistics.median(timed)
+    flops = lm_train_flops(model, b, s)
+    bound = flops / PEAK_BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train (a): {b} x {s} tokens a step: {step_s * 1e3:.1f} ms (median of {TRAIN_STEPS} "
+        f"steps after {TRAIN_WARM} warm-up: {', '.join(f'{t * 1e3:.1f}' for t in timed)} ms; "
+        f"the warm-up {times[0] * 1e3:.1f} ms), {b * s / step_s:,.1f} tokens/s; bound "
+        f"{bound * 1e3:.1f} ms ({flops:.4g} FLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 "
+        f"dense), {step_s / bound:.2f}x it; on {card}")
+    log(f"train (a): loss by step {', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+        f"{', '.join(f'{x:.3f}' for x in norms)}")
+    log(f"train (a): the profiled step ({times[-1] * 1e3:.1f} ms): {profile}")
+    log(f"train (a): peak memory {peak / gib:.2f} GB (torch.cuda.max_memory_allocated) of the "
+        f"card's {torch.cuda.get_device_properties(0).total_memory / gib:.2f} GB; on {card}")
+    first = pipe.batch_at(0)
+    del cell, model, params, opt_state, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the trainer drill's two runs start here and load while (b) runs
+    # (only (a) is timed)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        runs = {}
+        try:
+            for name, extra in (("drill", ["--fail-at", str(DRILL_FAIL_AT)]), ("clean", [])):
+                cmd = [sys.executable, "-m", "repro_torch.launch.train", *DRILL_ARGS, *extra,
+                       "--ckpt-dir", os.path.join(tmp, name)]
+                runs[name] = subprocess.Popen(cmd, env=env, cwd=tmp, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True)
+            train_identities(first, b, s)
+            outs = {name: proc.communicate(timeout=300)[0] for name, proc in runs.items()}
+        finally:
+            for proc in runs.values():
+                proc.kill()
+                proc.wait()
+        for name, proc in runs.items():
+            check(proc.returncode == 0, f"train (c): the {name} run failed "
+                                        f"(rc {proc.returncode}): {outs[name][-2000:]}")
+        restarts = {n: int(re.search(r"restarts=(\d+)", o).group(1)) for n, o in outs.items()}
+        check(restarts == {"drill": 1, "clean": 0}, f"train (c): restarts {restarts}")
+        trees = {n: json.loads((Path(tmp) / n / "step_000000040" / "tree.json").read_text())
+                 for n in outs}
+        check(trees["drill"]["leaves"] == trees["clean"]["leaves"],
+              "train (c): the restarted run's step-40 state differs from the "
+              "uninterrupted run's")
+        loss_line = re.search(r"\[loss\][^\n]*", outs["drill"]).group(0)
+        p50 = {n: re.search(r"p50=(\S+)", o).group(1) for n, o in outs.items()}
+    log(f"train (c): launch.train --arch mamba2-130m (full width) 40 steps of 8 x 128, "
+        f"a failure at step {DRILL_FAIL_AT}: restarts=1, {loss_line}, p50 {p50['drill']} "
+        f"a step ({p50['clean']} uninterrupted; the two runs share the card); its step-40 "
+        f"checkpoint equals the uninterrupted run's bit for bit "
+        f"({len(trees['drill']['leaves'])} leaves' sha256, --deterministic); (b) and (c) "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"phase 17 took {time.perf_counter() - t_start:.0f}s on {card}")
+
+
 def build_kernels() -> None:
     """Phase 1: the five kernels and the scan's timing build built at once,
     one nvcc each."""
@@ -2501,7 +2819,8 @@ def main() -> int:
     ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
     ivf["ranked_launches"] = graph.pop("ranked_flat_launches")
     run_lm(card)
-    log(f"phases 2-16 took {time.perf_counter() - t0:.0f}s")
+    run_train(card)
+    log(f"phases 2-17 took {time.perf_counter() - t0:.0f}s")
     log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

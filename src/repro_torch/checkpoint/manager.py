@@ -17,8 +17,12 @@ Layout per step::
 
 Trees are nested dicts (keys in sorted order), lists and tuples of tensors
 or arrays, flattened in the reference's order with its path strings
-(``['key']``, ``[0]``).  Restoring onto a device mesh (``shardings=``)
-waits for the training port (ROADMAP queue 1 item 8).
+(``['key']``, ``[0]``).  A bfloat16 leaf is stored as the reference stores
+one: its raw bits as a 2-byte void array under a ``<V2`` header,
+``"dtype": "bfloat16"`` in ``tree.json`` (numpy has no bfloat16; the bits
+move through ``int16`` views, so no extension package is needed).  Restoring onto a device mesh
+(``shardings=``) waits for the multi-device training half (ROADMAP queue
+1 item 8b-ii).
 """
 
 from __future__ import annotations
@@ -38,11 +42,43 @@ import torch
 __all__ = ["CheckpointManager", "to_host"]
 
 
+_BF16_BITS = np.dtype("V2")  # a bfloat16 leaf's raw bits, the reference's layout
+
+
 def to_host(x) -> np.ndarray:
-    """A leaf as a numpy array on the host (tensors copied off the card)."""
+    """A leaf as a numpy array on the host; a tensor is always copied (an
+    asynchronous save must not see later in-place updates), a bfloat16 one
+    as its raw bits (a ``|V2`` array)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_BITS else str(arr.dtype)
+
+
+def _save_leaf(f, arr: np.ndarray) -> None:
+    """``np.save``, but bfloat16 bits under the reference's ``<V2`` header
+    (the descriptor numpy writes for an extension bfloat16 dtype)."""
+    if arr.dtype != _BF16_BITS:
+        np.save(f, arr)
+        return
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    header["descr"] = "<V2"
+    np.lib.format.write_array_header_1_0(f, header)
+    f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _to_tensor(arr: np.ndarray, device=None) -> torch.Tensor:
+    """A loaded leaf as a tensor on ``device``; ``|V2`` bits as bfloat16."""
+    if arr.dtype == _BF16_BITS:
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def _flatten(tree, path=()):
@@ -137,12 +173,12 @@ class CheckpointManager:
         for i, leaf in enumerate(leaves):
             arr = np.asarray(leaf)
             with open(os.path.join(tmp, f"leaf_{i:05d}.npy"), "wb") as f:
-                np.save(f, arr)
+                _save_leaf(f, arr)
                 f.flush()
                 os.fsync(f.fileno())
             meta["leaves"].append({
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": _dtype_name(arr),
                 "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
             })
         with open(os.path.join(tmp, "tree.json"), "w") as f:
@@ -187,7 +223,8 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restore(shardings=...) re-places leaves on a device mesh for "
-                "training: not ported (ROADMAP queue 1 item 8)")
+                "training: not ported (ROADMAP queue 1 item 8b-ii, the multi-device "
+                "training half)")
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "tree.json")) as f:
             meta = json.load(f)
@@ -204,7 +241,7 @@ class CheckpointManager:
                 raise ValueError(
                     f"leaf {i}: ckpt shape {arr.shape} != template {np.shape(tmpl)}")
             dev = tmpl.device if isinstance(tmpl, torch.Tensor) else None
-            out.append(torch.as_tensor(arr, device=dev))
+            out.append(_to_tensor(arr, dev))
         return _unflatten(like, out)
 
     # ---- named artifacts (template-free restore) -------------------------

@@ -1,17 +1,49 @@
-"""Deterministic synthetic vector data (numpy, seed-exact copies of
-``repro.data.pipeline.synthetic_vectors`` / ``synthetic_queries`` /
-``drifted_vectors``).
+"""Deterministic synthetic data pipelines (numpy).
 
-Anisotropic Gaussian-mixture corpora — the spectrum decay mirrors real
-embedding sets (DEEP/GIST), which is the regime where DADE's PCA rotation
-pays off.
+Vector data: seed-exact copies of ``repro.data.pipeline.synthetic_vectors``
+/ ``synthetic_queries`` / ``drifted_vectors``; anisotropic Gaussian-mixture
+corpora — the spectrum decay mirrors real embedding sets (DEEP/GIST), which
+is the regime where DADE's PCA rotation pays off.
+
+Token data: :class:`TokenPipeline`, the reference's distribution (a
+Zipf-ish unigram stream with short-range repeats) drawn from numpy's
+generator instead of ``jax.random``, whose streams cannot be replayed
+outside JAX; parity tests feed the reference's batches as arrays.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-__all__ = ["synthetic_vectors", "synthetic_queries", "drifted_vectors"]
+__all__ = ["TokenPipeline", "synthetic_vectors", "synthetic_queries", "drifted_vectors"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipeline:
+    """Token batches, fully deterministic in (seed, step, host): a restarted
+    job resumes on the exact batch it crashed on (the checkpoint stores
+    only the step)."""
+
+    vocab_size: int
+    batch: int  # per-host batch
+    seq: int
+    seed: int = 0
+
+    def batch_at(self, step: int, host: int = 0) -> dict[str, np.ndarray]:
+        """``tokens`` and ``labels`` (batch, seq) int32 for (step, host):
+        stateless, resumable; ``labels`` are ``tokens`` shifted by one."""
+        rng = np.random.default_rng((self.seed, step, host))
+        shape = (self.batch, self.seq + 1)
+        # Zipf unigram via exponential quantization of a uniform.
+        u = rng.uniform(1e-6, 1.0, shape).astype(np.float32)
+        ranks = np.floor(np.exp(u * np.float32(np.log(self.vocab_size)))).astype(np.int32)
+        toks = np.clip(ranks - 1, 0, self.vocab_size - 1)
+        # short-range structure: each token repeats the previous with p=0.3
+        rep = rng.random(shape) < 0.3
+        toks = np.where(rep, np.roll(toks, 1, axis=1), toks).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def synthetic_vectors(

@@ -12,8 +12,9 @@
   * ``quantize_int8`` / ``dequantize_int8`` — the per-tensor int8 codec of
     the reference's compressed gradient all-reduce.
 
-The reference's ``compressed_grad_allreduce`` serves training, which the
-port has not reached (ROADMAP queue 1 item 8).
+The reference's ``compressed_grad_allreduce`` serves data-parallel
+training, the multi-device half the port has not reached (ROADMAP queue 1
+item 8b-ii).
 """
 
 from __future__ import annotations

@@ -20,12 +20,12 @@ from repro_torch.index.flat import FlatIndex
 from repro_torch.index.graph import GraphIndex
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, STACKED
 from repro_torch.quant.scalar import QuantConfig
 
 __all__ = ["transform_from_arrays", "table_from_arrays", "estimator_from_arrays",
            "flat_from_arrays", "ivf_from_arrays", "graph_from_arrays", "lm_param_map",
-           "lm_from_arrays", "lm_caches_close"]
+           "lm_from_arrays", "adamw_state_from_arrays", "lm_caches_close"]
 
 
 def _t(x, dev, dtype=None) -> torch.Tensor:
@@ -120,11 +120,6 @@ def graph_from_arrays(estimator: Estimator, *, corpus_rot, neighbors, entry,
         scan_block_d=int(scan_block_d))
 
 
-# The reference's parameter-tree keys whose values are lists of stacked
-# segments (one per block-pattern position, a leading 'layers' axis each).
-_STACKED = ("stacks", "enc_stacks", "cross_stacks")
-
-
 def _leaves(tree, prefix: str):
     if isinstance(tree, dict):
         for key, sub in tree.items():
@@ -140,7 +135,7 @@ def lm_param_map(params):
     'layers' axis for stacked segments (``stacks[i]`` -> the port's
     ``stacks.i.<layer>``) and is None elsewhere."""
     for key, sub in params.items():
-        if key in _STACKED:
+        if key in STACKED:
             for i, seg in enumerate(sub):
                 for path, leaf in _leaves(seg, ""):
                     for layer in range(leaf.shape[0]):
@@ -175,6 +170,30 @@ def lm_from_arrays(cfg: ArchConfig, params, *, device="cuda") -> LM:
         state[name] = torch.nn.Parameter(t, requires_grad=False)
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def adamw_state_from_arrays(cfg: ArchConfig, opt_state, *, device="cuda") -> dict:
+    """The port's AdamW state (``optim.adamw``: ``m`` and ``v`` keyed by
+    the port's parameter names, ``step`` a 0-d int32) holding the values
+    of the reference's ``{"m", "v", "step"}`` tree (numpy leaves), its
+    stacked moments unstacked as :func:`lm_from_arrays` unstacks the
+    parameters."""
+    dev = resolve_device(device)
+    want = dict(LM(cfg, device="meta").named_parameters())
+    out = {"step": _t(opt_state["step"], dev, torch.int32)}
+    for key in ("m", "v"):
+        moments = {}
+        for name, leaf, layer in lm_param_map(opt_state[key]):
+            t = _tensor(np.asarray(leaf if layer is None else leaf[layer]), dev)
+            if name not in want or want[name].shape != t.shape or t.dtype != torch.float32:
+                raise ValueError(f"reference moment {key}.{name} {tuple(t.shape)} {t.dtype} "
+                                 f"does not fit the port's parameters")
+            moments[name] = t
+        if moments.keys() != want.keys():
+            raise ValueError(f"reference moments {key} miss "
+                             f"{sorted(want.keys() - moments.keys())[:4]}")
+        out[key] = {name: moments[name] for name in want}
+    return out
 
 
 def lm_caches_close(ref, got, *, rtol: float, atol: float, near_ties: float = 1e-3,

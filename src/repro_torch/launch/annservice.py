@@ -746,11 +746,13 @@ def slo_effort(signal: float, lo: float, hi: float) -> float:
     """Map a [0, 1] urgency signal onto an effort dial in [lo, hi]: monotone
     nondecreasing in ``signal`` and clamped to the band.  With ``lo == hi``
     the dial is a constant, which is how an SLO policy degenerates to the
-    fixed-parameter engine bit for bit."""
+    fixed-parameter engine bit for bit.  ``lo + (hi - lo) * s`` can round
+    one ulp past ``hi`` (the reference's value there); the port clamps it
+    back, and equals the reference wherever the reference stays inside."""
     if hi < lo:
         raise ValueError(f"slo_effort needs hi >= lo, got lo={lo} hi={hi}")
     s = min(max(float(signal), 0.0), 1.0)
-    return lo + (hi - lo) * s
+    return min(max(lo + (hi - lo) * s, lo), hi)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,9 @@ decode against a KV cache.
 Three entry points, as in ``repro.models.attention``:
   attn_train    full-sequence forward, query-chunked (a Python loop over
                 ``q_chunk`` rows, so the (B, H, Sq, Skv) score tile never
-                exceeds q_chunk rows); also returns (k, v) for prefill.
+                exceeds q_chunk rows; each chunk rematerialised in the
+                backward pass where ``cfg.remat`` is set, as the
+                reference's scan body is); also returns (k, v) for prefill.
   attn_decode   one new token against a fixed-size KV cache, which it
                 updates IN PLACE (the port's one departure from the
                 reference's functional update: a copy of the cache per
@@ -25,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import ArchConfig, Initializer, Params, rmsnorm, rope, softcap
+from repro_torch.models.common import (ArchConfig, Initializer, Params, remat, rmsnorm,
+                                       rope, softcap)
 
 __all__ = ["KVCache", "QuantKVCache", "init_attention", "attn_train", "attn_decode",
            "attn_cross", "cross_memory"]
@@ -93,16 +96,38 @@ def _scores_mask(qpos, kpos, *, causal: bool, window: int):
     return m
 
 
+class _BmmF32(torch.autograd.Function):
+    """bf16 ``a @ b`` with a float32 result on the card (``bmm``'s
+    ``out_dtype``, which has no derivative of its own).  The backward's two
+    products take the cotangent rounded to the operands' dtype, with
+    float32 accumulation: a default-precision product's rounding (the
+    reference transposes into an f32 product; one in full f32 would run
+    outside the tensor cores, since the port keeps TF32 off)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.bmm(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        gb = torch.bmm(a.transpose(1, 2), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def _bmm_f32(a, b):
     """Batched ``a @ b`` with float32 output, the reference's
     ``preferred_element_type=jnp.float32``: bf16 operands go to one product
     that accumulates and returns float32 (``bmm``'s ``out_dtype`` on the
-    card; widened operands on the CPU, whose products of bf16 values are
-    exact in float32 all the same)."""
+    card, :class:`_BmmF32`; widened operands on the CPU, whose products of
+    bf16 values are exact in float32 all the same)."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 
@@ -161,12 +186,12 @@ def _attn_flat_padded(p, q, k, v, positions, cfg: ArchConfig, *, window: int,
         mask = _scores_mask(positions, positions, causal=causal, window=window)
         out = _flat_sdpa(q, kf, vf, mask, cfg.attn_softcap)
     else:
-        out = torch.empty_like(q)
-        for c0 in range(0, s, qc):
-            mask = _scores_mask(positions[c0:c0 + qc], positions, causal=causal,
-                                window=window)
-            out[:, c0:c0 + qc] = _flat_sdpa(q[:, c0:c0 + qc], kf, vf, mask,
-                                            cfg.attn_softcap)
+        def chunk(qi, pi):
+            mask = _scores_mask(pi, positions, causal=causal, window=window)
+            return _flat_sdpa(qi, kf, vf, mask, cfg.attn_softcap)
+
+        out = torch.cat([remat(cfg, chunk, q[:, c0:c0 + qc], positions[c0:c0 + qc])
+                         for c0 in range(0, s, qc)], dim=1)
     if gp > g:
         out = out.reshape(b, s, hkv, gp, dh)[:, :, :, :g, :]
     return out.reshape(b, s, h * dh)
@@ -253,9 +278,8 @@ def attn_cross(p, x: torch.Tensor, memory_kv: KVCache, cfg: ArchConfig) -> torch
     if s % qc != 0 or s <= qc:
         out = _flat_sdpa(q, kf, vf, None, 0.0)
     else:
-        out = torch.empty_like(q)
-        for c0 in range(0, s, qc):
-            out[:, c0:c0 + qc] = _flat_sdpa(q[:, c0:c0 + qc], kf, vf, None, 0.0)
+        out = torch.cat([remat(cfg, _flat_sdpa, q[:, c0:c0 + qc], kf, vf, None, 0.0)
+                         for c0 in range(0, s, qc)], dim=1)
     return out.reshape(b, s, cfg.qkv_dim) @ p["wo"]
 
 

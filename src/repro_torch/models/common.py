@@ -17,9 +17,10 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["ArchConfig", "Params", "Initializer", "rmsnorm", "layernorm", "rope",
-           "softcap"]
+           "softcap", "remat"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +192,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (its activations
+    recomputed in the backward pass) where the reference applies
+    ``jax.checkpoint``: ``cfg.remat`` set and gradients on."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---- initialization --------------------------------------------------------

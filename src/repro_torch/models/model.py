@@ -13,12 +13,23 @@ The port of ``repro.models.model``.  One ``LM`` covers all six families:
 
 ``LM`` is an ``nn.Module`` whose parameter tree carries the reference's
 names (``stacks.<pattern position>.<layer>.attn.wq``, ...); its entry
-points are ``prefill`` (forward returning the per-layer KV/SSM caches),
+points are ``loss_fn`` (next-token cross-entropy streamed over
+``loss_chunk`` + the MoE aux loss, differentiable: the training path),
+``prefill`` (forward returning the per-layer KV/SSM caches),
 ``decode_step`` (one token against the caches) and ``init_caches``
-(zeroed caches).  ``decode_step`` updates the caches IN PLACE and returns
-the same tensors: the reference returns new caches, but a copy of a full
-cache per token (about 25 GB for gemma2-9b at batch 4 and 32k) would cost
-more than the step.  A cache tree passed to ``decode_step`` is therefore
+(zeroed caches).  Where ``cfg.remat`` is set and gradients are on, every
+place the reference wraps in ``jax.checkpoint`` (each layer of a stack,
+the vlm's cross blocks, the hybrid's shared block, each loss chunk; the
+attention q-chunks in ``attention``) runs under
+``torch.utils.checkpoint``, so its activations are recomputed in the
+backward pass.  Parameters are drawn with ``requires_grad=False`` for
+serving; the training path turns gradients on
+(``launch.steps.train_step``).
+
+``decode_step`` updates the caches IN PLACE and returns the same tensors:
+the reference returns new caches, but a copy of a full cache per token
+(about 25 GB for gemma2-9b at batch 4 and 32k) would cost more than the
+step.  A cache tree passed to ``decode_step`` is therefore
 consumed: callers that need the old values copy them first.
 """
 
@@ -34,10 +45,15 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache, QuantKVCache, cross_memory
-from repro_torch.models.common import ArchConfig, Initializer, softcap
+from repro_torch.models.common import ArchConfig, Initializer, remat, softcap
 from repro_torch.models.ssm import SSMCache, conv_dim
 
-__all__ = ["LM", "build_model"]
+__all__ = ["LM", "build_model", "STACKED", "reference_ndims"]
+
+# The parameter-tree keys whose segments the reference stacks along a
+# leading 'layers' axis (``blocks.init_stack``); the port unrolls that axis
+# into ``<key>.<segment>.<layer>``.
+STACKED = ("stacks", "enc_stacks", "cross_stacks")
 
 # The reference's learned decoder positions table (whisper) has this many
 # rows at every config; positions past it clamp to the last row, as
@@ -66,6 +82,13 @@ def _stack_kv(kvs: list[KVCache]) -> KVCache:
 def _layer(caches, i: int):
     """Layer ``i``'s views of a stacked cache (writes go to the stack)."""
     return type(caches)(*(t[i] for t in caches))
+
+
+def reference_ndims(params: dict) -> dict[str, int]:
+    """The ndim of each parameter as a leaf of the reference's tree: one
+    more inside the layer stacks (their leading 'layers' axis).  AdamW's
+    weight-decay rule reads it (``optim.adamw.adamw_update(ndims=...)``)."""
+    return {name: p.ndim + (name.split(".")[0] in STACKED) for name, p in params.items()}
 
 
 class LM(nn.Module):
@@ -140,8 +163,11 @@ class LM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(stack):
             mem = None if memory is None else _layer(memory, i)
-            x, cache, a = B.block_train(layer, x, cfg, kind, window=window, memory=mem,
-                                        collect_cache=collect)
+            if collect:
+                x, cache, a = B.block_train(layer, x, cfg, kind, window=window,
+                                            memory=mem, collect_cache=True)
+            else:  # the reference's scanned body, rematerialised
+                x, a = remat(cfg, self._layer_body, layer, x, kind, window, mem)
             aux = aux + a
             if collect:
                 if caches is None:  # one stacked buffer per leaf, written layer by layer
@@ -150,6 +176,10 @@ class LM(nn.Module):
                 for dst, src in zip(caches, cache):
                     dst[i] = src
         return x, caches, aux
+
+    def _layer_body(self, layer, x, kind: str, window: int, mem):
+        x, _, a = B.block_train(layer, x, self.cfg, kind, window=window, memory=mem)
+        return x, a
 
     def _run_stack_decode(self, stack, x, caches, pos, kind: str, window: int, *,
                           first: int = 0, memory: KVCache | None = None):
@@ -199,7 +229,7 @@ class LM(nn.Module):
                              for cp in self.cross_stacks[0]])
             every = cfg.cross_every
             for g, cp in enumerate(self.cross_stacks[0]):
-                x, _, _ = B.block_train(cp, x, cfg, "cross", memory=_layer(mem, g))
+                x = remat(cfg, self._cross_body, cp, x, _layer(mem, g))
                 x, c, _ = self._run_stack(self.stacks[0][g * every:(g + 1) * every], x,
                                           "dense", 0, collect=collect)
                 if collect:
@@ -210,6 +240,12 @@ class LM(nn.Module):
             raise ValueError(fam)
 
         return B._norm(self.final_norm, x, cfg), caches, aux
+
+    def _cross_body(self, cp, x, mem):
+        return B.block_train(cp, x, self.cfg, "cross", memory=mem)[0]
+
+    def _shared_body(self, x):
+        return B.block_train(self.shared_attn, x, self.cfg, "dense")[0]
 
     def _hybrid_fwd(self, x, collect: bool):
         """zamba2: mamba backbone + shared attn every ``attn_every`` layers."""
@@ -223,9 +259,12 @@ class LM(nn.Module):
             x, c, _ = self._run_stack(stack[g * every:(g + 1) * every], x, "mamba", 0,
                                       collect=collect)
             ssm_parts.append(c)
-            x, kv, _ = B.block_train(self.shared_attn, x, cfg, "dense",
-                                     collect_cache=collect)
-            shared_parts.append(kv)
+            if collect:
+                x, kv, _ = B.block_train(self.shared_attn, x, cfg, "dense",
+                                         collect_cache=True)
+                shared_parts.append(kv)
+            else:  # the shared block sits outside the stack: its own remat
+                x = remat(cfg, self._shared_body, x)
         if cfg.num_layers > n_shared * every:
             x, c, _ = self._run_stack(stack[n_shared * every:], x, "mamba", 0,
                                       collect=collect)
@@ -238,6 +277,51 @@ class LM(nn.Module):
         return x, caches, aux
 
     # ---- public entry points ----------------------------------------------
+
+    def _chunk_nll(self, hc: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+        """Summed next-token NLL of one (B, c) chunk, in float32."""
+        logits = self._logits(hc)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+        return torch.sum(lse - tgt)
+
+    def loss_fn(self, batch: dict[str, torch.Tensor]):
+        """batch: ``tokens`` and ``labels`` (B, S) int (+ ``frames`` /
+        ``vision``) -> (loss, {"nll", "aux"}): the mean next-token
+        cross-entropy, streamed over ``loss_chunk`` positions at a time so
+        that the (B, S, vocab) logits never exist at once, plus 0.01 x the
+        MoE load-balance loss.  Differentiable with respect to the
+        parameters (turn their ``requires_grad`` on)."""
+        cfg = self.cfg
+        h, _, aux = self._backbone(batch, collect=False)
+        labels = batch["labels"]
+        s = h.shape[1]
+        lc = min(cfg.loss_chunk, s)
+        nch = s // lc if s % lc == 0 else 1
+        c = s // nch
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(nch):
+            total = total + remat(cfg, self._chunk_nll, h[:, i * c:(i + 1) * c],
+                                  labels[:, i * c:(i + 1) * c])
+        nll = total / labels.numel()
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+    def bind_params(self, params: dict[str, torch.Tensor]) -> None:
+        """Make the model compute with ``params`` (its parameter names ->
+        tensors, e.g. a restored checkpoint's): each parameter that is not
+        already that tensor's storage becomes a parameter aliasing it, so
+        in-place updates through either are seen by both."""
+        own = dict(self.named_parameters())
+        for name, t in params.items():
+            p = own[name]
+            if p.data_ptr() == t.data_ptr() and p.shape == t.shape and p.dtype == t.dtype:
+                continue
+            if p.shape != t.shape or p.dtype != t.dtype or p.device != t.device:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device} does "
+                                 f"not fit {tuple(p.shape)} {p.dtype} on {p.device}")
+            mod, _, leaf = name.rpartition(".")
+            self.get_submodule(mod)._parameters[leaf] = nn.Parameter(
+                t.detach(), requires_grad=p.requires_grad)
 
     @torch.no_grad()
     def prefill(self, batch: dict[str, torch.Tensor]):

@@ -94,9 +94,16 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, cfg: ArchConfig):
     # Intra-chunk (quadratic, masked):
     # Y[i] += sum_{j<=i} (C_i . B_j) * exp(cum_i - cum_j) * dt_j * x_j
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (B,C,i,j,H)
     mask = torch.tril(torch.ones((kc, kc), dtype=torch.bool, device=xh.device))
-    w_ij = torch.where(mask[None, None, :, :, None], cb[..., None] * decay, 0.0)
+    mask5 = mask[None, None, :, :, None]
+    # The exponent is masked BEFORE the exp: above the diagonal cum_i - cum_j
+    # is positive and overflows to inf once a chunk's decay passes ~88, and
+    # the reference's exp-then-where then back-propagates 0 * inf = NaN
+    # (mamba2-130m at its 256-token chunks).  The forward values are the
+    # reference's; the gradient equals it wherever the reference's is finite.
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,C,i,j,H)
+    decay = torch.exp(torch.where(mask5, diff, -torch.inf))
+    w_ij = torch.where(mask5, cb[..., None] * decay, 0.0)
     y_intra = torch.einsum("bcijh,bcjh,bcjhp->bcihp", w_ij, dtc, xc)
 
     # Chunk end-states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j x_j^T

@@ -1,9 +1,12 @@
-"""Shared harness of the LM parity tests (``tests/test_torch_lm.py`` and
-``tests/test_torch_lm_families.py``): one reduced architecture through the
+"""Shared harness of the LM parity tests (``tests/test_torch_lm.py``,
+``test_torch_lm_families.py``, ``test_torch_train.py`` and
+``test_torch_train_families.py``): one reduced architecture through the
 reference's ``LM`` under ``jax.jit`` and through the port's, from the same
 parameters (``interop.lm_from_arrays``) on the same seeded numpy inputs.
 
-Tolerance: rtol = atol = 1e-4 on float32 logits and cache leaves.  int8 KV
+Tolerance: rtol = atol = 1e-4 on float32 logits and cache leaves; on the
+training path rtol = atol = 1e-5 on the loss and its metrics, and every
+gradient leaf within rtol 1e-4, atol 1e-4 x that reference leaf's max |g|.  int8 KV
 codes are compared exactly except for near-ties, which are counted: a code
 may differ by one where ``x / scale`` lies within float32 rounding of a
 half, and at most ``INT8_NEAR_TIES`` of each leaf's codes may do so
@@ -79,3 +82,76 @@ def check_lm_parity(arch: str, *, b: int = 2, s: int = 64, cache_len: int = 16,
         np.testing.assert_allclose(lg.numpy(), np.asarray(j_lg), rtol=RTOL, atol=ATOL,
                                    err_msg=f"{arch} decode step {t}")
     return ties + assert_caches_close(j_caches, caches, f"{arch} decode")
+
+
+# ---- training: loss and gradients -------------------------------------------
+
+LOSS_TOL = 1e-5  # rtol = atol on the float32 loss
+GRAD_RTOL = 1e-4  # and atol = GRAD_RTOL x the reference leaf's max |g|
+
+
+def train_inputs(cfg, *, b: int, s: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """``lm_inputs`` plus next-token ``labels`` drawn alike."""
+    batch = lm_inputs(cfg, b=b, s=s, seed=seed)
+    batch["labels"] = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    return batch
+
+
+def reference_model(arch: str, *, seed: int = 0, cfgset: dict | None = None):
+    """(reference LM, its parameters as numpy, the port's LM holding them on
+    the CPU with gradients on) at reduced config (+ ``cfgset``)."""
+    import dataclasses
+    jcfg, cfg = j_reduced_config(arch), reduced_config(arch)
+    if cfgset:
+        jcfg, cfg = dataclasses.replace(jcfg, **cfgset), dataclasses.replace(cfg, **cfgset)
+    jm = j_build_model(jcfg)
+    params, _ = jm.init(jax.random.PRNGKey(seed))
+    params = jax.tree.map(np.asarray, params)
+    return jm, params, lm_from_arrays(cfg, params, device="cpu").requires_grad_(True)
+
+
+def port_grads(model, batch) -> tuple[float, dict, dict]:
+    """(loss, metrics, {name: gradient}) of the port's ``loss_fn``."""
+    loss, mets = model.loss_fn({k: torch.as_tensor(np.array(v)) for k, v in batch.items()})
+    names, plist = zip(*model.named_parameters())
+    gs = torch.autograd.grad(loss, plist, allow_unused=True)
+    return float(loss.detach()), {k: float(v.detach()) for k, v in mets.items()}, {
+        n: (torch.zeros_like(p) if g is None else g).numpy()
+        for n, p, g in zip(names, plist, gs)}
+
+
+def assert_grads_close(ref_grads, grads: dict, what: str) -> None:
+    """Every port gradient against the reference tree's leaf (its layer
+    slice for stacked leaves): rtol GRAD_RTOL, atol GRAD_RTOL x that
+    reference leaf's max |g|."""
+    from repro_torch.interop import lm_param_map
+    seen = set()
+    for name, leaf, layer in lm_param_map(ref_grads):
+        leaf = np.asarray(leaf, np.float32)
+        ref = leaf if layer is None else leaf[layer]
+        assert np.isfinite(grads[name]).all(), f"{what} {name}: non-finite gradient"
+        np.testing.assert_allclose(
+            grads[name], ref, rtol=GRAD_RTOL,
+            atol=GRAD_RTOL * float(np.abs(leaf).max()), err_msg=f"{what} grad {name}")
+        seen.add(name)
+    assert seen == grads.keys(), (what, sorted(grads.keys() - seen))
+
+
+def check_train_parity(arch: str, *, b: int = 2, s: int = 64, seed: int = 0,
+                       cfgset: dict | None = None) -> dict:
+    """Loss, its metrics and every gradient leaf, port against reference
+    (``jax.value_and_grad`` under ``jax.jit``) on the same parameters and
+    seeded batch.  Returns the port's metrics."""
+    jm, params, model = reference_model(arch, seed=seed, cfgset=cfgset)
+    batch = train_inputs(model.cfg, b=b, s=s, seed=seed)
+    (j_loss, j_mets), j_grads = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, mets, grads = port_grads(model, batch)
+    np.testing.assert_allclose(loss, float(j_loss), rtol=LOSS_TOL, atol=LOSS_TOL,
+                               err_msg=f"{arch} loss")
+    for k in ("nll", "aux"):
+        np.testing.assert_allclose(mets[k], float(j_mets[k]), rtol=LOSS_TOL,
+                                   atol=LOSS_TOL, err_msg=f"{arch} {k}")
+    assert_grads_close(jax.tree.map(np.asarray, j_grads), grads, arch)
+    return mets

@@ -421,9 +421,14 @@ def test_scheduler_retry_absorbs_step_error_as_reference(graph_idx, pgraph, cont
 
 def test_slo_helpers_equal_reference():
     for a in np.linspace(0.0, 1.0, 11):
-        for lo, hi in ((1.0, 6.0), (2.0, 2.0)):
-            assert t_ann.slo_effort(float(a), lo, hi) == j_ann.slo_effort(float(a), lo, hi)
-            assert t_ann.SLOPolicy(lo, hi).dial(float(a)) == j_ann.SLOPolicy(lo, hi).dial(float(a))
+        for lo, hi in ((1.0, 6.0), (2.0, 2.0), (1.0184196797266707, 5.887391270249595)):
+            # the port equals the reference wherever the reference's value
+            # lies inside [lo, hi], and is clamped to the band elsewhere
+            for got, ref in ((t_ann.slo_effort(float(a), lo, hi),
+                              j_ann.slo_effort(float(a), lo, hi)),
+                             (t_ann.SLOPolicy(lo, hi).dial(float(a)),
+                              j_ann.SLOPolicy(lo, hi).dial(float(a)))):
+                assert got == min(max(ref, lo), hi)
     lo, hi, prev = 1.0, 6.0, None
     for sig in np.linspace(0.0, 1.0, 21):
         e = t_ann.slo_effort(float(sig), lo, hi)
@@ -433,6 +438,16 @@ def test_slo_helpers_equal_reference():
         t_ann.slo_effort(0.5, 4.0, 2.0)
     with pytest.raises(ValueError):
         t_ann.SLOPolicy(1.0, 2.0, stall_waves=0)
+
+
+def test_slo_effort_stays_in_band_where_reference_rounds_past_hi():
+    """The reference's ``lo + (hi - lo) * s`` rounds one ulp above ``hi``
+    here (hypothesis found it for the reference's own property test); the
+    port clamps it to ``hi``."""
+    lo, hi = 1.0184196797266707, 5.887391270249595
+    assert j_ann.slo_effort(1.0, lo, hi) > hi
+    assert t_ann.slo_effort(1.0, lo, hi) == hi
+    assert t_ann.slo_effort(0.0, lo, hi) == lo == j_ann.slo_effort(0.0, lo, hi)
 
 
 def test_slo_signal_and_parse_edge_cases():

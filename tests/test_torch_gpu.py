@@ -6,13 +6,17 @@ repeatability of an IVF build there, the continuous engines against each
 query's solo search (the walk kernel and the plain walk for the graph, the
 fused scan for IVF), the sharded walk (its sliced-slab launches against
 the plain version, a two-rank gloo engine against the host-simulated walk),
-the tracer's fence and every LM family's prefill and decode on the card
-against the same seeded model on the CPU (needs no JAX, so it runs where only the port is
-installed).
+the tracer's fence, every LM family's prefill and decode and its train
+step (loss, gradients, one AdamW step) on the card against the same
+seeded model on the CPU, a bf16 train state's checkpoint, and a restarted
+``launch.train`` run against an uninterrupted one (needs no JAX, so it
+runs where only the port is installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
 false, since a CUDA kernel has no CPU mode.  On the card:
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+
+import dataclasses
 
 import pytest
 
@@ -660,3 +664,112 @@ def test_cuda_bf16_attention_matches_cpu(name):
     got = fn(q.cuda(), k.cuda(), v.cuda(), mask.cuda(), 50.0)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_train_step_matches_cpu(arch, monkeypatch):
+    """The same seeded reduced model on the CPU and moved to the card: the
+    train step's loss and every gradient leaf (``train_grads``, its
+    grad_accum microbatches included), then every parameter after one
+    AdamW step at lr 3e-5 (a near-zero gradient whose sign the devices
+    round apart moves a parameter by at most 2 x lr), within 1e-4."""
+    import copy
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import train_grads, train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card half of the comparison")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = reduced_config(arch)
+    cpu = build_model(cfg, seed=1, device="cpu").requires_grad_(True)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, batch=4, seq=64, seed=2).batch_at(0)
+    g = torch.Generator().manual_seed(3)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((4, cfg.vision_seq, cfg.vision_dim), generator=g)
+    lc, _, gc = train_grads(cpu, batch)
+    lg, _, gg = train_grads(card, batch)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for k in gc:
+        torch.testing.assert_close(gg[k].cpu(), gc[k], rtol=1e-4, atol=1e-4, msg=k)
+    opt = AdamWConfig(lr=3e-5, warmup_steps=1, total_steps=10)
+    pc, pg = dict(cpu.named_parameters()), dict(card.named_parameters())
+    train_step(cpu, opt, pc, adamw_init(pc), batch)
+    train_step(card, opt, pg, adamw_init(pg), batch)
+    for k in pc:
+        torch.testing.assert_close(pg[k].detach().cpu(), pc[k].detach(), rtol=1e-4,
+                                   atol=1e-4, msg=k)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_train_state_checkpoint_roundtrip(tmp_path):
+    """A bf16 model's parameters and float32 moments saved from the card and
+    restored onto it, every leaf equal bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = dataclasses.replace(reduced_config("gemma-2b"), dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = dict(model.named_parameters())
+    state = (params, adamw_init(params), None)
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(3, state)
+    mgr.wait()
+    out = mgr.restore(3, state)
+    for k, p in params.items():
+        assert out[0][k].device.type == "cuda" and out[0][k].dtype == torch.bfloat16
+        assert torch.equal(out[0][k], p), k
+    assert int(out[1]["step"]) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_train_cli_restart_equals_uninterrupted_run(tmp_path):
+    """``launch.train --reduced --device cuda --deterministic`` with a
+    failure after the first checkpoint ends equal, bit for bit, to the
+    uninterrupted run."""
+    from repro_torch.launch import train
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base = ["--arch", "mamba2-130m", "--reduced", "--steps", "12", "--batch", "4",
+            "--seq", "64", "--lr", "3e-3", "--ckpt-every", "5", "--deterministic"]
+    try:
+        state, info = train.main(base + ["--fail-at", "7", "--ckpt-dir", str(tmp_path / "a")])
+        ref, _ = train.main(base + ["--ckpt-dir", str(tmp_path / "b")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert info["restarts"] == 1
+    for k in ref[0]:
+        assert torch.equal(state[0][k], ref[0][k]), k
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_attention_backward_matches_cpu():
+    """The backward of the card's bf16 float32-output products
+    (``attention._BmmF32``, whose products round the cotangent to bf16)
+    against the CPU's widened float32 products, to about a bf16 step of
+    each gradient's scale."""
+    from repro_torch.models import attention
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card half of the comparison")
+    g = torch.Generator().manual_seed(6)
+    b, sq, skv, h, dh = 2, 16, 32, 4, 64
+    q, k, v = ((torch.randn(shape, generator=g) * 2).bfloat16()
+               for shape in ((b, sq, h, dh), (b, skv, h, dh), (b, skv, h, dh)))
+    mask = torch.ones((sq, skv), dtype=torch.bool).tril(skv - sq)
+    w = torch.randn((b, sq, h, dh), generator=g)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        out = attention._flat_sdpa(*leaves, mask.to(dev), 50.0)
+        grads.append(torch.autograd.grad((out.float() * w.to(dev)).sum(), leaves))
+    for want, got in zip(*grads):
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)

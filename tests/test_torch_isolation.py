@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the reference package, its entry points
-run on the card unless asked for the CPU, and the kernel wrappers pick
-their path by the device of their tensors."""
+``chip_smoke.py`` imports JAX, the reference package or ``ml_dtypes``
+(the card's machine has none), its entry points run on the card unless
+asked for the CPU, and the kernel wrappers pick their path by the device
+of their tensors."""
 
 import ast
 import inspect
@@ -31,7 +32,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.annservice import (  # noqa: E402
     build_graph_engine, sharded_graph_engine)
 from repro_torch.configs import reduced_config  # noqa: E402
-from repro_torch.interop import lm_from_arrays  # noqa: E402
+from repro_torch.interop import adamw_state_from_arrays, lm_from_arrays  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
@@ -52,7 +54,13 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path} imports {mod}"
+
+
+def test_training_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/optim/adamw.py", "src/repro_torch/runtime/fault_tolerance.py",
+            "src/repro_torch/launch/train.py"} <= names
 
 
 def test_import_leaves_jax_out():
@@ -64,8 +72,10 @@ def test_import_leaves_jax_out():
             "repro_torch.launch.annservice, repro_torch.index.mutable, "
             "repro_torch.checkpoint.manager, repro_torch.checkpoint.index_io, "
             "repro_torch.checkpoint.wal, repro_torch.core.dco_host, repro_torch.configs, "
-            "repro_torch.models.model, repro_torch.launch.specs, repro_torch.launch.steps; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "repro_torch.models.model, repro_torch.launch.specs, repro_torch.launch.steps, "
+            "repro_torch.optim.adamw, repro_torch.runtime.fault_tolerance, "
+            "repro_torch.launch.train, repro_torch.data.pipeline; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -111,6 +121,8 @@ ENTRY_POINTS = [
     (build_model, lambda d: build_model(reduced_config("gemma2-9b"))),
     (build_cell, lambda d: build_cell("gemma2-9b", "decode_32k")),
     (lm_from_arrays, lambda d: lm_from_arrays(reduced_config("gemma2-9b"), {})),
+    (adamw_state_from_arrays, lambda d: adamw_state_from_arrays(
+        reduced_config("gemma2-9b"), {"m": {}, "v": {}, "step": 0})),
 ]
 
 
@@ -122,6 +134,15 @@ def test_entry_points_default_to_cuda(fn, call):
     data = np.random.default_rng(0).standard_normal((64, 32)).astype(np.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         call(data)
+
+
+def test_train_defaults_to_cuda(tmp_path):
+    assert train.parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_cell("gemma-2b", "train_4k")
 
 
 def test_serve_defaults_to_cuda():
