@@ -46,7 +46,7 @@ on any fault.  Phases, one line each:
      timed beside its bound and the plain walk, and every wave of the search
      through the one-wave kernel (the route it replaced) for comparison;
   8. graph serve: ``serve --index graph`` on the same graph, 200 requests
-     (about 250 batches) served 3 times, one walk launch per batch;
+     (about 250 batches) served twice, one walk launch per batch;
   9. flat screen parity: dade_dco, quant_dco and l2_scan against their
      plain versions on awkward cases (D 64/200/384/256 at Δd 32/64/128/64,
      ragged N and Q, bf16 inputs, r² = 0, 1e30 and inf, DADE, ADSampling
@@ -139,7 +139,7 @@ on any fault.  Phases, one line each:
      kernel): (a) ``gemma2-9b`` at full width and depth in bf16 from the
      port's seeded initializer through ``launch.steps.build_cell``: a
      prefill of 4 x 8,192 tokens (cut from ``prefill_32k``'s 32 x 32,768),
-     the median of 3 timed runs after a warm one, and 16 decode steps after
+     the median of 2 timed runs after a warm one, and 16 decode steps after
      2 warm ones at batch 4 against ``decode_32k``'s 32,768-token caches
      (batch cut from 128), each beside its bound, with the peak memory;
      (b) the same model in float32 with its window cut to 16: the
@@ -157,7 +157,7 @@ on any fault.  Phases, one line each:
      depth in bf16 with remat through ``build_cell("gemma-2b", "train_4k")``
      on ``TokenPipeline`` batches of train_4k's 4,096 tokens, the batch cut
      from 256 to 4 (``grad_accum`` 2: two microbatches of 2): one warm-up
-     step, the median of 4 timed steps beside the FLOP bound
+     step, the median of 2 timed steps beside the FLOP bound
      (``lm_train_flops``), tokens/s, peak memory, and one profiled step's
      busy share and device time by op; every loss and grad_norm finite, the
      last loss below the first; (b) float32 identities, each beside a
@@ -174,6 +174,33 @@ on any fault.  Phases, one line each:
      27, under ``--deterministic``; one restart, the loss improves, and
      the step-40 checkpoint equals an uninterrupted run's bit for bit
      (every leaf's sha256: parameters, both moments, the step).
+ 18. multi-device LM training (``launch.steps.DataParallel``: each rank
+     holds its pieces of the parameters and AdamW moments, gathers the
+     parameters, takes its rows of every microbatch and sums the gradients
+     over the ranks; ``compressed_grad_allreduce``; plain PyTorch, no
+     hand-written kernel): two ranks share the card over gloo (every
+     collective staged through the host: the protocol, not NVLink); (c)'s
+     trainer starts beside phase 17(b)-(c) and runs on beside (b), then (a)
+     is timed alone on the card.  (a)
+     ``mamba2-130m`` at full width and depth through ``build_cell``'s
+     2-rank train step on 8 x 128 tokens, plain and with
+     ``--grad-compress``: ms a step (median of 2 after a warm one) beside
+     phase 17(c)'s one-process trainer, the bytes each collective kind
+     carried and its share of the step, each rank's peak memory beside
+     ``spec_bytes`` of its state; (b) float32 identities beside planted
+     faults: the 2-rank step against the one-process step (loss, aux, every
+     gradient leaf, the parameters after one step; rtol 2e-3, atol 2e-4) on
+     mamba2-130m at full width cut to 2 layers and on every reduced
+     architecture (MoE at grad_accum 2), with the summed gradients not
+     divided by 2 and a MoE aux from rank-local counts failing it; the
+     compressed all-reduce equal bit for bit on both ranks with ``mean +
+     new_e`` equal to ``g + e`` within 1e-5; (c) ``python -m
+     repro_torch.launch.train --devices 2 --grad-compress --dist-backend
+     gloo --deterministic`` at full width, 20 steps, checkpoints every 10,
+     a failure at 13: one restart, the loss falls; its step-20 checkpoint
+     restored in one process (``elastic_restore``), every leaf's sha256
+     equal to the 2-rank leaves', written again by that process and
+     restored onto the two ranks, the gathered leaves' sha256 the same.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -240,7 +267,7 @@ PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 # requests, for the spread).
 FLAT_REQUESTS = 40
 GRAPH_REQUESTS = 200
-SERVE_RUNS = 3
+SERVE_RUNS = 2
 # Phase 7's graph (and so phases 8, 12, 14's snapshots and 15's): cut from
 # serve's default of 32,768 nodes so that the script stays well inside its
 # time limit: the host-side NSW build inserts one node at a time and took
@@ -276,7 +303,7 @@ SNAPSHOT_REQUESTS = 4
 # then checked against its solo walk).  The flat route over ranks serves
 # phase 4's FLAT_REQUESTS.
 SHARDED_COUNTS = (1, 2, 4)
-SHARDED_REPS = 3
+SHARDED_REPS = 2
 SHARDED_REQUESTS = 4
 SHARDED_CONT_BATCH = 64
 # Phase 16: LM serving at full width.  gemma2-9b (bf16) prefills
@@ -293,7 +320,7 @@ SHARDED_CONT_BATCH = 64
 # short (a wrong window) must exceed it.  (c): the card against the CPU,
 # float32 with TF32 off.
 LM_ARCH = "gemma2-9b"
-LM_PREFILL_BATCH, LM_PREFILL_SEQ, LM_PREFILL_RUNS = 4, 8192, 3
+LM_PREFILL_BATCH, LM_PREFILL_SEQ, LM_PREFILL_RUNS = 4, 8192, 2
 LM_DECODE_BATCH, LM_DECODE_WARM, LM_DECODE_STEPS = 4, 2, 16
 LM_CHECK_SEQ, LM_CHECK_WINDOW, LM_CHECK_TOL = 64, 16, 1e-3
 LM_CARD_TOL = 1e-4
@@ -309,7 +336,7 @@ LM_CARD_TOL = 1e-4
 # two devices may round apart, then moves a parameter by at most 2 x lr,
 # inside the tolerance).  (c) the trainer drill's arguments.
 TRAIN_ARCH = "gemma-2b"
-TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 4, 1, 4
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 4, 1, 2
 # (a)'s learning rate, reached at the first step: Adam moves every one of
 # the 2.5 B weights by about lr on its first steps, and at the trainer's
 # 3e-4 that overshoots (the loss rose 10.70 -> 14.05 over three steps on
@@ -322,6 +349,23 @@ TRAIN_CARD_TOL, TRAIN_CARD_LR = 1e-4, 3e-5
 DRILL_ARGS = ["--arch", "mamba2-130m", "--steps", "40", "--batch", "8", "--seq", "128",
               "--ckpt-every", "20", "--deterministic"]
 DRILL_FAIL_AT = 27
+# Phase 18: multi-device training.  DP_RANKS gloo ranks on the card; (a)
+# the reference trainer's default model at full width, DP_BATCH x DP_SEQ
+# tokens (its default batch), DP_WARM warm-up and DP_STEPS timed steps of
+# each of the plain and the compressed step at DP_LR; (b) the identities at
+# phase 17(b)'s grad-accumulation tolerance, the full-width model cut to
+# DP_CHECK_LAYERS layers, one AdamW step at TRAIN_CARD_LR; the compressed
+# all-reduce's reconstruction gate DP_RECON_TOL (the reference's); (c) the
+# trainer drill's arguments.
+DP_ARCH, DP_RANKS = "mamba2-130m", 2
+DP_BATCH, DP_SEQ, DP_WARM, DP_STEPS, DP_LR = 8, 128, 1, 2, 3e-4
+DP_CHECK_LAYERS = 2
+DP_RECON_TOL = 1e-5
+DP_DRILL_ARGS = ["--arch", DP_ARCH, "--devices", str(DP_RANKS), "--grad-compress",
+                 "--dist-backend", "gloo", "--deterministic", "--steps", "20",
+                 "--batch", str(DP_BATCH), "--seq", str(DP_SEQ), "--ckpt-every", "10",
+                 "--fail-at", "13"]
+DP_DRILL_STEP = 20
 # Published dense bf16 peak of one H100 SXM (NVIDIA data sheet), at 700 W.
 PEAK_BF16_FLOPS = 989e12
 
@@ -2369,7 +2413,7 @@ def lm_card_against_cpu(arch: str) -> tuple[float, int]:
     worst, ties = lm_caches_close(cc, cg, rtol=LM_CARD_TOL, atol=LM_CARD_TOL,
                                   what=f"lm (c) {arch} prefill")
     close(lc, lg, "prefill logits")
-    cc, cg = cpu.init_caches(b, 16), card.init_caches(b, 16)
+    (cc, _), (cg, _) = cpu.init_caches(b, 16), card.init_caches(b, 16)
     for t in range(4):
         tok = batch["tokens"][:, t:t + 1]
         lc, cc = cpu.decode_step(tok, cc, t)
@@ -2437,7 +2481,7 @@ def run_lm(card: str) -> None:
 
     spec = SHAPES["decode_32k"]
     db = LM_DECODE_BATCH
-    caches = cell.model.init_caches(db, spec.seq)
+    caches, _ = cell.model.init_caches(db, spec.seq)
     cache_bytes = sum(t.numel() * t.element_size() for c in caches.values() for t in c)
     n_steps = LM_DECODE_WARM + LM_DECODE_STEPS
     positions = torch.arange(spec.seq - n_steps, spec.seq, device=DEV)
@@ -2483,7 +2527,7 @@ def run_lm(card: str) -> None:
     n = LM_CHECK_SEQ
     toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=DEV)
     p_logits, _ = cell.step_fn({"tokens": toks})
-    caches = model.init_caches(1, n)
+    caches, _ = model.init_caches(1, n)
     check(caches["kv0"].k.shape[2] == LM_CHECK_WINDOW and caches["kv1"].k.shape[2] == n,
           "lm (b): the windowed layers' ring is not the window's length")
     v = cfg.vocab_size
@@ -2500,7 +2544,7 @@ def run_lm(card: str) -> None:
     check(bool(torch.isfinite(p_l).all()) and ok,
           f"lm (b): decode and prefill logits differ by {err:.3e}")
     # the planted fault: the windowed layers' rings one slot short
-    short = model.init_caches(1, n)
+    short, _ = model.init_caches(1, n)
     short["kv0"] = type(short["kv0"])(*(torch.zeros_like(t[:, :, 1:]) for t in short["kv0"]))
     fault_err, fault_ok = decode_err(short)
     check(not fault_ok, f"lm (b): a decode with a {LM_CHECK_WINDOW - 1}-slot window passes "
@@ -2656,9 +2700,24 @@ def train_identities(first: dict, b: int, s: int) -> None:
     torch.cuda.empty_cache()
 
 
-def run_train(card: str) -> None:
+def start_dp_drill(tmp: str) -> subprocess.Popen:
+    """Phase 18(c)'s trainer drill, started beside phase 17(b)-(c) (which
+    are not timed) so that the script stays inside its limit; its
+    checkpoints go under ``tmp/drill``.  (Phase 18's ranks start later:
+    started here too, their (b) slowed 17(b)-(c) and the drill by more
+    than it saved.)"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *DP_DRILL_ARGS,
+         "--ckpt-dir", os.path.join(tmp, "drill")], env=env, cwd=tmp,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_train(card: str, dp_tmp: str, started: list) -> tuple:
     """Phase 17: LM training on the card (no hand-written kernel on this
-    path)."""
+    path).  Starts phase 18's drill once 17(a) is timed, appending it to
+    ``started`` (the caller stops it).  Returns (the uninterrupted
+    trainer's p50 a step (17(c)), the drill's start)."""
     import gc
     import re
     import tempfile
@@ -2734,7 +2793,9 @@ def run_train(card: str) -> None:
     torch.cuda.empty_cache()
 
     # (c) the trainer drill's two runs start here and load while (b) runs
-    # (only (a) is timed)
+    # (only (a) is timed); so does phase 18's drill
+    t_dp = time.perf_counter()
+    started.append(start_dp_drill(dp_tmp))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -2765,11 +2826,321 @@ def run_train(card: str) -> None:
         p50 = {n: re.search(r"p50=(\S+)", o).group(1) for n, o in outs.items()}
     log(f"train (c): launch.train --arch mamba2-130m (full width) 40 steps of 8 x 128, "
         f"a failure at step {DRILL_FAIL_AT}: restarts=1, {loss_line}, p50 {p50['drill']} "
-        f"a step ({p50['clean']} uninterrupted; the two runs share the card); its step-40 "
+        f"a step ({p50['clean']} uninterrupted; the two runs share the card with phase 18's "
+        f"drill); its step-40 "
         f"checkpoint equals the uninterrupted run's bit for bit "
         f"({len(trees['drill']['leaves'])} leaves' sha256, --deterministic); (b) and (c) "
         f"{time.perf_counter() - t0:.1f}s")
     log(f"phase 17 took {time.perf_counter() - t_start:.0f}s on {card}")
+    return p50["clean"], t_dp
+
+
+def _dp_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """A seeded global batch (``TokenPipeline``, + the stub modality inputs)."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, batch=b, seq=s, seed=seed).batch_at(0)
+    g = torch.Generator().manual_seed(seed + 1)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["vision"] = torch.randn((b, cfg.vision_seq, cfg.vision_dim), generator=g)
+    return batch
+
+
+def _dp_identity(model, cfg_name: str, dp, batch, opt) -> dict:
+    """Phase 18(b) for one model: the 2-rank step against the one-process
+    step on the same card (loss, aux, every gradient leaf, the parameters
+    after one AdamW step), and the planted fault of undivided gradients.
+    Returns the largest deviations."""
+    import torch
+    from repro_torch.launch.steps import train_grads, train_step
+    from repro_torch.optim.adamw import adamw_init
+
+    def close(x, y):
+        return torch.allclose(x, y, rtol=TRAIN_ACCUM_RTOL, atol=TRAIN_ACCUM_ATOL)
+
+    l_dp, m_dp, g_dp = train_grads(model, batch, dp)
+    l_one, m_one, g_one = train_grads(model, batch)
+    err = {"loss": abs(float(l_dp) - float(l_one)), "aux": abs(float(m_dp["aux"])
+                                                               - float(m_one["aux"]))}
+    check(close(l_dp, l_one) and close(m_dp["aux"], m_one["aux"]),
+          f"dp (b) {cfg_name}: loss or aux differ: {err}")
+    bad = [k for k in g_one if not close(g_dp[k], g_one[k].float())]
+    err["grad"] = max((g_dp[k] - g_one[k].float()).abs().max().item() for k in g_one)
+    check(not bad, f"dp (b) {cfg_name}: gradients differ ({bad[:3]}, max {err['grad']:.3e})")
+    undivided = [k for k in g_one if not close(g_dp[k] * dp.size, g_one[k].float())]
+    check(bool(undivided), f"dp (b) {cfg_name}: gradients summed, not divided by "
+                           f"{dp.size}, pass the check")
+    err["fault"] = max((g_dp[k] * dp.size - g_one[k].float()).abs().max().item() for k in g_one)
+    del g_dp, g_one
+    local = dp.local_params(model)
+    one = {k: v.detach().clone() for k, v in model.named_parameters()}
+    own = dict(model.named_parameters())
+    local, _, _ = train_step(model, opt, local, adamw_init(local), batch, dp=dp)
+    full = {k: gather(v, dp.shardings[k]) for k, v in local.items()}
+    train_step(model, opt, one, adamw_init(one), batch)
+    model.bind_params(own)  # the model computes with its own tensors again
+    bad = [k for k in one if not close(full[k].float(), one[k].float())]
+    err["param"] = max((full[k].float() - one[k].float()).abs().max().item() for k in one)
+    check(not bad, f"dp (b) {cfg_name}: parameters after a step differ ({bad[:3]})")
+    return err
+
+
+def gather(x, sh):
+    from repro_torch.distributed.collectives import gather_sharded
+    return gather_sharded(x, sh.spec, sh.mesh)
+
+
+def dp_train_rank(rank, world, dev, tmp):
+    """Phase 18 on one rank (spawned; the card shared over gloo): (b) the
+    identities, beside the parent's trainer drill; once the drill is done
+    and the parent has written ``tmp/one`` (marker ``tmp/one_ready``), (a)
+    the timed steps, alone on the card, then (c)'s restore of that
+    one-process checkpoint onto the ranks.  Returns what the parent logs."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager, to_host
+    from repro_torch.configs import LM_ARCHS, get_config, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import spec_bytes, tree_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import DataParallel, build_cell, compress_grads, train_grads
+    from repro_torch.models.common import DataShare
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(world, 1)
+    out = {"device": str(dev)}
+
+    # (b) the identities: mamba2-130m at full width, DP_CHECK_LAYERS layers, float32
+    opt = AdamWConfig(lr=TRAIN_CARD_LR, warmup_steps=1, total_steps=10)
+    cfg = dataclasses.replace(get_config(DP_ARCH), num_layers=DP_CHECK_LAYERS, dtype="float32")
+    model = build_model(cfg, device=dev).requires_grad_(True)
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
+                                           mesh))
+    batch = _dp_batch(cfg, DP_BATCH, DP_SEQ, seed=5)
+    errs = {f"{DP_ARCH} x{DP_CHECK_LAYERS}": _dp_identity(model, DP_ARCH, dp, batch, opt)}
+    # the compressed all-reduce: identical on every rank, mean + new_e = g + e
+    _, _, g = train_grads(model, batch, dp)
+    e = {k: torch.zeros_like(v) for k, v in g.items()}
+    recon = 0.0
+    digests = []
+    for _ in range(2):  # from a zero error buffer, then from the residual it left
+        mean, new_e = compress_grads(g, e, dp.stripes)
+        recon = max(recon, max((mean[k] + new_e[k] - (g[k] + e[k])).abs().max().item()
+                               for k in g))
+        digests.append(hashlib.sha256(b"".join(to_host(mean[k]).tobytes()
+                                               for k in sorted(mean))).hexdigest())
+        e = new_e
+    check(recon <= DP_RECON_TOL, f"dp (b): mean + new_e misses g + e by {recon:.3e}")
+    seen = [None] * world
+    dist.all_gather_object(seen, digests)
+    check(all(d == seen[0] for d in seen), "dp (b): the ranks' compressed gradients differ")
+    out["recon"], out["gmax"] = recon, max(v.abs().max().item() for v in g.values())
+    del model, dp, g, e, mean, new_e
+    torch.cuda.empty_cache()
+    for arch in LM_ARCHS:
+        cfg = reduced_config(arch)
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, grad_accum=2)
+        model = build_model(cfg, seed=1, device=dev).requires_grad_(True)
+        dp = DataParallel(mesh, tree_shardings(model.param_axes(),
+                                               dict(model.named_parameters()), mesh))
+        batch = _dp_batch(cfg, DP_BATCH, 64, seed=2)
+        errs[arch] = _dp_identity(model, arch, dp, batch, opt)
+        if cfg.family == "moe" and "aux_fault" not in out:
+            # the planted fault: each rank's aux from its own counts
+            _, m_one, _ = train_grads(model, batch)
+            dp.share = DataShare(dp.size, lambda t: t)
+            _, m_bad, _ = train_grads(model, batch, dp)
+            fault = abs(float(m_bad["aux"]) - float(m_one["aux"]))
+            check(not torch.allclose(m_bad["aux"], m_one["aux"], rtol=TRAIN_ACCUM_RTOL,
+                                     atol=TRAIN_ACCUM_ATOL),
+                  f"dp (b) {arch}: an aux from rank-local counts passes the check")
+            out["aux_fault"] = (arch, fault)
+        del model, dp
+    out["errs"] = errs
+
+    # the trainer drill runs beside (b); (a) is timed once it is done and
+    # the parent has written its one-process checkpoint
+    deadline = time.monotonic() + 600
+    while not (Path(tmp) / "one_ready").exists():
+        check(time.monotonic() < deadline, "dp (c): the one-process checkpoint never came")
+        time.sleep(0.5)
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (a) the full-width model, plain then --grad-compress
+    n = DP_WARM + DP_STEPS
+    cell = build_cell(DP_ARCH, "train_4k", mesh=mesh, device=dev,
+                      opt=AdamWConfig(lr=DP_LR, warmup_steps=1, total_steps=2 * n))
+    model, dp = cell.model, cell.data_parallel
+    cfg = model.cfg
+    full = dict(model.named_parameters())
+    out["params"] = sum(p.numel() for p in full.values())
+    out["dtype"] = str(cfg.param_dtype).replace("torch.", "")
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=DP_BATCH, seq=DP_SEQ, seed=0)
+    for mode in ("plain", "compress"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = dp.local_params(model)
+        opt_state = adamw_init(params)
+        ebuf = ({k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                 for k, p in full.items()} if mode == "compress" else None)
+        state_bytes = sum(spec_bytes(p, dp.shardings[k].spec, mesh) for k, p in full.items()) \
+            + 2 * sum(spec_bytes(torch.empty(p.shape, device="meta"), dp.shardings[k].spec, mesh)
+                      for k, p in full.items()) \
+            + (0 if ebuf is None else sum(e.numel() * 4 for e in ebuf.values()))
+        times, losses, shares, kinds = [], [], [], []
+        for i in range(n):
+            batch = pipe.batch_at(i)
+            dp.reset()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt_state, mets = cell.step_fn(params, opt_state, batch, ebuf=ebuf)
+            torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            losses.append(float(mets["loss"]))
+            if i >= DP_WARM:
+                times.append(dt)
+                shares.append(sum(dp.seconds.values()) / dt)
+                kinds.append((dict(dp.bytes), dict(dp.seconds)))
+        check(all(map(math.isfinite, losses)), f"dp (a) {mode}: a loss is not finite: {losses}")
+        out[mode] = dict(ms=[t * 1e3 for t in times], losses=losses, share=shares,
+                         kinds=kinds[len(kinds) // 2], peak=torch.cuda.max_memory_allocated(dev),
+                         state_bytes=state_bytes)
+        del params, opt_state, ebuf
+    del cell, model, dp, full
+    torch.cuda.empty_cache()
+
+    # (c) the parent's one-process checkpoint, restored onto the ranks
+    model = build_model(get_config(DP_ARCH), device=dev)
+    full = dict(model.named_parameters())
+    ebuf = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in full.items()}
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), full, mesh))
+    params = dp.local_params(model)
+    shardings = dp.state_shardings(model, ebuf)
+    t0 = time.perf_counter()
+    state = CheckpointManager(str(Path(tmp) / "one"), async_save=False).restore(
+        DP_DRILL_STEP, (params, adamw_init(params), ebuf), shardings=shardings)
+    out["restore_s"] = time.perf_counter() - t0
+    # written again from the ranks' pieces (gathered; rank 0 writes): the
+    # parent holds its leaves' sha256 against the one-process checkpoint's
+    CheckpointManager(str(Path(tmp) / "two"), async_save=False).save(
+        DP_DRILL_STEP, state, shardings=shardings)
+    out["piece_shapes"] = {k: tuple(state[0][k].shape) for k in ("tok_embed",)}
+    return out
+
+
+def run_train_dp(card: str, one_process_p50: str, drill, t_drill: float, tmp: str) -> None:
+    """Phase 18: multi-device LM training, two ranks sharing the card over
+    gloo (no hand-written kernel on this path).  The trainer ``drill`` (c),
+    started at ``t_drill`` beside phase 17(b)-(c) with its checkpoints under
+    ``tmp``, runs on beside the ranks' (b); once it is done and its
+    checkpoint restored here, the ranks time (a), alone on the card, then
+    restore this process's checkpoint (c)."""
+    import gc
+    import hashlib
+    import re
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.fault_tolerance import elastic_restore
+
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb = 1e6
+    procs = spawn(dp_train_rank, DP_RANKS, backend="gloo", args=(tmp,), device=DEV,
+                  init_file=os.path.join(tmp, "init"))
+    try:
+        drill_out = drill.communicate(timeout=600)[0]
+        drill_s = time.perf_counter() - t_drill
+        check(drill.returncode == 0, f"dp (c): the drill failed (rc {drill.returncode}): "
+                                     f"{drill_out[-2000:]}")
+        restarts = int(re.search(r"restarts=(\d+)", drill_out).group(1))
+        check(restarts == 1, f"dp (c): restarts={restarts}")
+        # the step-20 checkpoint the two ranks wrote, restored in one process
+        t0 = time.perf_counter()
+        model = build_model(get_config(DP_ARCH), device=DEV)
+        full = {k: v.detach() for k, v in model.named_parameters()}
+        zeros = {k: torch.zeros(v.shape, dtype=torch.float32, device=DEV)
+                 for k, v in full.items()}
+        two = CheckpointManager(os.path.join(tmp, "drill"))
+        state = elastic_restore(two, DP_DRILL_STEP, (full, adamw_init(full), zeros), None)
+        one_s = time.perf_counter() - t0
+        CheckpointManager(os.path.join(tmp, "one"), async_save=False).save(
+            DP_DRILL_STEP, state)
+        del model, full, zeros, state
+        torch.cuda.empty_cache()
+        (Path(tmp) / "one_ready").touch()
+        out = procs.join(timeout_s=900)
+    finally:
+        procs.terminate()
+
+    def shas(d):
+        meta = json.loads((Path(tmp) / d / f"step_{DP_DRILL_STEP:09d}" / "tree.json")
+                          .read_text())
+        return [leaf["sha256"] for leaf in meta["leaves"]]
+
+    drill_sha, one_sha, two_sha = shas("drill"), shas("one"), shas("two")
+    check(one_sha == drill_sha, "dp (c): the one-process restore of the 2-rank "
+                                "checkpoint differs from its leaves")
+    check(two_sha == one_sha, "dp (c): the 2-rank restore of the one-process "
+                              "checkpoint differs from its leaves")
+    digest = hashlib.sha256("".join(drill_sha).encode()).hexdigest()[:12]
+    r0 = out[0]
+    log(f"dp: {DP_RANKS} ranks on {r0['device']} over gloo (host-staged; the protocol, not "
+        f"NVLink): {DP_ARCH} {r0['dtype']} at full width, {r0['params']:,} parameters, "
+        f"{DP_BATCH} x {DP_SEQ} tokens a step, lr {DP_LR}")
+    for mode in ("plain", "compress"):
+        for r in sorted(out):
+            a = out[r][mode]
+            step_ms = statistics.median(a["ms"])
+            b, sec = a["kinds"]
+            kinds = ", ".join(f"{k} {b[k] / mb:.1f} MB {sec[k] * 1e3:.1f} ms" for k in sorted(b))
+            log(f"dp (a) {mode} rank {r}: {step_ms:.1f} ms a step (median of {DP_STEPS} after "
+                f"{DP_WARM} warm-up: {', '.join(f'{t:.1f}' for t in a['ms'])} ms; phase 17(c)'s "
+                f"one-process trainer at 8 x 128: p50 {one_process_p50} in this run beside "
+                f"this phase's drill); "
+                f"collectives {100 * statistics.median(a['share']):.1f} % of the step "
+                f"(the median step's: {kinds}); peak memory {a['peak'] / 1e9:.2f} GB "
+                f"(spec_bytes of its state {a['state_bytes'] / 1e9:.3f} GB); loss "
+                f"{', '.join(f'{x:.4f}' for x in a['losses'])}; on {card}")
+    errs = r0["errs"]
+    worst = {k: max(v["grad"], v["param"], v["loss"], v["aux"]) for k, v in errs.items()}
+    first = next(iter(errs))
+    log(f"dp (b): the 2-rank step against the one-process step within rtol "
+        f"{TRAIN_ACCUM_RTOL}, atol {TRAIN_ACCUM_ATOL} (loss, aux, every gradient leaf, every "
+        f"parameter after one step at lr {TRAIN_CARD_LR}), largest |diff|: "
+        + ", ".join(f"{a} {e:.2e}" for a, e in worst.items())
+        + f"; planted faults: the summed gradients not divided by {DP_RANKS} "
+        f"{errs[first]['fault']:.3e} ({first}), aux from rank-local counts "
+        f"{r0['aux_fault'][1]:.3e} ({r0['aux_fault'][0]}), both failing the check; the "
+        f"compressed all-reduce identical on both ranks, mean + new_e against g + e "
+        f"{r0['recon']:.3e} (gate {DP_RECON_TOL}; max |g| {r0['gmax']:.3e})")
+    loss_line = re.search(r"\[loss\][^\n]*", drill_out).group(0)
+    p50 = re.search(r"p50=(\S+)", drill_out).group(1)
+    log(f"dp (c): launch.train {' '.join(DP_DRILL_ARGS)}: restarts=1, {loss_line}, p50 "
+        f"{p50} a step, {drill_s:.1f}s (beside phase 17(b)-(c), 18(b) and the ranks' "
+        f"start); its "
+        f"step-{DP_DRILL_STEP} checkpoint "
+        f"restored in one process ({one_s:.1f}s) equals the 2-rank leaves "
+        f"({len(drill_sha)} sha256, digest {digest}), and that process's checkpoint "
+        f"restored onto {DP_RANKS} ranks ({r0['restore_s']:.1f}s; pieces "
+        f"{r0['piece_shapes']}) gathers to the same leaves")
+    log(f"phase 18 took {time.perf_counter() - t_start:.0f}s on {card}")
 
 
 def build_kernels() -> None:
@@ -2819,8 +3190,18 @@ def main() -> int:
     ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
     ivf["ranked_launches"] = graph.pop("ranked_flat_launches")
     run_lm(card)
-    run_train(card)
-    log(f"phases 2-17 took {time.perf_counter() - t0:.0f}s")
+    import tempfile
+    with tempfile.TemporaryDirectory() as dp_tmp:
+        started = []  # phase 18's drill, started in phase 17
+        try:
+            one_process_p50, t_drill = run_train(card, dp_tmp, started)
+            run_train_dp(card, one_process_p50, started[0], t_drill, dp_tmp)
+        finally:
+            for proc in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    log(f"phases 2-18 took {time.perf_counter() - t0:.0f}s")
     log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,15 @@ or arrays, flattened in the reference's order with its path strings
 (``['key']``, ``[0]``).  A bfloat16 leaf is stored as the reference stores
 one: its raw bits as a 2-byte void array under a ``<V2`` header,
 ``"dtype": "bfloat16"`` in ``tree.json`` (numpy has no bfloat16; the bits
-move through ``int16`` views, so no extension package is needed).  Restoring onto a device mesh
-(``shardings=``) waits for the multi-device training half (ROADMAP queue
-1 item 8b-ii).
+move through ``int16`` views, so no extension package is needed).
+
+Over a rank mesh a tree's leaves are the rank's pieces, placed by a
+parallel tree of ``distributed.sharding.Sharding`` (``shardings=``):
+``save`` gathers each full leaf on every rank and rank 0 alone writes it,
+in the layout above, so a checkpoint written by N ranks loads in one
+process, on M ranks, and in the reference's manager; ``restore`` gives
+each rank the piece its sharding names (elastic restore onto another
+mesh).
 """
 
 from __future__ import annotations
@@ -120,6 +126,14 @@ def _load_leaf(path: str, i: int, meta: dict, where: str, verify: bool) -> np.nd
     return arr
 
 
+def _placements_of(shardings, n: int) -> list:
+    """The leaves of a ``Sharding`` tree, which must place ``n`` leaves."""
+    placed, _ = _flatten(shardings)
+    if len(placed) != n:
+        raise ValueError(f"shardings place {len(placed)} leaves, the tree has {n}")
+    return placed
+
+
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3, async_save: bool = True):
         self.dir = directory
@@ -135,8 +149,28 @@ class CheckpointManager:
 
     # ---- save ------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, *, shardings: Any = None,
+             blocking: bool = False) -> None:
+        """Snapshot ``tree`` (copied to the host now) and write it, on the
+        background thread unless ``blocking``.  With ``shardings`` (a tree
+        of ``Sharding`` parallel to ``tree``, over a rank mesh), every rank
+        of the default group calls this: each full leaf is gathered from the
+        ranks' pieces, and rank 0 alone writes."""
         leaves, paths = _flatten(tree)
+        if shardings is not None:
+            import torch.distributed as dist
+
+            from repro_torch.distributed.collectives import gather_sharded_many
+
+            placed = _placements_of(shardings, len(leaves))
+            for mesh in {id(sh.mesh): sh.mesh for sh in placed}.values():
+                at = [i for i, sh in enumerate(placed) if sh.mesh is mesh]
+                full = gather_sharded_many([leaves[i] for i in at],
+                                           [placed[i].spec for i in at], mesh)
+                for i, x in zip(at, full):
+                    leaves[i] = x
+            if dist.get_rank() != 0:
+                return
         host = [to_host(x) for x in leaves]
         if self._q is None or blocking:
             self._write(step, host, paths)
@@ -219,12 +253,12 @@ class CheckpointManager:
     def restore(self, step: int, like: Any, *, shardings: Any | None = None,
                 verify: bool = True) -> Any:
         """Restore into the structure of ``like``: each leaf a tensor on the
-        device of ``like``'s leaf there (the CPU for an array)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-places leaves on a device mesh for "
-                "training: not ported (ROADMAP queue 1 item 8b-ii, the multi-device "
-                "training half)")
+        device of ``like``'s leaf there (the CPU for an array).  With
+        ``shardings`` (a tree of ``Sharding`` parallel to ``like``, over this
+        rank's mesh), each leaf is this rank's piece of the stored one;
+        ``like``'s leaf then has the piece's shape or the full one."""
+        from repro_torch.distributed.sharding import local_shape, local_slice
+
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "tree.json")) as f:
             meta = json.load(f)
@@ -233,15 +267,24 @@ class CheckpointManager:
             raise ValueError(f"checkpoint has {len(meta['leaves'])} leaves, "
                              f"template has {len(like_leaves)}")
         paths = meta.get("paths", [])
+        placed = (_placements_of(shardings, len(like_leaves)) if shardings is not None
+                  else [None] * len(like_leaves))
         out = []
-        for i, tmpl in enumerate(like_leaves):
+        for i, (tmpl, sh) in enumerate(zip(like_leaves, placed)):
             where = paths[i] if i < len(paths) else str(i)
             arr = _load_leaf(path, i, meta, where, verify)
-            if list(arr.shape) != list(np.shape(tmpl)):
+            fits = [tuple(arr.shape)]
+            if sh is not None:
+                fits.append(local_shape(arr.shape, sh.spec, sh.mesh))
+            if tuple(np.shape(tmpl)) not in fits:
                 raise ValueError(
                     f"leaf {i}: ckpt shape {arr.shape} != template {np.shape(tmpl)}")
             dev = tmpl.device if isinstance(tmpl, torch.Tensor) else None
-            out.append(_to_tensor(arr, dev))
+            if sh is None:
+                out.append(_to_tensor(arr, dev))
+            else:
+                piece = local_slice(_to_tensor(arr), sh.spec, sh.mesh)
+                out.append(piece.to(dev, copy=True).contiguous())
         return _unflatten(like, out)
 
     # ---- named artifacts (template-free restore) -------------------------

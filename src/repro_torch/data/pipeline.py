@@ -8,7 +8,11 @@ is the regime where DADE's PCA rotation pays off.
 Token data: :class:`TokenPipeline`, the reference's distribution (a
 Zipf-ish unigram stream with short-range repeats) drawn from numpy's
 generator instead of ``jax.random``, whose streams cannot be replayed
-outside JAX; parity tests feed the reference's batches as arrays.
+outside JAX; parity tests feed the reference's batches as arrays.  A
+data-parallel trainer's ranks all read the same global ``batch_at(step)``
+and each takes its rows of every microbatch (:func:`microbatch_rows`), as
+the reference's sharded batch splits: ``host`` names another dataset, not
+a rank's part of this one.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["TokenPipeline", "synthetic_vectors", "synthetic_queries", "drifted_vectors"]
+__all__ = ["TokenPipeline", "microbatch_rows", "synthetic_vectors", "synthetic_queries",
+           "drifted_vectors"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +49,20 @@ class TokenPipeline:
         rep = rng.random(shape) < 0.3
         toks = np.where(rep, np.roll(toks, 1, axis=1), toks).astype(np.int32)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def microbatch_rows(batch: dict, ga: int, index: int = 0, size: int = 1) -> list[dict]:
+    """The ``ga`` microbatches of a global batch (each leaf's rows in ``ga``
+    contiguous runs, the reference's reshape to (ga, B / ga)), each cut to
+    the ``index``-th of ``size`` contiguous parts of its rows: data rank
+    ``index``'s share of every microbatch.  The rows must divide."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % (ga * size):
+        raise ValueError(f"a batch of {rows} rows does not split into {ga} microbatches "
+                         f"of {size} equal parts")
+    mb, part = rows // ga, rows // (ga * size)
+    return [{k: v[i * mb + index * part:i * mb + (index + 1) * part] for k, v in batch.items()}
+            for i in range(ga)]
 
 
 def synthetic_vectors(

@@ -91,9 +91,9 @@ def make_mesh(shape, axes, device_type: str):
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cpu"):
-    """A small ("data", "model") mesh over the default group's ranks (tests
-    and examples).  Raises, naming both, when ``data * model`` is not the
-    group's size."""
+    """A small ("data", "model") mesh over the default group's ranks (the
+    data-parallel trainer's, tests).  Raises, naming both, when ``data *
+    model`` is not the group's size."""
     world = dist.get_world_size()
     if data * model != world:
         raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks, "

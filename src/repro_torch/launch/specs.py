@@ -11,9 +11,10 @@ The port of ``repro.launch.specs``.  Shapes are the four LM cells:
 
 Modality frontends are stubs: whisper gets precomputed frame embeddings,
 llama-vision gets projected patch embeddings.  A spec is a tensor on
-``device="meta"``: its shape and dtype, with nothing allocated.  The
-reference's logical batch axes are mesh placement and come with the
-training slice's sharding.
+``device="meta"``: its shape and dtype, with nothing allocated.  Each
+input also carries the reference's logical axes (``batch_logical_axes``),
+from which ``distributed.sharding`` places it over a mesh: the batch rows
+over the ("pod", "data") axes.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 
 from repro_torch.models.common import ArchConfig
 
-__all__ = ["SHAPES", "ShapeSpec", "input_specs", "batch_specs", "cell_is_runnable",
-           "LONG_OK"]
+__all__ = ["SHAPES", "ShapeSpec", "input_specs", "batch_specs", "batch_logical_axes",
+           "cell_is_runnable", "LONG_OK"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,19 @@ def batch_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict[str, torch.Tensor]:
     return out
 
 
-def input_specs(cfg: ArchConfig, shape: str) -> tuple[ShapeSpec, dict[str, torch.Tensor]]:
-    """(shape spec, batch specs) for one cell."""
+def batch_logical_axes(cfg: ArchConfig, spec: ShapeSpec) -> dict[str, tuple]:
+    """The logical axes of each input of :func:`batch_specs`."""
+    out = {"tokens": ("batch", "seq")}
+    if spec.kind == "train":
+        out["labels"] = ("batch", "seq")
+    if cfg.family == "encdec":
+        out["frames"] = ("batch", "frames", "embed")
+    if cfg.family == "vlm":
+        out["vision"] = ("batch", "frames", "embed")
+    return out
+
+
+def input_specs(cfg: ArchConfig, shape: str):
+    """(shape spec, batch specs, batch logical axes) for one cell."""
     spec = SHAPES[shape]
-    return spec, batch_specs(cfg, spec)
+    return spec, batch_specs(cfg, spec), batch_logical_axes(cfg, spec)

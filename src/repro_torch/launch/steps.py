@@ -1,34 +1,63 @@
 """Step functions for every (arch x shape) cell: train, prefill, decode.
 
 The port of ``repro.launch.steps``: ``build_cell`` returns the model, its
-step function with the model bound and meta-device arguments.  The
-reference's mesh, ``in_shardings`` and per-shape rule overrides are
-TPU-mesh placement; on one card the model carries no sharding annotations
-(the reference's ``constrain`` is a no-op when no rules are active).  The
-multi-device half of training (sharded parameters and optimizer state)
-is ROADMAP queue 1 item 8b-ii.
+step function with the model bound, meta-device arguments and, given a
+mesh, the reference's ``in_shardings`` (each leaf a
+``distributed.sharding.Sharding``) under the per-shape ``RULE_OVERRIDES``.
+The model itself carries no sharding annotation (the reference's
+``constrain`` is a no-op here): over a rank mesh the train step places its
+state explicitly.
+
+Over a ``DeviceMesh`` whose one axis of size > 1 is "data" (the
+reference's ``make_host_mesh(data=N, model=1)``), the train step is
+data-parallel (:class:`DataParallel`): each rank holds its piece of every
+parameter and of both AdamW moments as the shardings assign it
+(``embed_fsdp`` dimensions split over "data": the reference's ZeRO
+layout), gathers the full parameters on its device, runs ``loss_fn`` on
+its rows of each microbatch, sums the gradients over the data ranks (the
+reduction GSPMD inserts) and updates its own pieces, clipping by the norm
+of the whole summed gradient.  Over an ``AbstractMesh`` only the
+shardings are derived.
 
 The train step takes and returns the reference's (params, opt_state,
 batch) -> (params, opt_state, metrics), with ``params`` the model's
-parameter names -> tensors; it updates the parameters and the moments IN
-PLACE and returns the same tensors (``optim.adamw``).
+parameter names -> tensors (a rank's pieces, over a mesh); it updates the
+parameters and the moments IN PLACE and returns the same tensors
+(``optim.adamw``).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import microbatch_rows
+from repro_torch.distributed.collectives import (Stripes, all_reduce,
+                                                 compressed_grad_allreduce, gather_sharded_many)
+from repro_torch.distributed.sharding import (AbstractMesh, local_slice, mesh_axis_sizes,
+                                              tree_shardings)
 from repro_torch.launch.specs import cell_is_runnable, input_specs
-from repro_torch.models.model import LM, build_model, reference_ndims
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.models.common import DataShare
+from repro_torch.models.model import LM, build_model, reference_leaves, reference_ndims
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, global_norm,
+                                     opt_state_axes)
 
-__all__ = ["Cell", "build_cell", "train_grads", "train_step", "prefill_step", "serve_step"]
+__all__ = ["Cell", "DataParallel", "RULE_OVERRIDES", "build_cell", "train_grads",
+           "train_step", "compress_grads", "prefill_step", "serve_step"]
+
+# Per-shape logical-rule overrides (the reference's).
+RULE_OVERRIDES: dict[str, dict] = {
+    # 500k-token caches: batch=1, so spread the cache seq over every axis.
+    "long_500k": {"kv_seq": ("model", "data", "pod")},
+}
 
 
 @dataclasses.dataclass
@@ -41,9 +70,128 @@ class Cell:
     model: LM
     runnable: bool = True
     skip_reason: str = ""
+    # Given a mesh: the reference's in_shardings, in its argument order
+    # (train: params, opt_state, batch; prefill: params, batch; decode:
+    # params, token, caches, pos) and decode's out_shardings (logits, caches).
+    in_shardings: tuple | None = None
+    out_shardings: tuple | None = None
+    data_parallel: "DataParallel | None" = None
 
 
-def train_grads(model: LM, batch: dict) -> tuple[torch.Tensor, dict, dict]:
+class DataParallel:
+    """The data-parallel placement of a train step over ``mesh`` (a
+    ``DeviceMesh`` whose one axis of size > 1 is "data"; tensor
+    parallelism is not ported), for the parameters placed by ``shardings``
+    ({name: Sharding}, from ``tree_shardings`` of the model's logical
+    axes).
+
+    A batch of B rows with ``grad_accum`` ga splits over the ``size`` data
+    ranks when B divides by ga x size: rank ``index`` takes its contiguous
+    part of each microbatch (``data.pipeline.microbatch_rows``); otherwise
+    every rank computes the whole batch and nothing is summed (the
+    reference replicates a batch that does not divide).
+
+    ``bytes`` and ``seconds`` count, by kind, what each collective of this
+    rank carried (its own payload) and the host time from its start (the
+    card synchronised first) to its end; ``reset()`` zeroes them."""
+
+    def __init__(self, mesh, shardings: dict):
+        sizes = mesh_axis_sizes(mesh)
+        if "data" not in sizes or any(n > 1 for k, n in sizes.items() if k != "data"):
+            raise ValueError(f"a data-parallel step needs a mesh whose one axis of size > 1 "
+                             f"is 'data' (tensor parallelism is not ported); got {sizes}")
+        self.mesh, self.shardings = mesh, shardings
+        self.size = sizes["data"]
+        self.index = mesh.get_coordinate()[list(sizes).index("data")]
+        self.group = mesh.get_group("data")
+        # the large collectives (parameters, gradients, codes) run striped
+        self.stripes = Stripes.of(self.group)
+        self.share = DataShare(self.size, self._sum_counts)
+        self.bytes: collections.Counter = collections.Counter()
+        self.seconds: collections.Counter = collections.Counter()
+
+    def reset(self) -> None:
+        self.bytes.clear()
+        self.seconds.clear()
+
+    @contextlib.contextmanager
+    def timed(self, kind: str, nbytes: int, device: torch.device):
+        """Count one collective of ``kind`` carrying ``nbytes``."""
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.seconds[kind] += time.perf_counter() - t0
+        self.bytes[kind] += nbytes
+
+    def splits(self, rows: int, ga: int) -> bool:
+        """Whether a batch of ``rows`` rows in ``ga`` microbatches is split
+        over the data ranks."""
+        return self.size > 1 and rows % (ga * self.size) == 0
+
+    def local(self, tree: dict) -> dict:
+        """This rank's piece (a view) of each full tensor of ``tree``."""
+        return {k: local_slice(v, self.shardings[k].spec, self.mesh) for k, v in tree.items()}
+
+    def local_params(self, model: LM) -> dict:
+        """This rank's pieces of the model's parameters, copies of their own."""
+        return {k: v.detach().clone() for k, v in self.local(
+            dict(model.named_parameters())).items()}
+
+    @torch.no_grad()
+    def gather_into(self, params: dict, model: LM) -> None:
+        """The full parameters, gathered from every rank's pieces
+        ``params``, written into the model's own."""
+        own = dict(model.named_parameters())
+        names = list(params)
+        nbytes = sum(params[k].numel() * params[k].element_size() for k in names
+                     if any(self.shardings[k].spec))
+        with self.timed("param all-gather", nbytes, model.device):
+            full = gather_sharded_many([params[k] for k in names],
+                                       [self.shardings[k].spec for k in names], self.mesh,
+                                       groups={"data": self.stripes})
+        for k, t in zip(names, full):
+            own[k].copy_(t)
+
+    def sum(self, tensors: dict, kind: str) -> dict:
+        """Each tensor summed over the data ranks in its dtype (float32 where
+        the dtypes differ): one all-reduce of them packed into one buffer."""
+        dtypes = {t.dtype for t in tensors.values()}
+        dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        flat = torch.cat([t.to(dtype).reshape(-1) for t in tensors.values()])
+        with self.timed(kind, flat.numel() * flat.element_size(), flat.device):
+            all_reduce(flat, group=self.stripes)
+        out, at = {}, 0
+        for k, t in tensors.items():
+            out[k] = flat[at:at + t.numel()].reshape(t.shape)
+            at += t.numel()
+        return out
+
+    def _sum_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        with self.timed("moe counts all-reduce", counts.numel() * 4, counts.device):
+            return all_reduce(counts, group=self.group)
+
+    def state_shardings(self, model: LM, ebuf: dict | None = None) -> tuple:
+        """Shardings of the trainer's state (params, opt_state, ebuf): the
+        moments as the parameters, the step and the error-feedback buffer
+        replicated."""
+        full = dict(model.named_parameters())
+        opt = tree_shardings(opt_state_axes(model.param_axes()),
+                             {"m": full, "v": full, "step": ()}, self.mesh)
+        rep = None if ebuf is None else tree_shardings(
+            {k: (None,) * v.ndim for k, v in ebuf.items()}, ebuf, self.mesh)
+        return self.shardings, opt, rep
+
+
+def _to_device(batch: dict, dev) -> dict:
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))).to(dev)
+            for k, v in batch.items()}
+
+
+def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
+                ) -> tuple[torch.Tensor, dict, dict]:
     """(loss, metrics, {name: gradient}) of ``batch`` (arrays or tensors:
     ``tokens``, ``labels``, + ``frames`` / ``vision``) with respect to the
     model's parameters (their gradients turned on).
@@ -53,13 +201,26 @@ def train_grads(model: LM, batch: dict) -> tuple[torch.Tensor, dict, dict]:
     parameter dtype) are summed into float32 buffers and divided by ga; the
     loss is the microbatches' mean and the other loss metrics are the last
     microbatch's, as in the reference's scan.  With ga = 1 the gradients
-    stay in the parameter dtype (``adamw_update`` takes them in float32)."""
+    stay in the parameter dtype (``adamw_update`` takes them in float32).
+
+    With ``dp`` splitting the batch, this rank computes its rows of each
+    microbatch as its share (``LM.sharing``: the global token count, the
+    MoE counts of every rank) and the gradients, loss and metrics are summed
+    over the data ranks, every rank returning the global batch's: the
+    gradients in their dtype (the parameters' at ga = 1, as the reference's
+    reduction of its bf16 gradients; the float32 accumulators at ga > 1),
+    the loss and metrics in float32."""
     own = dict(model.named_parameters())
     names = list(own)
     plist = [own[n].requires_grad_(True) for n in names]
     dev = model.device
-    batch = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))).to(dev)
-             for k, v in batch.items()}
+    batch = _to_device(batch, dev)
+    ga = max(model.cfg.grad_accum, 1)
+    rows = batch["tokens"].shape[0]
+    if rows % ga:
+        raise ValueError(f"batch of {rows} rows does not split into {ga} microbatches")
+    split = dp is not None and dp.splits(rows, ga)
+    mbs = microbatch_rows(batch, ga, dp.index, dp.size) if split else microbatch_rows(batch, ga)
 
     def grads_of(b):
         loss, mets = model.loss_fn(b)
@@ -67,39 +228,96 @@ def train_grads(model: LM, batch: dict) -> tuple[torch.Tensor, dict, dict]:
         return loss.detach(), {k: v.detach() for k, v in mets.items()}, [
             torch.zeros_like(p) if g is None else g for p, g in zip(plist, gs)]
 
-    ga = max(model.cfg.grad_accum, 1)
-    if ga == 1:
-        loss, mets, gs = grads_of(batch)
-        return loss, mets, dict(zip(names, gs))
-    rows = batch["tokens"].shape[0]
-    if rows % ga:
-        raise ValueError(f"batch of {rows} rows does not split into {ga} microbatches")
-    mb = rows // ga
-    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev) for n, p in own.items()}
-    lsum = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(ga):
-        loss_i, mets, gs = grads_of({k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
-        for n, g in zip(names, gs):
-            grads[n].add_(g)  # x + y.astype(f32)
-        lsum = lsum + loss_i
-        del gs  # this microbatch's gradients go before the next one's backward
-    for g in grads.values():
-        g.div_(ga)
-    return lsum / ga, mets, grads
+    with model.sharing(dp.share if split else None):
+        if ga == 1:
+            loss, mets, gs = grads_of(mbs[0])
+            grads = dict(zip(names, gs))
+        else:
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for n, p in own.items()}
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in mbs:
+                loss_i, mets, gs = grads_of(mb)
+                for n, g in zip(names, gs):
+                    grads[n].add_(g)  # x + y.astype(f32)
+                lsum = lsum + loss_i
+                del gs  # this microbatch's gradients go before the next one's backward
+            loss = lsum
+    if split:
+        grads = dp.sum(grads, "gradient all-reduce")
+        scalars = dp.sum({"loss": loss, **mets}, "loss all-reduce")
+        loss, mets = scalars.pop("loss"), scalars
+    if ga > 1:
+        for g in grads.values():
+            g.div_(ga)
+        loss = loss / ga
+    return loss, mets, grads
 
 
-def train_step(model: LM, opt: AdamWConfig, params: dict, opt_state: dict, batch: dict):
+def _stacked(tree: dict, leaves: dict) -> dict:
+    """``tree`` (the port's names) as the reference's leaves: each layer
+    stack's tensors stacked along a leading axis."""
+    return {key: tree[names[0]] if key == names[0] else torch.stack([tree[n] for n in names])
+            for key, names in leaves.items()}
+
+
+def _unstacked(tree: dict, leaves: dict) -> dict:
+    """The inverse of :func:`_stacked`."""
+    out = {}
+    for key, names in leaves.items():
+        if key == names[0]:
+            out[key] = tree[key]
+        else:
+            out.update({n: t for n, t in zip(names, tree[key].unbind(0))})
+    return out
+
+
+def compress_grads(grads: dict, ebuf: dict, group=None) -> tuple[dict, dict]:
+    """``compressed_grad_allreduce`` of ``grads`` with error feedback
+    ``ebuf`` (both keyed by the port's parameter names) over ``group``, with
+    one int8 scale per leaf of the reference's tree: a layer stack's
+    gradients are quantized as one tensor (``models.model.
+    reference_leaves``).  Returns (mean gradients, new error feedback)."""
+    leaves = reference_leaves(grads)
+    mean, new_e = compressed_grad_allreduce(_stacked(grads, leaves), _stacked(ebuf, leaves),
+                                            group)
+    return _unstacked(mean, leaves), _unstacked(new_e, leaves)
+
+
+def train_step(model: LM, opt: AdamWConfig, params: dict, opt_state: dict, batch: dict, *,
+               dp: DataParallel | None = None, ebuf: dict | None = None):
     """One AdamW step on ``batch`` -> (params, opt_state, metrics: loss,
     nll, aux, grad_norm, lr); gradients as :func:`train_grads` takes them.
-    ``params`` are the model's parameter names -> tensors (its own, or a
-    restored checkpoint's, which the model then computes with:
-    ``LM.bind_params``)."""
-    model.bind_params(params)
-    if dict(model.named_parameters()).keys() != params.keys():
-        raise ValueError("params must name every parameter of the model")
-    loss, mets, grads = train_grads(model, batch)
+    ``params`` are the model's parameter names -> tensors: its own, or a
+    restored checkpoint's, which the model then computes with
+    (``LM.bind_params``); with ``dp``, this rank's pieces, gathered into the
+    model's parameters first, and the update writes only the pieces.
+
+    ``ebuf`` ({name: float32 full-shape error feedback}, the same on every
+    rank) turns on ``--grad-compress``: the summed gradient goes through
+    ``compressed_grad_allreduce`` over the data ranks and ``ebuf`` takes
+    its new residual, in place; the clip norm is then the compressed
+    gradient's, as in the reference's trainer (:func:`compress_grads`)."""
+    if dp is None:
+        model.bind_params(params)
+        if dict(model.named_parameters()).keys() != params.keys():
+            raise ValueError("params must name every parameter of the model")
+    else:
+        dp.gather_into(params, model)
+    loss, mets, grads = train_grads(model, batch, dp)
+    if ebuf is not None:
+        group = None if dp is None else dp.stripes
+        codes = sum(g.numel() for g in grads.values()) * 4 + 4 * len(reference_leaves(grads))
+        with (dp.timed("compressed all-reduce (int32 codes, scales)", codes, model.device)
+              if dp is not None else contextlib.nullcontext()):
+            grads, new_e = compress_grads(grads, ebuf, group)
+        for k, e in new_e.items():
+            ebuf[k].copy_(e)
+    gnorm = global_norm(grads)
+    if dp is not None:
+        grads = dp.local(grads)
     params, opt_state, om = adamw_update(opt, params, grads, opt_state,
-                                         ndims=reference_ndims(params))
+                                         ndims=reference_ndims(params), grad_norm=gnorm)
     return params, opt_state, {"loss": loss, **mets, **om}
 
 
@@ -113,30 +331,58 @@ def serve_step(model: LM, token: torch.Tensor, caches: dict, pos):
     return model.decode_step(token, caches, pos)
 
 
-def build_cell(arch_id: str, shape: str, *, device="cuda", cfgset: dict | None = None,
-               opt: AdamWConfig | None = None) -> Cell:
+def build_cell(arch_id: str, shape: str, *, mesh=None, device="cuda",
+               cfgset: dict | None = None, opt: AdamWConfig | None = None,
+               overrides: dict | None = None) -> Cell:
     """The cell's model (seed 0, on ``device``; ``"meta"`` for shapes only),
     its step function with the model bound, and its arguments' specs (a
     train cell's: parameters, optimizer state, batch; its model's
-    parameters take gradients)."""
+    parameters take gradients).  Given ``mesh`` (an ``AbstractMesh`` or a
+    ``DeviceMesh``), the in_shardings under ``RULE_OVERRIDES`` for the
+    shape plus ``overrides``; a train cell over a ``DeviceMesh`` steps
+    data-parallel (``cell.data_parallel``; its initial state is
+    ``data_parallel.local_params(cell.model)`` and ``adamw_init`` of it)."""
     cfg = get_config(arch_id)
     if cfgset:
         cfg = dataclasses.replace(cfg, **cfgset)
-    spec, bspecs = input_specs(cfg, shape)
+    spec, bspecs, baxes = input_specs(cfg, shape)
     ok, why = cell_is_runnable(cfg, shape)
+    rules = dict(RULE_OVERRIDES.get(shape, {}))
+    if overrides:
+        rules.update(overrides)
     model = build_model(cfg, device=device)
+    meta = model if model.device.type == "meta" else build_model(cfg, device="meta")
+    shapes = dict(meta.named_parameters())
+
+    def shard(axes, shaped):
+        return None if mesh is None else tree_shardings(axes, shaped, mesh, rules)
+
+    param_sh, batch_sh = shard(meta.param_axes(), shapes), shard(baxes, bspecs)
     if spec.kind == "train":
         model.requires_grad_(True)
-        shapes = dict(build_model(cfg, device="meta").named_parameters())
+        opt_shapes = adamw_init(shapes)
+        dp = (DataParallel(mesh, param_sh)
+              if mesh is not None and not isinstance(mesh, AbstractMesh) else None)
         return Cell(arch_id, shape, spec.kind,
-                    functools.partial(train_step, model, opt or AdamWConfig()),
-                    (shapes, adamw_init(shapes), bspecs), model, ok, why)
+                    functools.partial(train_step, model, opt or AdamWConfig(), dp=dp),
+                    (shapes, opt_shapes, bspecs), model, ok, why,
+                    in_shardings=None if mesh is None else (
+                        param_sh, shard(opt_state_axes(meta.param_axes()), opt_shapes),
+                        batch_sh),
+                    data_parallel=dp)
     if spec.kind == "prefill":
         return Cell(arch_id, shape, spec.kind, functools.partial(prefill_step, model),
-                    (bspecs,), model, ok, why)
+                    (bspecs,), model, ok, why,
+                    in_shardings=None if mesh is None else (param_sh, batch_sh))
     b = spec.global_batch
-    caches = build_model(cfg, device="meta").init_caches(b, spec.seq)
+    caches, cache_axes = meta.init_caches(b, spec.seq)
     token = torch.empty((b, 1), dtype=torch.int32, device="meta")
     pos = torch.empty((), dtype=torch.int32, device="meta")
-    return Cell(arch_id, shape, spec.kind, functools.partial(serve_step, model),
+    cell = Cell(arch_id, shape, spec.kind, functools.partial(serve_step, model),
                 (token, caches, pos), model, ok, why)
+    if mesh is not None:
+        cache_sh = shard(cache_axes, caches)
+        cell.in_shardings = (param_sh, shard(("batch", "seq"), token), cache_sh,
+                             shard((), pos))
+        cell.out_shardings = (shard(("batch", "vocab"), (b, cfg.vocab_padded)), cache_sh)
+    return cell

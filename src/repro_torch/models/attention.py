@@ -67,11 +67,13 @@ def init_attention(init: Initializer, cfg: ArchConfig, *, cross: bool = False) -
     kv_in = d
     if cross and cfg.family == "vlm" and cfg.vision_dim:
         kv_in = cfg.vision_dim
-    p = dict(wq=init.dense((d, qkv)), wk=init.dense((kv_in, kvd)),
-             wv=init.dense((kv_in, kvd)), wo=init.dense((qkv, d)))
+    p = dict(wq=init.dense((d, qkv), ("embed_fsdp", "qkv")),
+             wk=init.dense((kv_in, kvd), ("embed_fsdp", "qkv")),
+             wv=init.dense((kv_in, kvd), ("embed_fsdp", "qkv")),
+             wo=init.dense((qkv, d), ("qkv", "embed_fsdp")))
     if cfg.qk_norm:
-        p["q_norm"] = init.ones((cfg.hdim,))
-        p["k_norm"] = init.ones((cfg.hdim,))
+        p["q_norm"] = init.ones((cfg.hdim,), ("head_dim",))
+        p["k_norm"] = init.ones((cfg.hdim,), ("head_dim",))
     return Params(**p)
 
 

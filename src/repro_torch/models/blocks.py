@@ -17,7 +17,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ArchConfig, Initializer, Params, layernorm, rmsnorm
+from repro_torch.models.common import (ArchConfig, DataShare, Initializer, Params, layernorm,
+                                       rmsnorm)
 
 __all__ = ["init_block", "block_train", "block_decode", "init_stack"]
 
@@ -25,8 +26,8 @@ __all__ = ["init_block", "block_train", "block_decode", "init_stack"]
 def _init_norm(init: Initializer, cfg: ArchConfig, d: int | None = None) -> Params:
     d = d or cfg.d_model
     if cfg.norm == "layernorm":
-        return Params(w=init.ones((d,)), b=init.zeros((d,)))
-    return Params(w=init.ones((d,)))
+        return Params(w=init.ones((d,), ("embed",)), b=init.zeros((d,), ("embed",)))
+    return Params(w=init.ones((d,), ("embed",)))
 
 
 def _norm(p, x, cfg: ArchConfig):
@@ -58,18 +59,20 @@ def init_block(init: Initializer, cfg: ArchConfig, kind: str) -> Params:
     elif kind == "cross":  # vlm gated cross-attention block
         p["ln_cross"] = _init_norm(init, cfg)
         p["cross"] = attn.init_attention(init, cfg, cross=True)
-        p["gate_attn"] = init.zeros((1,))
+        p["gate_attn"] = init.zeros((1,), (None,))
         p["ln_mlp"] = _init_norm(init, cfg)
         p["mlp"] = mlp_mod.init_mlp(init, cfg)
-        p["gate_mlp"] = init.zeros((1,))
+        p["gate_mlp"] = init.zeros((1,), (None,))
     else:
         raise ValueError(kind)
     return Params(**p)
 
 
 def block_train(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *, window: int = 0,
-                memory: attn.KVCache | None = None, collect_cache: bool = False):
-    """Returns (x', cache, aux_loss). cache is KV/SSM state for decode."""
+                memory: attn.KVCache | None = None, collect_cache: bool = False,
+                share: DataShare | None = None):
+    """Returns (x', cache, aux_loss). cache is KV/SSM state for decode;
+    ``share``: the batch is one data-parallel rank's (``moe.moe_fwd``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     if kind == "mamba":
@@ -97,7 +100,7 @@ def block_train(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *, window: int =
 
     h2 = _norm(p["ln_mlp"], x, cfg)
     if kind == "moe":
-        y2, aux = moe_mod.moe_fwd(p["moe"], h2, cfg, renorm=cfg.moe_renorm)
+        y2, aux = moe_mod.moe_fwd(p["moe"], h2, cfg, renorm=cfg.moe_renorm, share=share)
     else:
         y2 = mlp_mod.mlp_fwd(p["mlp"], h2, cfg)
     if cfg.post_block_norm:

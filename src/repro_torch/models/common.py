@@ -5,22 +5,26 @@ are functional pytrees; here the parameter tree is a tree of
 ``nn.Module`` nodes (:class:`Params`) holding ``nn.Parameter`` leaves under
 the reference's names, in its ``(d_in, d_out)`` layout (``x @ W``), so a
 reference tree moves into the port without transposes
-(``repro_torch.interop.lm_from_arrays``).  The reference's logical sharding
-axes are TPU-mesh placement and are not carried: on one card nothing is
-constrained.
+(``repro_torch.interop.lm_from_arrays``).  Every parameter carries the
+reference's logical sharding axes (``Initializer``: its ``logical_axes``,
+collected by ``LM.param_axes``), from which ``distributed.sharding`` derives
+each rank's placement; the model itself constrains nothing.  A
+:class:`DataShare` tells the loss that its batch is one rank's share of a
+batch split over data-parallel ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["ArchConfig", "Params", "Initializer", "rmsnorm", "layernorm", "rope",
-           "softcap", "remat"]
+__all__ = ["ArchConfig", "Params", "Initializer", "DataShare", "rmsnorm", "layernorm",
+           "rope", "softcap", "remat"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,9 +214,10 @@ class Initializer:
     """Draws parameters from the reference's distributions on an explicit
     ``torch.Generator``: ``dense`` is normal x 1/sqrt(fan_in) (or x
     ``scale``), drawn in float32 and cast to ``dtype``; ``zeros`` and
-    ``ones`` as named.  On ``device="meta"`` nothing is drawn or allocated
-    (``generator`` may be None): the tree then carries shapes and dtypes
-    only."""
+    ``ones`` as named.  Each takes the parameter's logical axes (one name or
+    None per dimension, the reference's), kept as its ``logical_axes``.  On
+    ``device="meta"`` nothing is drawn or allocated (``generator`` may be
+    None): the tree then carries shapes and dtypes only."""
 
     def __init__(self, generator: torch.Generator | None, dtype: torch.dtype,
                  device: torch.device):
@@ -220,27 +225,45 @@ class Initializer:
         self.dtype = dtype
         self.device = torch.device(device)
 
-    def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t, requires_grad=False)
+    def _param(self, t: torch.Tensor, axes: tuple) -> nn.Parameter:
+        if len(axes) != t.ndim:
+            raise ValueError(f"logical axes {axes} do not match shape {tuple(t.shape)}")
+        p = nn.Parameter(t, requires_grad=False)
+        p.logical_axes = tuple(axes)
+        return p
 
-    def _empty(self, shape) -> nn.Parameter:
-        return self._param(torch.empty(shape, dtype=self.dtype, device=self.device))
+    def _empty(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
 
-    def dense(self, shape: tuple[int, ...], scale: float | None = None) -> nn.Parameter:
+    def dense(self, shape: tuple[int, ...], axes: tuple,
+              scale: float | None = None) -> nn.Parameter:
         if self.device.type == "meta":
-            return self._empty(shape)
+            return self._param(self._empty(shape), axes)
         fan_in = shape[0] if len(shape) >= 2 else 1
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return self._param(w.mul_(std).to(self.dtype))
+        return self._param(w.mul_(std).to(self.dtype), axes)
 
-    def zeros(self, shape: tuple[int, ...]) -> nn.Parameter:
+    def zeros(self, shape: tuple[int, ...], axes: tuple) -> nn.Parameter:
         if self.device.type == "meta":
-            return self._empty(shape)
-        return self._param(torch.zeros(shape, dtype=self.dtype, device=self.device))
+            return self._param(self._empty(shape), axes)
+        return self._param(torch.zeros(shape, dtype=self.dtype, device=self.device), axes)
 
-    def ones(self, shape: tuple[int, ...]) -> nn.Parameter:
+    def ones(self, shape: tuple[int, ...], axes: tuple) -> nn.Parameter:
         if self.device.type == "meta":
-            return self._empty(shape)
-        return self._param(torch.ones(shape, dtype=self.dtype, device=self.device))
+            return self._param(self._empty(shape), axes)
+        return self._param(torch.ones(shape, dtype=self.dtype, device=self.device), axes)
+
+
+class DataShare(NamedTuple):
+    """This rank's share of a batch split row-wise over ``size``
+    data-parallel ranks: the loss is normalised by the global token count
+    (``size`` x the rank's), the MoE load-balance loss takes the global
+    fraction routed to each expert (``all_reduce`` sums its (E,) counts over
+    the ranks) and this rank's mean probabilities, divided by ``size``; so
+    each rank's loss is its additive share of the global loss, and summing
+    the ranks' gradients gives the global gradient."""
+
+    size: int
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]

@@ -14,11 +14,13 @@ def init_mlp(init: Initializer, cfg: ArchConfig, d_ff: int | None = None) -> Par
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     if cfg.activation in ("silu", "geglu"):
-        return Params(w_gate=init.dense((d, f)), w_up=init.dense((d, f)),
-                      w_down=init.dense((f, d)))
+        return Params(w_gate=init.dense((d, f), ("embed_fsdp", "ffn")),
+                      w_up=init.dense((d, f), ("embed_fsdp", "ffn")),
+                      w_down=init.dense((f, d), ("ffn", "embed_fsdp")))
     return Params(  # plain 2-layer (gelu)
-        w_up=init.dense((d, f)), b_up=init.zeros((f,)),
-        w_down=init.dense((f, d)), b_down=init.zeros((d,)))
+        w_up=init.dense((d, f), ("embed_fsdp", "ffn")), b_up=init.zeros((f,), ("ffn",)),
+        w_down=init.dense((f, d), ("ffn", "embed_fsdp")),
+        b_down=init.zeros((d,), ("embed",)))
 
 
 def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:

@@ -16,15 +16,20 @@ names (``stacks.<pattern position>.<layer>.attn.wq``, ...); its entry
 points are ``loss_fn`` (next-token cross-entropy streamed over
 ``loss_chunk`` + the MoE aux loss, differentiable: the training path),
 ``prefill`` (forward returning the per-layer KV/SSM caches),
-``decode_step`` (one token against the caches) and ``init_caches``
-(zeroed caches).  Where ``cfg.remat`` is set and gradients are on, every
-place the reference wraps in ``jax.checkpoint`` (each layer of a stack,
-the vlm's cross blocks, the hybrid's shared block, each loss chunk; the
-attention q-chunks in ``attention``) runs under
-``torch.utils.checkpoint``, so its activations are recomputed in the
-backward pass.  Parameters are drawn with ``requires_grad=False`` for
-serving; the training path turns gradients on
-(``launch.steps.train_step``).
+``decode_step`` (one token against the caches), ``init_caches`` (zeroed
+caches and their logical axes) and ``param_axes`` (each parameter's
+logical axes, the reference's ``init`` axes tree with a stack's leading
+'layers' entry dropped, as the port unrolls the stacks).  Where
+``cfg.remat`` is set and gradients are on, every place the reference
+wraps in ``jax.checkpoint`` (each layer of a stack, the vlm's cross
+blocks, the hybrid's shared block, each loss chunk; the attention
+q-chunks in ``attention``) runs under ``torch.utils.checkpoint``, so its
+activations are recomputed in the backward pass.  Parameters are drawn
+with ``requires_grad=False`` for serving; the training path turns
+gradients on (``launch.steps.train_step``).
+
+Under ``sharing(DataShare(...))`` the loss is one data-parallel rank's
+additive share of the global batch's (``models.common.DataShare``).
 
 ``decode_step`` updates the caches IN PLACE and returns the same tensors:
 the reference returns new caches, but a copy of a full cache per token
@@ -35,6 +40,7 @@ consumed: callers that need the old values copy them first.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -45,10 +51,10 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache, QuantKVCache, cross_memory
-from repro_torch.models.common import ArchConfig, Initializer, remat, softcap
+from repro_torch.models.common import ArchConfig, DataShare, Initializer, remat, softcap
 from repro_torch.models.ssm import SSMCache, conv_dim
 
-__all__ = ["LM", "build_model", "STACKED", "reference_ndims"]
+__all__ = ["LM", "build_model", "STACKED", "reference_ndims", "reference_leaves"]
 
 # The parameter-tree keys whose segments the reference stacks along a
 # leading 'layers' axis (``blocks.init_stack``); the port unrolls that axis
@@ -91,6 +97,20 @@ def reference_ndims(params: dict) -> dict[str, int]:
     return {name: p.ndim + (name.split(".")[0] in STACKED) for name, p in params.items()}
 
 
+def reference_leaves(names) -> dict[str, list[str]]:
+    """{a leaf of the reference's tree: the port's parameter names that form
+    it, in layer order}.  The layers of a stacked segment
+    (``stacks.i.<layer>.<path>``) form one leaf (``stacks.i.<path>``, their
+    stack along a leading 'layers' axis); every other name is a leaf of its
+    own."""
+    out: dict[str, list[str]] = {}
+    for name in names:
+        parts = name.split(".")
+        key = ".".join(parts[:2] + parts[3:]) if parts[0] in STACKED else name
+        out.setdefault(key, []).append(name)
+    return out
+
+
 class LM(nn.Module):
     """The reference's ``LM`` facade for one ``ArchConfig``, with its
     parameters drawn from ``seed`` on ``device`` (``"meta"``: shapes only)."""
@@ -102,10 +122,10 @@ class LM(nn.Module):
         init = Initializer(gen, cfg.param_dtype, dev)
         self.cfg = cfg
         vp, d = cfg.vocab_padded, cfg.d_model
-        self.tok_embed = init.dense((vp, d), scale=0.02)
+        self.tok_embed = init.dense((vp, d), ("vocab", "embed_fsdp"), scale=0.02)
         self.final_norm = B._init_norm(init, cfg)
         if not cfg.tie_embeddings:
-            self.lm_head = init.dense((d, vp), scale=0.02)
+            self.lm_head = init.dense((d, vp), ("embed_fsdp", "vocab"), scale=0.02)
 
         fam = cfg.family
         if fam in ("dense", "moe", "ssm"):
@@ -116,8 +136,8 @@ class LM(nn.Module):
             self.stacks = B.init_stack(init, cfg, ("mamba",), cfg.num_layers)
             self.shared_attn = B.init_block(init, cfg, "dense")
         elif fam == "encdec":
-            self.enc_pos = init.dense((cfg.encoder_seq, d), scale=0.02)
-            self.dec_pos = init.dense((DEC_POS_ROWS, d), scale=0.02)
+            self.enc_pos = init.dense((cfg.encoder_seq, d), ("frames", "embed_fsdp"), scale=0.02)
+            self.dec_pos = init.dense((DEC_POS_ROWS, d), ("seq", "embed_fsdp"), scale=0.02)
             self.enc_stacks = B.init_stack(init, cfg, ("enc",), cfg.encoder_layers)
             self.stacks = B.init_stack(init, cfg, ("dec",), cfg.num_layers)
             self.enc_norm = B._init_norm(init, cfg)
@@ -130,6 +150,25 @@ class LM(nn.Module):
             self.cross_stacks = B.init_stack(init, cfg, ("cross",), n_cross)
         else:
             raise ValueError(fam)
+        self._param_axes = {n: p.logical_axes for n, p in self.named_parameters()}
+        self.data_share: DataShare | None = None
+
+    def param_axes(self) -> dict[str, tuple]:
+        """{parameter name: the reference's logical axes of that leaf}; a
+        leaf unrolled out of a layer stack drops the stack's leading
+        'layers' entry."""
+        return dict(self._param_axes)
+
+    @contextlib.contextmanager
+    def sharing(self, share: DataShare | None):
+        """Inside the block, ``loss_fn``'s batch is one data-parallel rank's
+        share (None: the whole batch).  The setting is the model's, not the
+        thread's, so a recomputation in the backward pass sees it too."""
+        prev, self.data_share = self.data_share, share
+        try:
+            yield
+        finally:
+            self.data_share = prev
 
     @property
     def device(self) -> torch.device:
@@ -178,7 +217,8 @@ class LM(nn.Module):
         return x, caches, aux
 
     def _layer_body(self, layer, x, kind: str, window: int, mem):
-        x, _, a = B.block_train(layer, x, self.cfg, kind, window=window, memory=mem)
+        x, _, a = B.block_train(layer, x, self.cfg, kind, window=window, memory=mem,
+                                share=self.data_share)
         return x, a
 
     def _run_stack_decode(self, stack, x, caches, pos, kind: str, window: int, *,
@@ -291,7 +331,10 @@ class LM(nn.Module):
         cross-entropy, streamed over ``loss_chunk`` positions at a time so
         that the (B, S, vocab) logits never exist at once, plus 0.01 x the
         MoE load-balance loss.  Differentiable with respect to the
-        parameters (turn their ``requires_grad`` on)."""
+        parameters (turn their ``requires_grad`` on).  Under a
+        :class:`DataShare` of n ranks, the NLL's divisor is the global
+        token count (n x this batch's) and ``aux`` is divided by n: the
+        ranks' losses and metrics sum to the global batch's."""
         cfg = self.cfg
         h, _, aux = self._backbone(batch, collect=False)
         labels = batch["labels"]
@@ -303,7 +346,9 @@ class LM(nn.Module):
         for i in range(nch):
             total = total + remat(cfg, self._chunk_nll, h[:, i * c:(i + 1) * c],
                                   labels[:, i * c:(i + 1) * c])
-        nll = total / labels.numel()
+        n = 1 if self.data_share is None else self.data_share.size
+        nll = total / (labels.numel() * n)
+        aux = aux / n
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     def bind_params(self, params: dict[str, torch.Tensor]) -> None:
@@ -385,54 +430,66 @@ class LM(nn.Module):
     def _zeros(self, shape, dtype=None) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype or self.cfg.param_dtype, device=self.device)
 
-    def init_caches(self, b: int, cache_len: int) -> dict:
-        """Zeroed caches on the model's device (the reference's tree; its
-        logical axes are mesh placement and are not returned).  Every leaf
-        is its own tensor, since decode writes into them."""
+    def init_caches(self, b: int, cache_len: int) -> tuple[dict, dict]:
+        """(zeroed caches on the model's device, their logical axes): the
+        reference's two parallel trees.  Every cache leaf is its own tensor,
+        since decode writes into them."""
         cfg = self.cfg
+        kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        mem_axes = KVCache(k=("layers", "batch", "frames", "kv_heads", "head_dim"),
+                           v=("layers", "batch", "frames", "kv_heads", "head_dim"))
 
         def kv(n, s):
             shape = (n, *self._kv_shape(b, s))
             if cfg.kv_cache_dtype == "int8":
                 sc = (n, b, s, cfg.n_kv_heads)
-                return QuantKVCache(k=self._zeros(shape, torch.int8),
-                                    v=self._zeros(shape, torch.int8),
-                                    k_scale=self._zeros(sc, torch.float32),
-                                    v_scale=self._zeros(sc, torch.float32))
-            return KVCache(k=self._zeros(shape), v=self._zeros(shape))
+                sc_axes = ("layers", "batch", "kv_seq", "kv_heads")
+                return (QuantKVCache(k=self._zeros(shape, torch.int8),
+                                     v=self._zeros(shape, torch.int8),
+                                     k_scale=self._zeros(sc, torch.float32),
+                                     v_scale=self._zeros(sc, torch.float32)),
+                        QuantKVCache(k=kv_axes, v=kv_axes, k_scale=sc_axes, v_scale=sc_axes))
+            return KVCache(k=self._zeros(shape), v=self._zeros(shape)), KVCache(kv_axes, kv_axes)
 
         fam = cfg.family
         caches: dict[str, Any] = {}
+        axes: dict[str, Any] = {}
         if fam in ("dense", "moe"):
             pat = _pattern(cfg)
             groups = cfg.num_layers // len(pat)
             for i, (_, window) in enumerate(pat):
-                caches[f"kv{i}"] = kv(groups, self._cache_len(window, cache_len))
+                caches[f"kv{i}"], axes[f"kv{i}"] = kv(groups,
+                                                      self._cache_len(window, cache_len))
         elif fam == "ssm":
-            caches["kv0"] = self._ssm_cache(cfg.num_layers, b)
+            caches["kv0"], axes["kv0"] = self._ssm_cache(cfg.num_layers, b)
         elif fam == "hybrid":
-            caches["ssm"] = self._ssm_cache(cfg.num_layers, b)
-            caches["shared_kv"] = kv(cfg.num_layers // cfg.attn_every, cache_len)
+            caches["ssm"], axes["ssm"] = self._ssm_cache(cfg.num_layers, b)
+            caches["shared_kv"], axes["shared_kv"] = kv(cfg.num_layers // cfg.attn_every,
+                                                        cache_len)
         elif fam == "encdec":
-            caches["kv0"] = kv(cfg.num_layers, cache_len)
+            caches["kv0"], axes["kv0"] = kv(cfg.num_layers, cache_len)
             m = (cfg.num_layers, *self._kv_shape(b, cfg.encoder_seq))
             caches["cross_mem"] = KVCache(k=self._zeros(m), v=self._zeros(m))
+            axes["cross_mem"] = mem_axes
         elif fam == "vlm":
             n_cross = cfg.num_layers // cfg.cross_every
             for g in range(n_cross):
-                caches[f"kv{g}"] = kv(cfg.cross_every, cache_len)
+                caches[f"kv{g}"], axes[f"kv{g}"] = kv(cfg.cross_every, cache_len)
             m = (n_cross, *self._kv_shape(b, cfg.vision_seq))
             caches["cross_mem"] = KVCache(k=self._zeros(m), v=self._zeros(m))
+            axes["cross_mem"] = mem_axes
         else:
             raise ValueError(fam)
-        return caches
+        return caches, axes
 
-    def _ssm_cache(self, n: int, b: int) -> SSMCache:
+    def _ssm_cache(self, n: int, b: int) -> tuple[SSMCache, SSMCache]:
         cfg = self.cfg
-        return SSMCache(
+        return (SSMCache(
             state=self._zeros((n, b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
                               torch.float32),
-            conv=self._zeros((n, b, cfg.ssm_conv - 1, conv_dim(cfg))))
+            conv=self._zeros((n, b, cfg.ssm_conv - 1, conv_dim(cfg)))),
+            SSMCache(state=("layers", "batch", "ssm_heads", None, "ssm_state"),
+                     conv=("layers", "batch", None, "inner")))
 
 
 def build_model(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> LM:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, Initializer, Params
+from repro_torch.models.common import ArchConfig, DataShare, Initializer, Params
 from repro_torch.models.mlp import init_mlp, mlp_fwd
 
 __all__ = ["init_moe", "moe_fwd"]
@@ -26,12 +26,13 @@ def init_moe(init: Initializer, cfg: ArchConfig) -> Params:
     d = cfg.d_model
     e = cfg.pad_experts_to or cfg.num_experts  # padded experts are never routed to
     f = cfg.moe_d_ff or cfg.d_ff
-    p = dict(router=init.dense((d, cfg.num_experts), scale=0.02),
-             w_gate=init.dense((e, d, f)), w_up=init.dense((e, d, f)),
-             w_down=init.dense((e, f, d)))
+    p = dict(router=init.dense((d, cfg.num_experts), ("embed", "expert"), scale=0.02),
+             w_gate=init.dense((e, d, f), ("expert", "embed_fsdp", "expert_ffn")),
+             w_up=init.dense((e, d, f), ("expert", "embed_fsdp", "expert_ffn")),
+             w_down=init.dense((e, f, d), ("expert", "expert_ffn", "embed_fsdp")))
     if cfg.shared_d_ff:
         p["shared"] = init_mlp(init, cfg, d_ff=cfg.shared_d_ff)
-        p["shared_gate"] = init.dense((d, 1), scale=0.02)
+        p["shared_gate"] = init.dense((d, 1), ("embed", None), scale=0.02)
     return Params(**p)
 
 
@@ -40,9 +41,14 @@ def _capacity(cfg: ArchConfig, tokens: int) -> int:
     return max(8, (cap + 7) // 8 * 8)
 
 
-def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, *, renorm: bool = True):
+def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, *, renorm: bool = True,
+            share: DataShare | None = None):
     """x: (B, S, D) -> (y, aux_loss).  Dispatch is per batch row; capacity
-    is per (row, expert): S·k·cf/E slots."""
+    is per (row, expert): S·k·cf/E slots.  With ``share`` (the B rows are one
+    data-parallel rank's) the load-balance loss takes the fraction routed to
+    each expert over every rank's rows (the counts summed across the ranks,
+    no gradient through them) and this rank's mean probabilities: the
+    ranks' values then average to the global batch's."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     e_pad = cfg.pad_experts_to or e
@@ -57,7 +63,11 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, *, renorm: bool = True):
 
     # Load-balance loss: E * sum_e (fraction routed to e) * (mean prob of e).
     counts = torch.bincount(eidx.reshape(-1), minlength=e).float()
-    frac = counts / (b * s)
+    n_rows = b
+    if share is not None:
+        counts = share.all_reduce(counts)
+        n_rows = b * share.size
+    frac = counts / (n_rows * s)
     pbar = torch.mean(probs, dim=(0, 1))
     aux = e * torch.sum(frac * pbar)
 

@@ -35,14 +35,14 @@ def init_ssm(init: Initializer, cfg: ArchConfig) -> Params:
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj_out = 2 * di + 2 * n + h  # z, x, B, C, dt
     return Params(
-        in_proj=init.dense((d, proj_out)),
-        conv_w=init.dense((cfg.ssm_conv, conv_dim(cfg)), scale=0.5),
-        conv_b=init.zeros((conv_dim(cfg),)),
-        A_log=init.zeros((h,)),
-        D=init.ones((h,)),
-        dt_bias=init.zeros((h,)),
-        norm_w=init.ones((di,)),
-        out_proj=init.dense((di, d)))
+        in_proj=init.dense((d, proj_out), ("embed_fsdp", "inner")),
+        conv_w=init.dense((cfg.ssm_conv, conv_dim(cfg)), (None, "inner"), scale=0.5),
+        conv_b=init.zeros((conv_dim(cfg),), ("inner",)),
+        A_log=init.zeros((h,), ("ssm_heads",)),
+        D=init.ones((h,), ("ssm_heads",)),
+        dt_bias=init.zeros((h,), ("ssm_heads",)),
+        norm_w=init.ones((di,), ("inner",)),
+        out_proj=init.dense((di, d), ("inner", "embed_fsdp")))
 
 
 def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):

@@ -75,14 +75,17 @@ def adamw_init(params: dict) -> dict:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict, *,
-                 ndims: dict | None = None) -> tuple[dict, dict, dict]:
+                 ndims: dict | None = None,
+                 grad_norm: torch.Tensor | None = None) -> tuple[dict, dict, dict]:
     """One step: (params, state, {"grad_norm", "lr"}), the parameters and
     moments updated in place (the same tensors returned).  ``grads`` may
     hold any float dtype (each leaf is taken in float32); ``grad_norm`` is
-    the norm before clipping.  ``ndims[name]`` is the reference's ndim of
-    that leaf (default: the tensor's own), which decides its decay."""
+    the norm before clipping: ``global_norm(grads)`` unless given (a
+    data-parallel rank updates its piece of each leaf with the norm of the
+    whole gradient).  ``ndims[name]`` is the reference's ndim of that leaf
+    (default: the tensor's own), which decides its decay."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)
@@ -106,6 +109,5 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict, *,
 
 
 def opt_state_axes(params_axes):
-    """Logical axes for the optimizer state (moments mirror the params);
-    the reference's mesh placement, kept for the multi-device half."""
+    """Logical axes for the optimizer state (moments mirror the params)."""
     return {"m": params_axes, "v": params_axes, "step": ()}

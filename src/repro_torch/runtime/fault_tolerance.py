@@ -7,8 +7,18 @@
     step).
   * ``StragglerMonitor`` — per-step deadline tracking; p50/p95 and the
     steps that exceeded ``deadline_factor`` x p50.
-  * ``elastic_restore`` — restore under a new mesh's placement: refused
-    until the multi-device training half (ROADMAP queue 1 item 8b-ii).
+  * ``elastic_restore`` — restore a checkpoint under a new mesh's
+    placement (written at N ranks, restored onto M, or onto one process).
+
+Over a rank mesh every rank runs the same loop on its pieces of the state
+(``shardings``): each checkpoint is gathered and written by rank 0; a
+failure is injected at the same step on every rank, and before restoring
+every rank waits for rank 0's writes to commit (``ckpt.wait()``, then a
+barrier) and restores the step rank 0 broadcasts, so no rank restores a
+step rank 0 has not committed.  In one process too the runner waits for
+the pending writes before it reads the latest step; the reference reads
+it first, and a failure right after an asynchronous save can restart it
+from an older step.
 
 The port's train step updates its state IN PLACE (``optim.adamw``), so
 the state the loop started from is gone after the first step.  The
@@ -25,6 +35,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 
@@ -120,6 +132,18 @@ class TrainRunner:
     ckpt_every: int = 50
     max_restarts: int = 3
     registry: Any = None  # optional obs registry (straggler + restart metrics)
+    shardings: Any = None  # the state's Sharding tree over a rank mesh; None: one process
+
+    def _latest_committed(self) -> int | None:
+        """The latest committed step, once every pending write has landed;
+        over ranks, rank 0's (after a barrier), the same on every rank."""
+        self.ckpt.wait()
+        if self.shardings is None:
+            return self.ckpt.latest_step()
+        dist.barrier()
+        box = [self.ckpt.latest_step() if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     def run(self, state: Any, *, start_step: int = 0, num_steps: int = 100,
             fail_at: dict[int, int] | None = None, log_every: int = 0,
@@ -150,14 +174,14 @@ class TrainRunner:
                     print(f"step {step}: {metrics} ({dt*1e3:.1f} ms)")
                 step += 1
                 if step % self.ckpt_every == 0:
-                    self.ckpt.save(step, state)
+                    self.ckpt.save(step, state, shardings=self.shardings)
             except Exception:
                 restarts += 1
                 if self.registry is not None:
                     self.registry.counter("runtime.restarts").add(1)
                 if restarts > self.max_restarts:
                     raise
-                latest = self.ckpt.latest_step()
+                latest = self._latest_committed()
                 if latest is None:
                     # Nothing committed yet: cold restart from the INITIAL
                     # state (the partially-advanced one must not leak into
@@ -166,13 +190,12 @@ class TrainRunner:
                     step = start_step
                     history.clear()
                     continue
-                self.ckpt.wait()
-                state = self.ckpt.restore(latest, template)
+                state = self.ckpt.restore(latest, template, shardings=self.shardings)
                 # Steps in (latest, step) are rolled back and WILL re-run:
                 # their metric rows go.
                 del history[max(latest - start_step, 0):]
                 step = latest
-        self.ckpt.wait()
+        self._latest_committed()
         return state, {
             "restarts": restarts,
             "straggler_steps": monitor.straggler_steps,
@@ -184,8 +207,8 @@ class TrainRunner:
 
 def elastic_restore(ckpt: CheckpointManager, step: int, template: Any,
                     new_shardings: Any) -> Any:
-    """Restore a checkpoint onto a different mesh (elastic re-shard): the
-    leaves re-placed under ``new_shardings``.  Refused by
-    ``CheckpointManager.restore(shardings=...)`` until the multi-device
-    training half (ROADMAP queue 1 item 8b-ii)."""
+    """Restore a checkpoint onto a different mesh (elastic re-shard).  The
+    checkpoint holds full leaves, so placing them under the new mesh's
+    ``new_shardings`` (None: one process) is a slice per rank, no
+    collective."""
     return ckpt.restore(step, template, shardings=new_shardings)

@@ -70,7 +70,7 @@ def check_lm_parity(arch: str, *, b: int = 2, s: int = 64, cache_len: int = 16,
     ties = assert_caches_close(j_caches, caches, f"{arch} prefill")
 
     j_caches, _ = jm.init_caches(b, cache_len)
-    caches = model.init_caches(b, cache_len)
+    caches, _ = model.init_caches(b, cache_len)
     j_step = jax.jit(jm.decode_step)
     toks = batch["tokens"]
     for t in range(decode_steps):

@@ -97,12 +97,31 @@ def test_tree_metadata_equals_the_references(tmp_path):
 
 
 def test_restore_refuses_shardings_and_shape_drift(tmp_path):
+    """``shardings=`` places each rank's piece of a stored leaf (a template
+    of the piece's shape or the full one), a bf16 leaf too; a template of
+    any other shape is refused, with shardings or without."""
+    from _torch_dist import rank_view
+    from repro_torch.distributed.sharding import tree_shardings
+
     mgr = CheckpointManager(str(tmp_path), async_save=False)
-    mgr.save(1, {"a": np.zeros(3, np.float32)})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mgr.restore(1, {"a": np.zeros(3)}, shardings={"a": None})
+    full = {"a": torch.arange(24.0).reshape(4, 6),
+            "h": (torch.arange(8.0) / 3).to(torch.bfloat16)}
+    mgr.save(1, full)
+    axes = {"a": ("embed_fsdp", "ffn"), "h": ("embed_fsdp",)}
+    pieces = []
+    for r in range(2):
+        mesh = rank_view((2, 3), ("data", "model"), (r, 1))
+        sh = tree_shardings(axes, full, mesh)
+        like = {"a": torch.zeros(2, 2), "h": torch.zeros(8, dtype=torch.bfloat16)}
+        got = mgr.restore(1, like, shardings=sh)
+        assert torch.equal(got["a"], full["a"][2 * r:2 * r + 2, 2:4])
+        assert torch.equal(got["h"], full["h"][4 * r:4 * r + 4])
+        pieces.append(got["h"])
+        with pytest.raises(ValueError, match="shape"):
+            mgr.restore(1, {"a": torch.zeros(3, 2), "h": like["h"]}, shardings=sh)
+    assert torch.equal(torch.cat(pieces), full["h"])
     with pytest.raises(ValueError, match="shape"):
-        mgr.restore(1, {"a": np.zeros(4)})
+        mgr.restore(1, {"a": np.zeros((4, 7)), "h": np.zeros(8)})
 
 
 @pytest.fixture(scope="module")

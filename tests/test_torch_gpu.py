@@ -8,9 +8,11 @@ fused scan for IVF), the sharded walk (its sliced-slab launches against
 the plain version, a two-rank gloo engine against the host-simulated walk),
 the tracer's fence, every LM family's prefill and decode and its train
 step (loss, gradients, one AdamW step) on the card against the same
-seeded model on the CPU, a bf16 train state's checkpoint, and a restarted
-``launch.train`` run against an uninterrupted one (needs no JAX, so it
-runs where only the port is installed).
+seeded model on the CPU, a bf16 train state's checkpoint, a restarted
+``launch.train`` run against an uninterrupted one, and two gloo ranks on
+the card (the int8 error-feedback all-reduce, a data-parallel train step)
+against the same on the CPU (needs no JAX, so it runs where only the port
+is installed).
 
 Marked ``gpu``: they skip by name where ``torch.cuda.is_available()`` is
 false, since a CUDA kernel has no CPU mode.  On the card:
@@ -633,7 +635,7 @@ def test_cuda_lm_matches_cpu(arch, monkeypatch):
     lg, cg = card.prefill({k: v.cuda() for k, v in batch.items()})
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     lm_caches_close(cc, cg, rtol=1e-4, atol=1e-4, what=f"{arch} prefill")
-    cc, cg = cpu.init_caches(b, 16), card.init_caches(b, 16)
+    (cc, _), (cg, _) = cpu.init_caches(b, 16), card.init_caches(b, 16)
     for t in range(4):
         tok = batch["tokens"][:, t:t + 1]
         lc, cc = cpu.decode_step(tok, cc, t)
@@ -773,3 +775,52 @@ def test_cuda_bf16_attention_backward_matches_cpu():
         scale = want.float().abs().max().item()
         torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
                                    atol=2e-2 * scale)
+
+
+def _two_gloo_ranks_on_the_card(fn, tmp_path, *args):
+    from repro_torch.launch.mesh import spawn
+    return spawn(fn, 2, backend="gloo", init_file=str(tmp_path / "init"), args=args,
+                 device="cuda").join(timeout_s=300)
+
+
+@pytest.mark.gpu
+def test_cuda_compressed_grad_allreduce_over_gloo_matches_cpu(tmp_path):
+    """Two ranks on the card over gloo: the int8 error-feedback all-reduce of
+    CUDA tensors (staged through the host) equals the same call on CPU
+    tensors bit for bit, on every rank."""
+    import numpy as np
+
+    import _torch_dist
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    g = {"w": rng.standard_normal((64, 48)).astype(np.float32),
+         "b": (rng.standard_normal(48) * 1e-3).astype(np.float32)}
+    e = {k: (rng.standard_normal(v.shape) * 1e-3).astype(np.float32) for k, v in g.items()}
+    out = _two_gloo_ranks_on_the_card(_torch_dist.codec_devices_rank, tmp_path, g, e)
+    for cpu, card in out.values():
+        for c, d in zip(cpu, card):
+            for k in g:
+                assert np.array_equal(c[k], d[k]), k
+
+
+@pytest.mark.gpu
+def test_cuda_data_parallel_train_step_matches_cpu(tmp_path):
+    """A 2-rank data-parallel train step of a reduced MoE model on the card
+    (gloo) equals the same step on the CPU within 1e-4: loss, every summed
+    gradient leaf, every parameter after one AdamW step at lr 3e-5."""
+    import numpy as np
+
+    import _torch_dist
+    from repro_torch.data.pipeline import TokenPipeline
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = reduced_config("qwen2-moe-a2.7b")
+    batch = TokenPipeline(vocab_size=cfg.vocab_size, batch=4, seq=64, seed=2).batch_at(0)
+    out = _two_gloo_ranks_on_the_card(_torch_dist.dp_step_devices_rank, tmp_path,
+                                      "qwen2-moe-a2.7b", batch, 3e-5)
+    for (lc, gc, pc), (lg, gg, pg) in out.values():
+        np.testing.assert_allclose(lg, lc, rtol=1e-4, atol=1e-4)
+        for k in gc:
+            np.testing.assert_allclose(gg[k], gc[k], rtol=1e-4, atol=1e-4, err_msg=k)
+            np.testing.assert_allclose(pg[k], pc[k], rtol=1e-4, atol=1e-4, err_msg=k)

@@ -106,8 +106,9 @@ def test_full_config_meta_trees_match_reference(arch):
 
     for shape in specs.SHAPES:
         j_spec, j_batch, _ = j_specs.input_specs(j_configs.get_config(arch), shape)
-        p_spec, batch = specs.input_specs(cfg, shape)
+        p_spec, batch, baxes = specs.input_specs(cfg, shape)
         assert dataclasses.asdict(p_spec) == dataclasses.asdict(j_spec)
+        assert baxes == j_specs.input_specs(j_configs.get_config(arch), shape)[2]
         assert _tree_specs(batch) == _tree_specs(j_batch)
     (batch,) = build_cell(arch, "prefill_32k", device="meta").args
     assert _tree_specs(batch) == _tree_specs(j_specs.input_specs(
@@ -118,9 +119,9 @@ def test_full_config_meta_trees_match_reference(arch):
 def test_train_cell_is_refused_by_name(arch, tmp_path):
     """The train cell is built for every architecture at full config (on
     ``meta``): the train step with the model bound, parameter and float32
-    moment specs of the model's shapes, the train_4k batch.  Only the
-    multi-device half of training stays refused by name (placing a
-    restored state on a mesh)."""
+    moment specs of the model's shapes, the train_4k batch.  Nothing of the
+    multi-device half is refused any more: a restored leaf is placed on a
+    data mesh as its rank's piece."""
     cell = build_cell(arch, "train_4k", device="meta")
     params, opt_state, batch = cell.args
     own = dict(cell.model.named_parameters())
@@ -130,11 +131,15 @@ def test_train_cell_is_refused_by_name(arch, tmp_path):
                for m in ("m", "v") for k, v in own.items())
     assert batch["labels"].shape == batch["tokens"].shape == (256, 4096)
     assert all(p.requires_grad for p in own.values())
+    from _torch_dist import rank_view
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed.sharding import tree_shardings
     mgr = CheckpointManager(str(tmp_path), async_save=False)
-    mgr.save(0, {"a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 8b-ii"):
-        mgr.restore(0, {"a": torch.zeros(2)}, shardings={})
+    mgr.save(0, {"a": torch.arange(4.0)})
+    sh = tree_shardings({"a": ("batch",)}, {"a": (4,)}, rank_view((2, 1), ("data", "model"),
+                                                                 (1, 0)))
+    assert torch.equal(mgr.restore(0, {"a": torch.zeros(2)}, shardings=sh)["a"],
+                       torch.tensor([2.0, 3.0]))
 
 
 @pytest.mark.parametrize("shape", list(j_specs.SHAPES))

@@ -387,10 +387,38 @@ def test_runner_failure_before_first_checkpoint_restarts_from_initial_state(tmp_
 
 
 def test_elastic_restore_refuses_by_name(tmp_path):
+    """A one-process checkpoint of a reduced model's (params, opt_state)
+    restored onto each rank of a (2, 1) data mesh (``elastic_restore`` with
+    that rank's shardings): the two ranks' pieces tile every leaf, and a
+    leaf whose ``embed_fsdp`` dimension does not divide stays whole."""
+    from _torch_dist import rank_view
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.optim.adamw import opt_state_axes
+
+    model = build_model(reduced_config("gemma-2b"), device="cpu")
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    state = (params, adamw_init(params))
     mgr = CheckpointManager(str(tmp_path), async_save=False)
-    mgr.save(1, _ck_tree())
-    with pytest.raises(NotImplementedError, match="8b-ii"):
-        elastic_restore(mgr, 1, _ck_tree(), new_shardings={})
+    mgr.save(1, state)
+    axes = (model.param_axes(), opt_state_axes(model.param_axes()))
+    got = []
+    for r in range(2):
+        mesh = rank_view((2, 1), ("data", "model"), (r, 0))
+        got.append(elastic_restore(mgr, 1, state,
+                                   tree_shardings(axes, (params, state[1]), mesh)))
+    sh = tree_shardings(axes[0], params, rank_view((2, 1), ("data", "model"), (0, 0)))
+    split = 0
+    for k, p in params.items():
+        spec = sh[k].spec
+        dim = next((i for i, part in enumerate(spec) if part and "data" in part), None)
+        if dim is None:
+            assert all(torch.equal(g[0][k], p) for g in got), k
+            continue
+        split += 1
+        assert torch.equal(torch.cat([g[0][k] for g in got], dim=dim), p), k
+    assert split > 0 and all(int(g[1]["step"]) == 0 for g in got)
+    assert elastic_restore(mgr, 1, state, None)[0]["tok_embed"].shape == params[
+        "tok_embed"].shape
 
 
 # ---- a reduced dense model's steps against the reference ----------------------
@@ -561,6 +589,46 @@ def test_train_cli_restarts_and_matches_uninterrupted_run(tmp_path, capsys, fail
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--grad-compress"]])
-def test_train_cli_refuses_multi_device_flags_by_name(flags, tmp_path):
-    with pytest.raises(SystemExit, match="8b-ii"):
-        t_train.main(["--reduced", "--device", "cpu", "--ckpt-dir", str(tmp_path)] + flags)
+def test_train_cli_refuses_multi_device_flags_by_name(flags, tmp_path, capsys):
+    """The reference's multi-device flags, served: ``--devices 2`` (2 gloo
+    CPU ranks) trains as one process does, its losses and grad norms within
+    1e-5 and its step-4 checkpoint within float32 rounding (a near-zero
+    gradient's sign may flip Adam's step: at most 1e-3 of a leaf, by at
+    most 2 lr a step); ``--grad-compress`` in one process checkpoints its
+    error buffer beside the state, and a run restarted from it after a
+    failure ends equal to an uninterrupted one bit for bit."""
+    base = ["--arch", "mamba2-130m", "--reduced", "--device", "cpu", "--batch", "4",
+            "--seq", "32", "--lr", "3e-3"]
+    model = build_model(reduced_config("mamba2-130m"), device="cpu")
+    full = {k: v.detach() for k, v in model.named_parameters()}
+    if flags[0] == "--devices":
+        base += ["--steps", "4", "--ckpt-every", "4"]
+        _, info = t_train.main(base + flags + ["--ckpt-dir", str(tmp_path / "a")])
+        out = capsys.readouterr().out
+        assert info["restarts"] == 0 and len(info["history"]) == 4
+        mgr = CheckpointManager(str(tmp_path / "a"))
+        assert "[ranks] 2 ranks over gloo on cpu" in out
+        _, one = t_train.main(base + ["--ckpt-dir", str(tmp_path / "b")])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose([h[key] for h in info["history"]],
+                                       [h[key] for h in one["history"]], rtol=1e-5, atol=1e-5)
+        like = (full, adamw_init(full), None)
+        got = mgr.restore(4, like)
+        want = CheckpointManager(str(tmp_path / "b")).restore(4, like)
+        for k in full:
+            g, w = got[0][k].numpy(), want[0][k].numpy()
+            bad = ~np.isclose(g, w, rtol=1e-5, atol=1e-5)
+            assert bad.sum() <= 1e-3 * g.size and np.abs(g - w).max() <= 2 * 3e-3 * 4, k
+        return
+    base += ["--steps", "10", "--ckpt-every", "5"] + flags
+    state, info = t_train.main(base + ["--fail-at", "7", "--ckpt-dir", str(tmp_path / "a")])
+    ref, ref_info = t_train.main(base + ["--ckpt-dir", str(tmp_path / "b")])
+    assert info["restarts"] == 1 and ref_info["restarts"] == 0
+    assert [h["loss"] for h in info["history"]] == [h["loss"] for h in ref_info["history"]]
+    for part in (0, 2):  # the parameters and the error buffer
+        assert all(torch.equal(state[part][k], ref[part][k]) for k in full)
+    zeros = {k: torch.zeros(v.shape) for k, v in full.items()}
+    _, opt, ebuf = CheckpointManager(str(tmp_path / "a")).restore(
+        10, (full, adamw_init(full), zeros))
+    assert int(opt["step"]) == 10 and any(float(e.abs().max()) > 0 for e in ebuf.values())
+    assert all(torch.equal(ebuf[k], ref[2][k]) for k in full)
