@@ -201,6 +201,29 @@ on any fault.  Phases, one line each:
      restored in one process (``elastic_restore``), every leaf's sha256
      equal to the 2-rank leaves', written again by that process and
      restored onto the two ranks, the gathered leaves' sha256 the same.
+ 19. the launch tooling (``launch.{op_census, roofline, dryrun, perf,
+     report}``): (a) ``python -m repro_torch.launch.dryrun`` of every cell
+     on both production layouts (16 x 16 and 2 x 16 x 16 ranks, on
+     ``device="meta"``), started at phase 1 beside the card phases (niced,
+     one torch thread a worker) and collected after phase 18: no record an
+     error, the skips the reference's (long_500k for the six
+     full-attention architectures, its words), every ``argument_bytes``
+     the sum of ``spec_bytes`` of the cell's in_shardings (recomputed
+     here), the dry run's wall time, the cells whose argument + temp bytes
+     a rank exceed the card's 80 GB, and ``roofline --md`` / ``report``
+     over the records; (b) one more step of phase 17(a)'s gemma-2b under
+     ``op_census.census`` on the card, against the same cell's census on
+     meta at the same rows (also started at phase 1): FLOPs equal exactly,
+     the bytes side by side with the ops that differ, the FLOPs beside
+     ``lm_train_flops``, the one-card roofline bound beside 17(a)'s
+     measured step, the allocator's peak beside the census's; (c) phase
+     5's served batch through ``build_search_step`` under the census: the
+     kernel's reported operations and bytes equal phase 5's
+     (``ivf_scan.work`` on the same counters), and (checked in (a)) the
+     least work the same step counts on meta, in the dry run's
+     ``dade-ivf`` record, is no more.  Every figure of (a) and of the
+     bound in (b) is a count at the H100's data-sheet constants
+     (``launch.roofline``), not a measurement.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -241,12 +264,15 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T_START = time.perf_counter()
+
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# The H100 SXM's data-sheet peaks at 700 W, from the port's roofline.
+from repro_torch.launch.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_FP32_INSTR, PEAK_INT8_OPS)
+
 DEV = "cuda"
-# Published dense peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
-PEAK_INT8_OPS = 1979e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # l2_scan's time at 1024 x 2^20 x 256 before its register-tiled body: the
 # 16 x 128 screen skeleton's no-screen mode, in this script's final run on
 # the commit that shipped it.
@@ -257,10 +283,6 @@ L2_SCAN_BEFORE_MS = 43.503
 # shipped the redesign's parent, on an NVIDIA H100 80GB HBM3 at 700.00 W.
 DADE_DCO_BEFORE_MS = 25.741
 QUANT_DCO_BEFORE_MS = 35.322
-# fp32 instructions a second of one H100 SXM at its 1.98 GHz boost clock
-# (128 lanes x 132 SMs): the rate of the screens' separate rounded
-# multiplies and adds, half the FMA-counted PEAK_FP32_FLOPS.
-PEAK_FP32_INSTR = 128 * 132 * 1.98e9
 # Requests served per run (each about 1.25 batches of 1024 queries), so
 # that a timed window lasts seconds: phase 4's flat serving (one run per
 # shard count) and phase 8's graph serving (SERVE_RUNS runs over the same
@@ -366,8 +388,16 @@ DP_DRILL_ARGS = ["--arch", DP_ARCH, "--devices", str(DP_RANKS), "--grad-compress
                  "--batch", str(DP_BATCH), "--seq", str(DP_SEQ), "--ckpt-every", "10",
                  "--fail-at", "13"]
 DP_DRILL_STEP = 20
-# Published dense bf16 peak of one H100 SXM (NVIDIA data sheet), at 700 W.
-PEAK_BF16_FLOPS = 989e12
+# Phase 19: the launch tooling.  The dry run of every cell on both
+# production layouts runs beside phases 1-18 (DRYRUN_JOBS worker processes
+# at one torch thread each, niced), as does gemma-2b's train_4k step on
+# meta at TRAIN_BATCH rows; the wall seconds of 19's own parts, by part.
+# Four workers (done in 168-214 s) slowed phases 2-5 by about 30 s on the
+# card's 8-vCPU host; two leave a core to the card phases.
+DRYRUN_JOBS = 2
+PHASE19_S: dict = {}
+# 19(c)'s census row of the served ivf_scan launch, for 19(a)'s meta bound.
+CENSUS_FLAT: dict = {}
 
 
 def log(msg: str) -> None:
@@ -670,23 +700,14 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     del design
 
     qn, n, dim = qb.shape[0], srv.rows.shape[0], svc.dim
-    bq, bc, bd = kw["block_q"], kw["block_c"], kw["block_d"]
-    st = st_k.double()
-    # Operations this run's data needs: one multiply-add per int8 dim each
-    # (query, row) pair consumed before it retired (stats column 0) and per
-    # fp dim stage 2 consumed (column 1), in float32 outside the tensor
-    # cores (TF32 would not keep the distances exact).
-    int8_ops = 2.0 * float(st[:, 0].sum())
-    fp32_ops = 2.0 * float(st[:, 1].sum())
-    ops_s = int8_ops / PEAK_INT8_OPS + fp32_ops / PEAK_FP32_FLOPS
-    # Bytes: codes and ids once, the queries and their tables, the fp slabs
-    # at least one query tile needed (the largest per-tile count bounds the
-    # distinct slabs from below), and the outputs.
-    slab_bytes = float(st[::bq, 4].max()) * bc * bd * srv.rows.element_size()
-    in_bytes = (n * dim + 4 * n + qn * dim * 5 + qn * (dim // bd) * 4 + qn * 4
-                + slab_bytes)
-    out_bytes = qn * svc.k * 8 + qn * 6 * 4
-    bytes_s = (in_bytes + out_bytes) / PEAK_BYTES
+    bq = kw["block_q"]
+    # The work this run's data needed (``ivf_scan.work`` on the kernel's
+    # counters): int8 and fp32 multiply-adds, and the bytes it must move.
+    work = ivf_scan.work(queries=qn, rows=n, dim=dim, k=svc.k, block_q=bq,
+                         block_c=kw["block_c"], block_d=kw["block_d"],
+                         row_bytes=srv.rows.element_size(), stats=st_k)
+    ops_s = work["int8_ops"] / PEAK_INT8_OPS + work["fp32_ops"] / PEAK_FP32_FLOPS
+    bytes_s = work["bytes"] / PEAK_BYTES
     entry = {
         "name": "ivf_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ivf_scan.cu",
@@ -705,7 +726,38 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         f"({entry['bound_by']}) library_ms(_int_mm {qn}x{n}x{dim})={library_ms:.3f} "
         f"at block_q={bq} segments={SHARDS} on {card}; phases 2-5 took "
         f"{time.perf_counter() - t_start:.0f}s")
+    census_flat(svc, srv, qb, work, card)
     return entry, served
+
+
+def census_flat(svc, srv, qb, work: dict, card: str) -> None:
+    """Phase 19(c): the served flat step (phase 5's batch, ``SHARDS``
+    segments) under ``op_census``: the kernel's reported operations and
+    bytes must equal phase 5's ``work`` (the same inputs, the same
+    counters).  The least work the same step counts on meta is held
+    against them in phase 19(a), from the dry run's ``dade-ivf`` record
+    (one rank's step at these shapes), so that this process pays no
+    first use of the meta kernels (5.6 s on the card's host)."""
+    from repro_torch.launch.annservice import SHARDS, build_search_step
+    from repro_torch.launch.op_census import census
+
+    t0 = time.perf_counter()
+    step = build_search_step(svc, with_stats=True, shards=SHARDS)
+    cen = census(step, srv.rows, srv.codes, srv.bscales, qb, srv.eps, srv.scale, srv.eps_lo)
+    sync()
+    got = cen["by_op"]["ivf_scan"]
+    want = {"int8": work["int8_ops"], "fp32": work["fp32_ops"]}
+    check(got["count"] == 1 and got["ops_by_class"] == want and got["bytes"] == work["bytes"],
+          f"launch census (c): the kernel reported {got}, phase 5's work is {want}, "
+          f"{work['bytes']} B")
+    CENSUS_FLAT.update(got, shape=(qb.shape[0], srv.rows.shape[0], qb.shape[1]))
+    PHASE19_S["c"] = time.perf_counter() - t0
+    log(f"launch census (c): the served flat step ({qb.shape[0]} queries, {SHARDS} "
+        f"segments) on the card: ivf_scan reported {want['int8']:.6g} int8 + "
+        f"{want['fp32']:.6g} fp32 ops and {got['bytes']:.6g} B, equal to phase 5's work; "
+        f"the step's census {cen['flops']:.6g} FLOP and {cen['bytes']:.6g} B in "
+        f"{len(cen['by_op'])} ops, peak {cen['peak_bytes'] / 1e9:.3f} GB of tensors the "
+        f"step allocated; {PHASE19_S['c']:.1f}s on {card}")
 
 
 def scan_design(svc, srv, qb, gt, card, *, widths, segment_counts, served) -> dict:
@@ -2713,11 +2765,12 @@ def start_dp_drill(tmp: str) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def run_train(card: str, dp_tmp: str, started: list) -> tuple:
+def run_train(card: str, dp_tmp: str, started: list, launch: dict) -> tuple:
     """Phase 17: LM training on the card (no hand-written kernel on this
-    path).  Starts phase 18's drill once 17(a) is timed, appending it to
-    ``started`` (the caller stops it).  Returns (the uninterrupted
-    trainer's p50 a step (17(c)), the drill's start)."""
+    path), and phase 19(b) on its model (``launch``: the launch tooling's
+    background runs).  Starts phase 18's drill once 17(a) is timed,
+    appending it to ``started`` (the caller stops it).  Returns (the
+    uninterrupted trainer's p50 a step (17(c)), the drill's start)."""
     import gc
     import re
     import tempfile
@@ -2787,6 +2840,7 @@ def run_train(card: str, dp_tmp: str, started: list) -> tuple:
     log(f"train (a): the profiled step ({times[-1] * 1e3:.1f} ms): {profile}")
     log(f"train (a): peak memory {peak / gib:.2f} GB (torch.cuda.max_memory_allocated) of the "
         f"card's {torch.cuda.get_device_properties(0).total_memory / gib:.2f} GB; on {card}")
+    census_train(cell, params, opt_state, pipe.batch_at(n_steps), step_s, flops, launch, card)
     first = pipe.batch_at(0)
     del cell, model, params, opt_state, mets
     gc.collect()
@@ -2833,6 +2887,177 @@ def run_train(card: str, dp_tmp: str, started: list) -> tuple:
         f"{time.perf_counter() - t0:.1f}s")
     log(f"phase 17 took {time.perf_counter() - t_start:.0f}s on {card}")
     return p50["clean"], t_dp
+
+
+def start_launch_tooling(tmp: str) -> dict:
+    """Phase 19's background runs, started at phase 1 beside the card
+    phases (niced, one torch thread each): the dry run of every cell on
+    both production layouts into ``tmp/dryrun``, and gemma-2b's train_4k
+    step on meta at TRAIN_BATCH rows (``launch.perf``) into ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = {"results": os.path.join(tmp, "dryrun"), "meta_json": os.path.join(tmp, "meta.json"),
+           "t0": time.perf_counter()}
+    cmds = {"dryrun": ["-m", "repro_torch.launch.dryrun", "--jobs", str(DRYRUN_JOBS),
+                       "--results", out["results"]],
+            "meta": ["-m", "repro_torch.launch.perf", "--arch", TRAIN_ARCH, "--shape",
+                     "train_4k", "--rows", str(TRAIN_BATCH), "--json", out["meta_json"]]}
+    for name, cmd in cmds.items():
+        log_f = open(os.path.join(tmp, f"{name}.log"), "w")
+        out[name] = subprocess.Popen([sys.executable, *cmd], env=env, cwd=tmp, stdout=log_f,
+                                     stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+        out[f"{name}_log"] = log_f.name
+    return out
+
+
+def _finished(launch: dict, name: str, timeout: float) -> str:
+    """Wait for background run ``name``; its output (it must succeed)."""
+    proc = launch[name]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    text = Path(launch[f"{name}_log"]).read_text()
+    check(proc.returncode == 0, f"launch {name}: rc {proc.returncode}: {text[-3000:]}")
+    return text
+
+
+def census_train(cell, params, opt_state, batch, step_s: float, useful: float,
+                 launch: dict, card: str) -> None:
+    """Phase 19(b): one more train step of phase 17(a)'s gemma-2b under
+    ``op_census`` on the card, against the same cell's census on meta at
+    the same rows (the background ``perf`` run): FLOPs equal exactly; the
+    bytes side by side with the ops whose bytes differ; the census's FLOPs
+    beside ``lm_train_flops``; the one-card roofline bound (compute and
+    memory terms at the H100's data-sheet constants) beside 17(a)'s
+    measured step; the allocator's peak beside the census's."""
+    import torch
+    from repro_torch.launch import perf
+
+    t0 = time.perf_counter()
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
+    res = perf.run(TRAIN_ARCH, "train_4k", device=DEV, cell=cell,
+                   args=(params, opt_state, batch), quiet=True)
+    card_s = time.perf_counter() - t0
+    _finished(launch, "meta", 600)
+    meta = json.loads(Path(launch["meta_json"]).read_text())
+    cen, mcen = res["census"], meta["census"]
+    check(cen["flops"] == mcen["flops"],
+          f"launch census (b): {TRAIN_ARCH}'s FLOPs on the card {cen['flops']} != on meta "
+          f"{mcen['flops']}")
+    diff = sorted(((k, cen["by_op"].get(k, {}).get("bytes", 0),
+                    mcen["by_op"].get(k, {}).get("bytes", 0))
+                   for k in set(cen["by_op"]) | set(mcen["by_op"])
+                   if cen["by_op"].get(k) != mcen["by_op"].get(k)),
+                  key=lambda r: -abs(r[1] - r[2]))
+    ops = "; ".join(f"{k} {a:.4g} / {b:.4g} B" for k, a, b in diff[:6]) or "none"
+    t = res["terms"]
+    bound = max(t["compute"], t["memory"])
+    PHASE19_S["b"] = time.perf_counter() - t0
+    log(f"launch census (b): {TRAIN_ARCH} train_4k at {TRAIN_BATCH} rows, one step under "
+        f"the census on the card ({card_s:.1f}s) and on meta: {cen['flops']:.6g} FLOP on both "
+        f"({', '.join(f'{k} {v:.4g}' for k, v in cen['flops_by_class'].items())}), "
+        f"{cen['flops'] / useful:.4f}x lm_train_flops (remat's recomputed forward); bytes "
+        f"{cen['bytes']:.6g} (card) / {mcen['bytes']:.6g} (meta) in {len(cen['by_op'])} / "
+        f"{len(mcen['by_op'])} ops; ops whose counts differ (card / meta): {ops}")
+    log(f"launch census (b): one-card roofline at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 "
+        f"and {PEAK_BYTES / 1e12:.2f} TB/s (data-sheet counts): compute "
+        f"{t['compute'] * 1e3:.1f} ms, memory {t['memory'] * 1e3:.1f} ms, bound "
+        f"{bound * 1e3:.1f} ms against 17(a)'s measured {step_s * 1e3:.1f} ms a step "
+        f"({step_s / bound:.2f}x); torch.cuda.max_memory_allocated "
+        f"{res['max_memory_allocated'] / 1e9:.2f} GB against the census's peak "
+        f"{cen['peak_bytes'] / 1e9:.2f} GB of tensors the step allocated (meta "
+        f"{mcen['peak_bytes'] / 1e9:.2f} GB); on {card}")
+
+
+def collect_dryrun(launch: dict, card: str) -> None:
+    """Phase 19(a): the background dry run's records: none an error, the
+    skips the reference's (long_500k for each full-attention architecture,
+    its words), every ``argument_bytes`` the sum of ``spec_bytes`` of the
+    cell's in_shardings (recomputed here), then ``roofline --md`` and
+    ``report`` over them."""
+    import io
+
+    from repro_torch.configs import LM_ARCHS, get_config
+    from repro_torch.configs.dade_ivf import CONFIG
+    from repro_torch.distributed.sharding import Sharding, spec_bytes
+    from repro_torch.launch import annservice, report, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import SHAPES, cell_is_runnable
+    from repro_torch.launch.steps import build_cell
+
+    text = _finished(launch, "dryrun", 900)
+    t0 = time.perf_counter()
+    wall = next(ln for ln in reversed(text.splitlines()) if ln.startswith("Dry-run complete"))
+
+    def pairs(tensors, shardings):
+        if isinstance(shardings, Sharding):
+            return [(tensors, shardings)]
+        if isinstance(shardings, dict):
+            return [p for k in shardings for p in pairs(tensors[k], shardings[k])]
+        return [p for t, sh in zip(tensors, shardings) for p in pairs(t, sh)]
+
+    big, n = [], 0
+    for name, multi in (("pod16x16", False), ("pod2x16x16", True)):
+        mesh = make_production_mesh(multi_pod=multi)
+        recs = {(r["arch"], r["shape"]): r
+                for r in roofline.load_records(name, launch["results"])}
+        want = {(a, s) for a in LM_ARCHS for s in SHAPES} | {("dade-ivf", "search_1m")}
+        check(set(recs) == want, f"dry run {name}: records for {sorted(set(recs) ^ want)}")
+        for (arch, shape), rec in recs.items():
+            check(rec["status"] != "error", f"dry run {name} {arch} {shape}: {rec.get('error')}")
+            if arch == "dade-ivf":
+                devices = mesh.size()
+                args_b = sum(math.prod(sp.shape) * sp.dtype.itemsize
+                             // (devices if sp.placements[0].is_shard() else 1)
+                             for sp in annservice.search_input_specs(CONFIG, mesh,
+                                                                     quant="int8", fused=True))
+            else:
+                ok, why = cell_is_runnable(get_config(arch), shape)
+                check(rec["status"] == ("ok" if ok else "skipped")
+                      and rec.get("reason", "") == why,
+                      f"dry run {name} {arch} {shape}: {rec['status']} "
+                      f"{rec.get('reason')!r}, the reference's rule says {ok} {why!r}")
+                if not ok:
+                    continue
+                cell = build_cell(arch, shape, mesh=mesh, device="meta")
+                args = cell.args if cell.kind == "train" else (
+                    dict(cell.model.named_parameters()), *cell.args)
+                args_b = sum(spec_bytes(t, sh.spec, mesh)
+                             for t, sh in pairs(args, cell.in_shardings))
+            if arch == "dade-ivf":
+                # the least work on meta of phase 19(c)'s step, at its shapes
+                least, got = rec["census"]["kernels"]["ivf_scan"], CENSUS_FLAT
+                check((CONFIG.query_batch, CONFIG.corpus_per_device, CONFIG.dim)
+                      == got["shape"]
+                      and least["ops_by_class"]["int8"] <= got["ops_by_class"]["int8"]
+                      and least["bytes"] <= got["bytes"],
+                      f"dry run {name}: ivf_scan's least work on meta {least} exceeds the "
+                      f"card's {got}")
+            m = rec["memory"]
+            check(m["argument_bytes"] == args_b,
+                  f"dry run {name} {arch} {shape}: argument_bytes {m['argument_bytes']} != "
+                  f"the sum of spec_bytes {args_b}")
+            n += 1
+            if m["argument_bytes"] + m["temp_bytes"] > 80e9:
+                big.append(f"{name} {arch} {shape} "
+                           f"{(m['argument_bytes'] + m['temp_bytes']) / 1e9:.1f} GB")
+    tables = io.StringIO()
+    with contextlib.redirect_stdout(tables):
+        roofline.main(["--md", "--results", launch["results"]])
+        report.main(["--results", launch["results"]])
+    PHASE19_S["a"] = time.perf_counter() - t0
+    least = roofline.load_records("pod16x16", launch["results"])
+    least = next(r for r in least if r["arch"] == "dade-ivf")["census"]["kernels"]["ivf_scan"]
+    log(f"launch dry run (a): {wall} ({n} records ok, the 12 long_500k skips the "
+        f"reference's; every argument_bytes the sum of spec_bytes; ivf_scan's least work on "
+        f"meta {least['ops_by_class']['int8']:.6g} int8 ops and {least['bytes']:.6g} B, "
+        f"at most 19(c)'s {CENSUS_FLAT['ops_by_class']['int8']:.6g} and "
+        f"{CENSUS_FLAT['bytes']:.6g}); argument + temp bytes "
+        f"a rank over the card's 80 GB: {'; '.join(big) or 'none'}; these are counts at "
+        f"data-sheet constants, not measurements; checked in {PHASE19_S['a']:.1f}s")
+    log("launch dry run (a): roofline --md over pod16x16 at the H100's data-sheet "
+        "constants:\n" + tables.getvalue().split("\n## Dry-run")[0].strip())
 
 
 def _dp_batch(cfg, b: int, s: int, seed: int) -> dict:
@@ -3168,13 +3393,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.dade_ivf import CONFIG
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 1. build ----
+    # ---- 1. build (and phase 19's background runs) ----
+    import tempfile
+    launch_tmp = tempfile.TemporaryDirectory()
+    launch = start_launch_tooling(launch_tmp.name)
     build_kernels()
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -3190,11 +3417,10 @@ def main() -> int:
     ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
     ivf["ranked_launches"] = graph.pop("ranked_flat_launches")
     run_lm(card)
-    import tempfile
     with tempfile.TemporaryDirectory() as dp_tmp:
         started = []  # phase 18's drill, started in phase 17
         try:
-            one_process_p50, t_drill = run_train(card, dp_tmp, started)
+            one_process_p50, t_drill = run_train(card, dp_tmp, started, launch)
             run_train_dp(card, one_process_p50, started[0], t_drill, dp_tmp)
         finally:
             for proc in started:
@@ -3202,6 +3428,18 @@ def main() -> int:
                     proc.kill()
                     proc.wait()
     log(f"phases 2-18 took {time.perf_counter() - t0:.0f}s")
+    try:
+        collect_dryrun(launch, card)
+    finally:
+        for name in ("dryrun", "meta"):
+            if launch[name].poll() is None:
+                launch[name].kill()
+                launch[name].wait()
+        launch_tmp.cleanup()
+    log(f"phase 19 (the launch tooling) took {sum(PHASE19_S.values()):.1f}s of the "
+        f"script's own time ((a) {PHASE19_S['a']:.1f}s, (b) {PHASE19_S['b']:.1f}s, (c) "
+        f"{PHASE19_S['c']:.1f}s; the dry run itself ran beside phases 1-18); the script "
+        f"{time.perf_counter() - T_START:.0f}s on {card}")
     log(json.dumps({"kernels": [ivf, *flat[:2], graph, flat[2]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

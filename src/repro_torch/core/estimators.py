@@ -197,4 +197,5 @@ def first_enabled_eps(eps: torch.Tensor) -> torch.Tensor:
     every checkpoint is disabled) — the seed-widening epsilon."""
     enabled = eps < EPS_DISABLED / 2
     idx = torch.argmax(enabled.to(torch.int32))
-    return torch.where(enabled.any(), eps[idx], torch.zeros_like(eps[idx]))
+    first = eps.gather(0, idx.reshape(1)).reshape(())  # no host read: runs on meta
+    return torch.where(enabled.any(), first, torch.zeros_like(first))

@@ -2,7 +2,9 @@
 ``repro.distributed.collectives``, over ``torch.distributed``).
 
   * ``all_gather``, ``broadcast``, ``all_reduce``, ``send`` / ``recv`` —
-    the group's calls on tensors where they live.  A gloo group moves
+    the group's calls on tensors where they live, each counted by an open
+    ``launch.op_census`` census under XLA's kind names (its output bytes;
+    a send / recv pair once, at the sender).  A gloo group moves
     host memory only (handed a CUDA tensor, its transport fails), so over
     gloo a CUDA tensor is copied to the host, sent, and copied back:
     ``staged`` says when that happens, and the serving report names it.
@@ -29,6 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import mesh_axis_sizes
 from repro_torch.kernels.ivf_scan import merge_windows
+from repro_torch.launch.op_census import report_collective
 
 __all__ = ["Stripes", "group_size", "quantize_int8", "dequantize_int8", "staged", "all_gather",
            "broadcast",
@@ -110,11 +113,13 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
             w.wait()
     else:
         dist.all_gather(list(g.unbind(0)), src, group=_one(group))
+    report_collective("all-gather", g.numel() * g.element_size())
     return g.to(x.device) if host else g
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``x`` replaced by rank ``src``'s, in place; returns ``x``."""
+    report_collective("collective-broadcast", x.numel() * x.element_size())
     if staged(x, group):
         h = x.cpu()
         dist.broadcast(h, src, group=group)
@@ -126,6 +131,7 @@ def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
     """``x`` reduced over ``group`` with ``op``, in place; returns ``x``."""
+    report_collective("all-reduce", x.numel() * x.element_size())
     host = staged(x, group)
     h = x.cpu() if host else x
     if _striped(h, group):
@@ -140,6 +146,7 @@ def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tenso
 
 
 def send(x: torch.Tensor, dst: int) -> None:
+    report_collective("collective-permute", x.numel() * x.element_size())
     w = _wire(x)
     dist.send(w.cpu() if staged(x) else w, dst)
 

@@ -76,6 +76,14 @@ class AbstractMesh:
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    @property
+    def ndim(self) -> int:
+        return len(self.axis_sizes)
+
+    def size(self) -> int:
+        """Devices in the whole mesh (``DeviceMesh.size()``)."""
+        return math.prod(self.axis_sizes)
+
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     """{axis name: size} of an :class:`AbstractMesh` or a ``DeviceMesh``."""

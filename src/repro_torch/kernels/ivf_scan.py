@@ -20,6 +20,12 @@ bound with ``ctypes``.  A timing build of the same walk
 (``csrc/ivf_scan_clocks.cu``), which only :func:`ivf_scan_phase_clocks`
 loads, stamps each phase of a step with the SM's clock.  Nothing
 CUDA-specific happens at import time.
+
+On meta tensors (a dry run) the wrapper launches nothing and returns
+outputs of the right shapes and dtypes.  A census (``launch.op_census``)
+cannot see a ``ctypes`` call, so each launch reports its :func:`work` to
+an open one: on meta the least any data needs, on the card what the
+kernel's counters say it did.
 """
 
 from __future__ import annotations
@@ -32,11 +38,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import STATS_COLS, ivf_scan_ref
+from repro_torch.launch import op_census
 
 __all__ = ["ivf_scan_kernel_call", "ivf_scan_plain", "ivf_scan_phase_clocks", "build",
            "build_clocks", "library_path", "split_segments", "merge_segments",
            "merge_windows",
-           "smem_bytes",
+           "smem_bytes", "work",
            "STATS_COLS", "PHASES", "MAX_SMEM_BYTES", "KERNEL_TILE",
            "KERNEL_BLOCK_QS"]
 
@@ -112,6 +119,41 @@ def _check_shapes(tile_offs, qcodes, q_rot, qscales, flat_codes, flat_rot,
     if tile_offs.dim() != 3 or (tile_offs.shape[0], tile_offs.shape[2]) != (q_tiles, cap_tiles):
         raise ValueError(f"tile_offs is {tuple(tile_offs.shape)}, need "
                          f"({q_tiles}, P, {cap_tiles})")
+
+
+def work(*, queries: int, rows: int, dim: int, k: int, block_q: int, block_d: int,
+         row_bytes: int, block_c: int = KERNEL_TILE[1], pairs: int | None = None,
+         stats: torch.Tensor | None = None) -> dict:
+    """Operations and bytes of one scan of ``rows`` corpus rows for
+    ``queries`` queries: {"int8_ops", "fp32_ops", "bytes"}.
+
+    With the kernel's ``stats`` ((Q, 6), segments merged): what this run's
+    data needed.  One multiply-add per int8 dim each (query, row) pair
+    consumed before it retired (column 0) and per fp dim stage 2 consumed
+    (column 1), the latter in float32 outside the tensor cores (TF32 would
+    not keep the distances exact); bytes: the codes and ids once, the
+    queries and their tables, the fp slabs at least one query tile needed
+    (the largest per-tile count, column 4, bounds the distinct slabs from
+    below) and the outputs.
+
+    Without stats (a dry run on meta): the least any data needs.  Every
+    (query, row) pair of the scanned windows (``pairs``, default every
+    query against every row, as the flat route scans) consumes its first
+    int8 block, since no pair retires before one; the codes are read once;
+    no stage 2 and no slabs."""
+    s_steps = dim // block_d
+    if stats is None:
+        pairs = queries * rows if pairs is None else pairs
+        int8_ops, fp32_ops, slab_bytes = 2.0 * pairs * block_d, 0.0, 0.0
+    else:
+        st = stats.double()
+        int8_ops = 2.0 * float(st[:, 0].sum())
+        fp32_ops = 2.0 * float(st[:, 1].sum())
+        slab_bytes = float(st[::block_q, 4].max()) * block_c * block_d * row_bytes
+    in_bytes = (rows * dim + 4 * rows + queries * dim * 5 + queries * s_steps * 4
+                + queries * 4 + slab_bytes)
+    out_bytes = queries * k * 8 + queries * 6 * 4
+    return {"int8_ops": int8_ops, "fp32_ops": fp32_ops, "bytes": in_bytes + out_bytes}
 
 
 def split_segments(tile_offs: torch.Tensor, segments: int) -> torch.Tensor:
@@ -214,11 +256,20 @@ def _run(tile_offs, qcodes, q_rot, qscales, r0_sq, top0_sq, top0_ids,
     if len(devices) != 1:
         raise ValueError(f"ivf_scan inputs span devices {sorted(map(str, devices))}")
     (dev,) = devices
-    if dev.type not in ("cuda", "cpu") or (engine == "clocks" and dev.type != "cuda"):
-        raise ValueError(f"ivf_scan runs on cuda or cpu tensors (its timing "
+    if (dev.type not in ("cuda", "cpu", "meta")
+            or (engine == "clocks" and dev.type != "cuda")):
+        raise ValueError(f"ivf_scan runs on cuda, cpu or meta tensors (its timing "
                          f"build on cuda), got {dev}")
     if segments < 1:
         raise ValueError(f"segments must be >= 1, got {segments}")
+    qn = q_rot.shape[0]
+    if dev.type == "meta":
+        out = (torch.empty((qn, k), dtype=torch.float32, device=dev),
+               torch.empty((qn, k), dtype=torch.int32, device=dev),
+               torch.empty((qn, len(STATS_COLS)), dtype=torch.float32, device=dev))
+        _report(out[2], q_rot, flat_rot, tile_offs, k=k, block_q=block_q, block_c=block_c,
+                block_d=block_d, meta=True)
+        return out
     if segments > 1:
         if bool((top0_ids >= 0).any()):
             raise ValueError("a split walk starts every segment from an empty "
@@ -228,13 +279,30 @@ def _run(tile_offs, qcodes, q_rot, qscales, r0_sq, top0_sq, top0_ids,
                    *tensors[7:])
     kw = dict(k=k, block_q=block_q, block_c=block_c, block_d=block_d,
               cap_tiles=cap_tiles, slack=slack)
-    if dev.type == "cpu" or engine == "plain":
-        out = ivf_scan_ref(*tensors, **kw)
-    else:
-        out = _launch(*tensors, clocks=engine == "clocks", **kw)
+    plain = dev.type == "cpu" or engine == "plain"
+    out = ivf_scan_ref(*tensors, **kw) if plain else _launch(
+        *tensors, clocks=engine == "clocks", **kw)
     if segments > 1:
         out = merge_segments(*out[:3], segments, k) + tuple(out[3:])
+    if not plain:  # a census sees the plain version's own ops
+        _report(out[2], q_rot, flat_rot, tile_offs, k=k, block_q=block_q,
+                block_c=block_c, block_d=block_d, meta=False)
     return out
+
+
+def _report(stats, q_rot, flat_rot, tile_offs, *, k, block_q, block_c, block_d, meta):
+    """This call's :func:`work`, counted by the open census (if any) as one
+    ``ivf_scan`` op; on meta the least work, over every step of the table."""
+    if op_census.active() is None:
+        return
+    with op_census.paused():
+        w = work(queries=q_rot.shape[0], rows=flat_rot.shape[0], dim=q_rot.shape[1], k=k,
+                 block_q=block_q, block_c=block_c, block_d=block_d,
+                 row_bytes=flat_rot.element_size(),
+                 pairs=tile_offs.numel() * block_c * block_q if meta else None,
+                 stats=None if meta else stats)
+    op_census.report_kernel("ivf_scan", ops={"int8": w["int8_ops"], "fp32": w["fp32_ops"]},
+                            nbytes=w["bytes"])
 
 
 def _launch(tile_offs, qcodes, q_rot, qscales, r0_sq, top0_sq, top0_ids,

@@ -15,8 +15,11 @@ one card; gloo also runs on the CPU).  Process groups initialise from a
 port.  CUDA cannot be forked once initialised, so ranks start with the
 ``spawn`` method and import their function by module path.
 
-Not applicable here: the reference's ``make_production_mesh`` (a TPU v5e
-pod) and its ``shard_map`` / ``check_vma`` version shims (jax-only).
+``make_production_mesh`` gives the reference's production layouts (16 x 16
+ranks, or 2 x 16 x 16) as a ``distributed.sharding.AbstractMesh``: names
+and sizes to reason about (``launch.dryrun``), with no process behind them.
+Not applicable here: the reference's ``shard_map`` / ``check_vma`` version
+shims (jax-only).
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.sharding import AbstractMesh
 
 __all__ = ["BACKENDS", "rank_device", "init_rank", "make_mesh", "make_host_mesh",
-           "mesh_device_type", "spawn", "LeadRank"]
+           "make_production_mesh", "mesh_device_type", "spawn", "LeadRank"]
 
 BACKENDS = ("nccl", "gloo")
 # How long a collective may wait for a peer before the group raises: a rank
@@ -88,6 +92,16 @@ def make_mesh(shape, axes, device_type: str):
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production layouts: 16 x 16 = 256 ranks, axes
+    ("data", "model"); two of them, 512 ranks, ("pod", "data", "model").
+    Axes: "pod" (pure data parallelism between the two), "data" (data
+    parallelism + ZeRO), "model" (tensor / KV-sequence / ffn)."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cpu"):

@@ -124,11 +124,11 @@ def _bmm_f32(a, b):
     """Batched ``a @ b`` with float32 output, the reference's
     ``preferred_element_type=jnp.float32``: bf16 operands go to one product
     that accumulates and returns float32 (``bmm``'s ``out_dtype`` on the
-    card, :class:`_BmmF32`; widened operands on the CPU, whose products of
-    bf16 values are exact in float32 all the same)."""
+    card and on meta, :class:`_BmmF32`; widened operands on the CPU, whose
+    products of bf16 values are exact in float32 all the same)."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.device.type != "cpu":  # the card, and a dry run of the card's ops on meta
         return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 

@@ -62,7 +62,11 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, *, renorm: bool = True,
         gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
     # Load-balance loss: E * sum_e (fraction routed to e) * (mean prob of e).
-    counts = torch.bincount(eidx.reshape(-1), minlength=e).float()
+    # bincount's integers, summed by scatter_add_ (bincount's output size
+    # depends on the data, so it has no meta kernel)
+    flat = eidx.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     n_rows = b
     if share is not None:
         counts = share.all_reduce(counts)

@@ -63,6 +63,12 @@ def test_training_modules_are_checked():
             "src/repro_torch/launch/train.py"} <= names
 
 
+def test_launch_tooling_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"src/repro_torch/launch/{m}.py"
+            for m in ("op_census", "roofline", "dryrun", "perf", "report")} <= names
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.index.ivf, "
             "repro_torch.index.graph, repro_torch.index.flat, repro_torch.interop, "
@@ -74,7 +80,11 @@ def test_import_leaves_jax_out():
             "repro_torch.checkpoint.wal, repro_torch.core.dco_host, repro_torch.configs, "
             "repro_torch.models.model, repro_torch.launch.specs, repro_torch.launch.steps, "
             "repro_torch.optim.adamw, repro_torch.runtime.fault_tolerance, "
-            "repro_torch.launch.train, repro_torch.data.pipeline; "
+            "repro_torch.launch.train, repro_torch.data.pipeline, "
+            "repro_torch.launch.op_census, repro_torch.launch.roofline, "
+            "repro_torch.launch.dryrun, repro_torch.launch.perf, repro_torch.launch.report; "
+            "from repro_torch.core import *; from repro_torch.quant import *; "
+            "from repro_torch.index import *; from repro_torch.kernels import *; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
