@@ -136,10 +136,10 @@ on any fault.  Phases, one line each:
      4`` ids, its QPS, recall@100 and merge ms.  Each serve's timed window is printed
      beside its rate.
  16. LM serving (``repro_torch.models``, plain PyTorch, no hand-written
-     kernel): (a) ``gemma2-9b`` at full width and depth in bf16 from the
-     port's seeded initializer through ``launch.steps.build_cell``: a
-     prefill of 4 x 8,192 tokens (cut from ``prefill_32k``'s 32 x 32,768),
-     the median of 2 timed runs after a warm one, and 16 decode steps after
+     kernel): (a) ``gemma2-9b`` at full width in bf16, its depth cut from
+     42 to 10 layers (room for phase 20), from the port's seeded
+     initializer through ``launch.steps.build_cell``: a prefill of 4 x
+     8,192 tokens (cut from ``prefill_32k``'s 32 x 32,768), the median of 2 timed runs after a warm one, and 16 decode steps after
      2 warm ones at batch 4 against ``decode_32k``'s 32,768-token caches
      (batch cut from 128), each beside its bound, with the peak memory;
      (b) the same model in float32 with its window cut to 16: the
@@ -209,10 +209,10 @@ on any fault.  Phases, one line each:
      error, the skips the reference's (long_500k for the six
      full-attention architectures, its words), every ``argument_bytes``
      the sum of ``spec_bytes`` of the cell's in_shardings (recomputed
-     here), the dry run's wall time, the cells whose argument + temp bytes
-     a rank exceed the card's 80 GB, and ``roofline --md`` / ``report``
-     over the records; (b) one more step of phase 17(a)'s gemma-2b under
-     ``op_census.census`` on the card, against the same cell's census on
+     here), the dry run's wall time, the train cells whose argument +
+     temp bytes of one (data, model) rank exceed the card's 80 GB, and
+     ``roofline --md`` / ``report`` over the records; (b) one more step
+     of phase 17(a)'s gemma-2b under ``op_census.census`` on the card, against the same cell's census on
      meta at the same rows (also started at phase 1): FLOPs equal exactly,
      the bytes side by side with the ops that differ, the FLOPs beside
      ``lm_train_flops``, the one-card roofline bound beside 17(a)'s
@@ -224,6 +224,26 @@ on any fault.  Phases, one line each:
      ``dade-ivf`` record, is no more.  Every figure of (a) and of the
      bound in (b) is a count at the H100's data-sheet constants
      (``launch.roofline``), not a measurement.
+ 20. tensor parallelism (``launch.steps.DataParallel`` over a (data=1,
+     model=2) mesh, the model executing the reference's ``constrain``
+     sites over the model axis; plain PyTorch, no hand-written kernel):
+     two gloo ranks share the card (every collective staged through the
+     host: the protocol, not NVLink), started beside phase 7's host graph
+     build, where the card is idle, and collected after it.  (a)
+     ``gemma-2b`` at full width and depth in bf16 (the vocabulary, the
+     MQA rule's gathered K/V columns, the GeGLU ``ffn`` split): one remat
+     train step at grad_accum 2 on 2 x 1,024 tokens after a warm one, a
+     prefill of 2 x 2,048 tokens, then 16 decode steps at batch 2 against
+     4,096-token ``kv_seq``-split caches (the slots written across both
+     ranks' blocks): ms a step, tokens/s, each collective kind's bytes and
+     share, each rank's peak memory beside ``spec_bytes`` of its share;
+     (b) float32 identities: the 2-rank train step (loss, every gradient
+     leaf gathered, the parameters after one step; rtol 2e-3, atol 2e-4),
+     prefill and 8 decode steps' logits (1e-4) against one process, on
+     ``gemma-2b`` at full width cut to 2 layers, beside two planted faults
+     that must fail them (``wo``'s partial sums sliced, not reduced; the
+     decode combine without rank 1's block of slots), and on every reduced
+     architecture, mixtral also under ``{"expert": ("model",)}``.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -342,6 +362,10 @@ SHARDED_CONT_BATCH = 64
 # short (a wrong window) must exceed it.  (c): the card against the CPU,
 # float32 with TF32 off.
 LM_ARCH = "gemma2-9b"
+# (a)'s depth, cut from 42 to make room for phase 20 within the script's
+# time (5 windowed, then 5 global layers); (b) and (c) keep their own
+# depths.
+LM_LAYERS = 10
 LM_PREFILL_BATCH, LM_PREFILL_SEQ, LM_PREFILL_RUNS = 4, 8192, 2
 LM_DECODE_BATCH, LM_DECODE_WARM, LM_DECODE_STEPS = 4, 2, 16
 LM_CHECK_SEQ, LM_CHECK_WINDOW, LM_CHECK_TOL = 64, 16, 1e-3
@@ -388,6 +412,24 @@ DP_DRILL_ARGS = ["--arch", DP_ARCH, "--devices", str(DP_RANKS), "--grad-compress
                  "--batch", str(DP_BATCH), "--seq", str(DP_SEQ), "--ckpt-every", "10",
                  "--fail-at", "13"]
 DP_DRILL_STEP = 20
+# Phase 20: tensor parallelism.  TP_RANKS gloo ranks on the card as a
+# (data=1, model=TP_RANKS) mesh, started beside phase 7's host graph build
+# (the card idle) and collected after it.  (a) TP_ARCH at full width and
+# depth in bf16: TP_WARM warm-up and TP_STEPS timed remat train steps at
+# grad_accum 2 on TP_TRAIN (rows, seq) tokens at TRAIN_LR, a prefill of
+# TP_PREFILL tokens, then TP_DECODE decode steps against TP_CACHE-token
+# kv_seq-split caches; (b) the float32 identities at phase 17(b)'s
+# tolerances (TP_CHECK_LAYERS layers at full width; TP_CHECK (rows, seq)
+# tokens; TP_CHECK_DECODE decode steps into TP_CHECK_CACHE-slot caches, so
+# that both ranks' blocks of slots are written and read) and every reduced
+# architecture, mixtral also under the expert-parallel rules (TP_EP).
+TP_ARCH, TP_RANKS = "gemma-2b", 2
+TP_TRAIN, TP_WARM, TP_STEPS = (2, 1024), 1, 1
+TP_PREFILL, TP_DECODE, TP_CACHE = (2, 2048), 16, 4096
+TP_CHECK_LAYERS, TP_CHECK = 2, (4, 128)
+TP_CHECK_CACHE, TP_CHECK_DECODE = 8, 8
+TP_LM_TOL = 1e-4
+TP_EP = {"expert": ("model",)}
 # Phase 19: the launch tooling.  The dry run of every cell on both
 # production layouts runs beside phases 1-18 (DRYRUN_JOBS worker processes
 # at one torch thread each, niced), as does gemma-2b's train_4k step on
@@ -925,10 +967,11 @@ def agree_walk(name, out_k, out_p, block_q):
 
 
 def run_graph(card: str, flat_served) -> dict:
-    """Phases 6-8 (and 12, 14, 15) on ``DEV``; ``flat_served`` is phase 4's
-    served flat run (:func:`run`), phase 15's one-process reference.
-    Returns the graph_scan kernels entry."""
+    """Phases 6-8 (and 12, 14, 15, and 20 beside 7's build) on ``DEV``;
+    ``flat_served`` is phase 4's served flat run (:func:`run`), phase 15's
+    one-process reference.  Returns the graph_scan kernels entry."""
     import dataclasses
+    import tempfile
 
     import torch
     from repro_torch.configs.dade_ivf import ServiceConfig
@@ -968,9 +1011,12 @@ def run_graph(card: str, flat_served) -> dict:
     gsvc = ServiceConfig(corpus_per_device=nodes, dim=256, query_batch=1024,
                          k=10, delta_d=64, p_s=0.02, dtype="float32")
     t0 = time.perf_counter()
-    gsrv = serve.prepare_graph(gsvc, "dade", m=16, ef=48, device=DEV)
-    sync()
-    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tp_tmp:
+        tp = start_tp(tp_tmp)  # phase 20, on the card while the host builds
+        gsrv = serve.prepare_graph(gsvc, "dade", m=16, ef=48, device=DEV)
+        sync()
+        build_s = time.perf_counter() - t0
+        finish_tp(tp, card)
     gidx = gsrv.index
     log(f"graph: built {nodes}x{gsvc.dim} m=16 ef_construction=96 "
         f"adj_block={gidx.adj_block} scan_block_d={gidx.scan_block_d} "
@@ -2492,9 +2538,9 @@ def run_lm(card: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     gib = 1e9
 
-    # (a) full width and depth, bf16
+    # (a) full width, depth cut to LM_LAYERS, bf16
     t0 = time.perf_counter()
-    cell = build_cell(LM_ARCH, "prefill_32k", device=DEV)
+    cell = build_cell(LM_ARCH, "prefill_32k", device=DEV, cfgset={"num_layers": LM_LAYERS})
     model, cfg = cell.model, cell.model.cfg
     sync()
     n_params = sum(p.numel() for p in model.parameters())
@@ -3039,7 +3085,7 @@ def collect_dryrun(launch: dict, card: str) -> None:
                   f"dry run {name} {arch} {shape}: argument_bytes {m['argument_bytes']} != "
                   f"the sum of spec_bytes {args_b}")
             n += 1
-            if m["argument_bytes"] + m["temp_bytes"] > 80e9:
+            if rec.get("kind") == "train" and m["argument_bytes"] + m["temp_bytes"] > 80e9:
                 big.append(f"{name} {arch} {shape} "
                            f"{(m['argument_bytes'] + m['temp_bytes']) / 1e9:.1f} GB")
     tables = io.StringIO()
@@ -3053,8 +3099,8 @@ def collect_dryrun(launch: dict, card: str) -> None:
         f"reference's; every argument_bytes the sum of spec_bytes; ivf_scan's least work on "
         f"meta {least['ops_by_class']['int8']:.6g} int8 ops and {least['bytes']:.6g} B, "
         f"at most 19(c)'s {CENSUS_FLAT['ops_by_class']['int8']:.6g} and "
-        f"{CENSUS_FLAT['bytes']:.6g}); argument + temp bytes "
-        f"a rank over the card's 80 GB: {'; '.join(big) or 'none'}; these are counts at "
+        f"{CENSUS_FLAT['bytes']:.6g}); train cells whose (data, model) rank's argument + "
+        f"temp bytes exceed the card's 80 GB: {'; '.join(big) or 'none'}; these are counts at "
         f"data-sheet constants, not measurements; checked in {PHASE19_S['a']:.1f}s")
     log("launch dry run (a): roofline --md over pod16x16 at the H100's data-sheet "
         "constants:\n" + tables.getvalue().split("\n## Dry-run")[0].strip())
@@ -3207,6 +3253,7 @@ def dp_train_rank(rank, world, dev, tmp):
     cell = build_cell(DP_ARCH, "train_4k", mesh=mesh, device=dev,
                       opt=AdamWConfig(lr=DP_LR, warmup_steps=1, total_steps=2 * n))
     model, dp = cell.model, cell.data_parallel
+    dp.traffic.clock = True  # the collectives' share of a step
     cfg = model.cfg
     full = dict(model.named_parameters())
     out["params"] = sum(p.numel() for p in full.values())
@@ -3226,7 +3273,7 @@ def dp_train_rank(rank, world, dev, tmp):
         times, losses, shares, kinds = [], [], [], []
         for i in range(n):
             batch = pipe.batch_at(i)
-            dp.reset()
+            dp.traffic.reset()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             params, opt_state, mets = cell.step_fn(params, opt_state, batch, ebuf=ebuf)
@@ -3235,8 +3282,8 @@ def dp_train_rank(rank, world, dev, tmp):
             losses.append(float(mets["loss"]))
             if i >= DP_WARM:
                 times.append(dt)
-                shares.append(sum(dp.seconds.values()) / dt)
-                kinds.append((dict(dp.bytes), dict(dp.seconds)))
+                shares.append(sum(dp.traffic.seconds.values()) / dt)
+                kinds.append((dict(dp.traffic.bytes), dict(dp.traffic.seconds)))
         check(all(map(math.isfinite, losses)), f"dp (a) {mode}: a loss is not finite: {losses}")
         out[mode] = dict(ms=[t * 1e3 for t in times], losses=losses, share=shares,
                          kinds=kinds[len(kinds) // 2], peak=torch.cuda.max_memory_allocated(dev),
@@ -3366,6 +3413,296 @@ def run_train_dp(card: str, one_process_p50: str, drill, t_drill: float, tmp: st
         f"restored onto {DP_RANKS} ranks ({r0['restore_s']:.1f}s; pieces "
         f"{r0['piece_shapes']}) gathers to the same leaves")
     log(f"phase 18 took {time.perf_counter() - t_start:.0f}s on {card}")
+
+
+def _tp_close(x, y, rtol=TRAIN_ACCUM_RTOL, atol=TRAIN_ACCUM_ATOL) -> bool:
+    import torch
+    return torch.allclose(x.float(), y.float(), rtol=rtol, atol=atol)
+
+
+def _tp_identity(cfg, mesh, dev, overrides, faults: bool) -> dict:
+    """Phase 20(b) for one model: the 2-rank (data=1, model=2) train step,
+    prefill and decode against one process on the same card, from the same
+    seeded parameters: loss, every gradient leaf (gathered), the parameters
+    after one AdamW step (rtol 2e-3, atol 2e-4), the prefill's and every
+    decode step's logits (this rank's vocabulary piece; 1e-4).  With
+    ``faults``: the ``wo`` partial sums taken as they are (sliced, not
+    reduced) must fail the loss check, and a decode combine that drops
+    rank 1's block of slots must fail the logits check.  Returns the
+    largest deviations."""
+    import torch
+    from repro_torch.distributed.collectives import gather_sharded
+    from repro_torch.distributed.sharding import constrain, tree_shardings
+    from repro_torch.launch.steps import (DataParallel, prefill_step, serve_step, train_grads,
+                                          train_step)
+    from repro_torch.models import attention
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    opt = AdamWConfig(lr=TRAIN_CARD_LR, warmup_steps=1, total_steps=10)
+    b, s = TP_CHECK
+    batch = _dp_batch(cfg, b, s, seed=5)
+    prompt = {k: torch.as_tensor(v).to(dev) for k, v in batch.items() if k != "labels"}
+    steps = [prompt["tokens"][:, t:t + 1] for t in range(TP_CHECK_DECODE)]
+
+    # one process
+    model = build_model(cfg, seed=1, device=dev)
+    with torch.no_grad():
+        lg1, _ = model.prefill(prompt)
+        caches, _ = model.init_caches(b, TP_CHECK_CACHE)
+        dec1 = [model.decode_step(tok, caches, t)[0] for t, tok in enumerate(steps)]
+    model.requires_grad_(True)
+    l1, _, g1 = train_grads(model, batch)
+    g1 = {k: v.float() for k, v in g1.items()}
+    p1 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    train_step(model, opt, p1, adamw_init(p1), batch)
+    del model, caches
+
+    # the ranks, from the same seed
+    model = build_model(cfg, seed=1, device=dev)
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
+                                           mesh, overrides), model, overrides)
+    vp = lg1.shape[-1] // dp.model_size
+    lo = dp.mesh.get_coordinate()[1] * vp
+    err = {}
+    with torch.no_grad():
+        lg, _ = prefill_step(model, prompt, dp=dp)
+        err["prefill"] = (lg - lg1[:, lo:lo + vp]).abs().max().item()
+        check(_tp_close(lg, lg1[:, lo:lo + vp], TP_LM_TOL, TP_LM_TOL),
+              f"tp (b) {cfg.arch_id}: prefill logits differ by {err['prefill']:.3e}")
+
+        def decode():
+            with dp.rules():
+                cs, _ = model.init_caches(b, TP_CHECK_CACHE)
+            return [serve_step(model, tok, cs, t, dp=dp)[0] for t, tok in enumerate(steps)]
+
+        got = decode()
+        err["decode"] = max((x - y[:, lo:lo + vp]).abs().max().item() for x, y in zip(got, dec1))
+        check(all(_tp_close(x, y[:, lo:lo + vp], TP_LM_TOL, TP_LM_TOL)
+                  for x, y in zip(got, dec1)),
+              f"tp (b) {cfg.arch_id}: decode logits differ by {err['decode']:.3e}")
+        if faults:  # rank 1's block of slots dropped from the combine
+            flash = attention._flash_decode
+            attention._flash_decode = lambda qg, k, v, valid, cfg_, comm: flash(
+                qg, k, v, valid & (comm.index == 0), cfg_, comm)
+            try:
+                bad = decode()
+            finally:
+                attention._flash_decode = flash
+            err["decode_fault"] = max((x - y[:, lo:lo + vp]).abs().max().item()
+                                      for x, y in zip(bad, dec1))
+            check(not all(_tp_close(x, y[:, lo:lo + vp], TP_LM_TOL, TP_LM_TOL)
+                          for x, y in zip(bad, dec1)),
+                  f"tp (b) {cfg.arch_id}: a decode without rank 1's slots passes the check")
+    model.requires_grad_(True)
+    loss, _, g = train_grads(model, batch, dp)
+    err["loss"] = abs(float(loss) - float(l1))
+    check(_tp_close(loss, l1), f"tp (b) {cfg.arch_id}: loss {float(loss)} against {float(l1)}")
+    full = {k: gather_sharded(v.contiguous(), dp.model_specs[k], mesh) for k, v in g.items()}
+    bad = [k for k in g1 if not _tp_close(full[k], g1[k])]
+    err["grad"] = max((full[k].float() - g1[k]).abs().max().item() for k in g1)
+    check(not bad, f"tp (b) {cfg.arch_id}: gradients differ ({bad[:3]}, {err['grad']:.3e})")
+    del g, full
+    if faults:  # the wo partial sums sliced, not reduced
+        def unreduced(x, *axes, src=None, partial=False):
+            return constrain(x, *axes, src=src)
+
+        attention.constrain = unreduced
+        try:
+            bad_loss, _, _ = train_grads(model, batch, dp)
+        finally:
+            attention.constrain = constrain
+        err["wo_fault"] = abs(float(bad_loss) - float(l1))
+        check(not _tp_close(bad_loss, l1),
+              f"tp (b) {cfg.arch_id}: unreduced wo partial sums pass the check")
+    params = dp.local_params(model)
+    params, _, _ = train_step(model, opt, params, adamw_init(params), batch, dp=dp)
+    after = {k: gather_sharded(v, dp.shardings[k].spec, mesh) for k, v in params.items()}
+    bad = [k for k in p1 if not _tp_close(after[k], p1[k])]
+    err["param"] = max((after[k].float() - p1[k].float()).abs().max().item() for k in p1)
+    check(not bad, f"tp (b) {cfg.arch_id}: parameters after a step differ ({bad[:3]})")
+    return err
+
+
+def tp_rank(rank, world, dev):
+    """Phase 20 on one rank (spawned; the card shared over gloo): (a) the
+    timed full-width bf16 steps, then (b) the identities.  Returns what
+    the parent logs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import LM_ARCHS, get_config, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import spec_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, prefill_step, serve_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = make_host_mesh(1, world)
+    out = {"device": str(dev)}
+
+    # (a) gemma-2b at full width and depth, bf16
+    n = TP_WARM + TP_STEPS
+    cell = build_cell(TP_ARCH, "train_4k", mesh=mesh, device=dev,
+                      opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=2 * n))
+    model, dp = cell.model, cell.data_parallel
+    dp.traffic.clock = True  # each collective kind's share of a step
+    cfg = model.cfg
+    out["params"] = sum(math.prod(v) for v in model._param_shapes.values())
+    out["dtype"] = str(cfg.param_dtype).replace("torch.", "")
+    out["grad_accum"], out["remat"] = cfg.grad_accum, cfg.remat
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = dp.local_params(model)
+    opt_state = adamw_init(params)
+    out["state_bytes"] = sum(
+        spec_bytes(torch.empty(shape, dtype=dt, device="meta"), dp.shardings[k].spec, mesh)
+        for k, shape in model._param_shapes.items()
+        for dt in (cfg.param_dtype, torch.float32, torch.float32))
+    out["piece_bytes"] = sum(p.numel() * p.element_size() for p in params.values())
+    out["whole_bytes"] = out["params"] * torch.empty((), dtype=cfg.param_dtype).element_size()
+    rows, seq = TP_TRAIN
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=rows, seq=seq, seed=0)
+    times, losses = [], []
+    for i in range(n):
+        batch = pipe.batch_at(i)
+        dp.traffic.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, mets = cell.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        losses.append(float(mets["loss"]))
+        if i >= TP_WARM:
+            times.append(dt)
+            kinds = (dict(dp.traffic.bytes), dict(dp.traffic.seconds))
+    check(all(map(math.isfinite, losses)), f"tp (a): a loss is not finite: {losses}")
+    out["train"] = dict(s=times, losses=losses, kinds=kinds,
+                        peak=torch.cuda.max_memory_allocated(dev))
+    del params, opt_state, mets
+    torch.cuda.empty_cache()
+    model.requires_grad_(False)
+
+    rows, seq = TP_PREFILL
+    prompt = {"tokens": torch.as_tensor(TokenPipeline(vocab_size=cfg.vocab_size, batch=rows,
+                                                      seq=seq, seed=1).batch_at(0)["tokens"],
+                                        device=dev)}
+    with torch.no_grad():
+        prefill_step(model, prompt, dp=dp)  # warm
+        dp.traffic.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = prefill_step(model, prompt, dp=dp)
+        torch.cuda.synchronize(dev)
+        prefill_s = time.perf_counter() - t0
+        prefill_kinds = (dict(dp.traffic.bytes), dict(dp.traffic.seconds))
+        with dp.rules():
+            caches, _ = model.init_caches(rows, TP_CACHE)
+        tok = prompt["tokens"][:, -1:]  # the same token on every rank
+        for t in range(2):  # warm
+            serve_step(model, tok, caches, t, dp=dp)
+        dp.traffic.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for t in range(TP_DECODE):
+            lg, caches = serve_step(model, tok, caches, TP_CACHE // 2 - 1 + t, dp=dp)
+        torch.cuda.synchronize(dev)
+        decode_s = (time.perf_counter() - t0) / TP_DECODE
+        decode_kinds = (dict(dp.traffic.bytes), dict(dp.traffic.seconds))
+        check(bool(torch.isfinite(lg).all()), "tp (a): decode logits not finite")
+    out["prefill"] = dict(s=prefill_s, kinds=prefill_kinds)
+    out["decode"] = dict(s=decode_s, kinds=decode_kinds,
+                         cache_bytes=sum(t.numel() * t.element_size()
+                                         for c in caches.values() for t in c))
+    out["serve_peak"] = torch.cuda.max_memory_allocated(dev)
+    del cell, model, dp, caches, logits, lg
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t_start
+
+    # (b) the float32 identities
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TP_ARCH), num_layers=TP_CHECK_LAYERS, dtype="float32")
+    errs = {f"{TP_ARCH} x{TP_CHECK_LAYERS}": _tp_identity(cfg, mesh, dev, None, faults=True)}
+    torch.cuda.empty_cache()
+    for arch in LM_ARCHS:
+        errs[arch] = _tp_identity(reduced_config(arch), mesh, dev, None, faults=False)
+        if arch == "mixtral-8x7b":
+            errs[f"{arch} expert=model"] = _tp_identity(reduced_config(arch), mesh, dev,
+                                                        TP_EP, faults=False)
+    out["errs"] = errs
+    out["b_s"] = time.perf_counter() - t0
+    return out
+
+
+def start_tp(tmp: str):
+    """Phase 20's ranks, started (see :func:`tp_rank`)."""
+    from repro_torch.launch.mesh import spawn
+    return spawn(tp_rank, TP_RANKS, backend="gloo", device=DEV,
+                 init_file=os.path.join(tmp, "tp_init")), time.perf_counter()
+
+
+def finish_tp(started, card: str) -> None:
+    """Phase 20: join the ranks started beside phase 7's build and log."""
+    procs, t_started = started
+    t_wait = time.perf_counter()
+    try:
+        out = procs.join(timeout_s=900)
+    finally:
+        procs.terminate()
+    own = time.perf_counter() - t_wait
+    mb = 1e6
+    r0 = out[0]
+    rows, seq = TP_TRAIN
+    log(f"tp: {TP_RANKS} ranks on {r0['device']} as a (data=1, model={TP_RANKS}) mesh over "
+        f"gloo (host-staged: the protocol, not NVLink): {TP_ARCH} {r0['dtype']} at full width "
+        f"and depth, {r0['params']:,} parameters ({r0['whole_bytes'] / 1e9:.2f} GB whole; a "
+        f"rank's pieces {r0['piece_bytes'] / 1e9:.2f} GB)")
+
+    def kinds(k):
+        b, sec = k
+        return ", ".join(f"{name} {b[name] / mb:.1f} MB {sec.get(name, 0) * 1e3:.1f} ms"
+                         for name in sorted(b))
+
+    for r in sorted(out):
+        a = out[r]
+        step = statistics.median(a["train"]["s"])
+        share = sum(a["train"]["kinds"][1].values()) / step
+        log(f"tp (a) rank {r}: train (remat, grad_accum {a['grad_accum']}, {rows} x {seq} "
+            f"tokens) {step * 1e3:.1f} ms a step "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in a['train']['s'])} ms after {TP_WARM} warm-up), {rows * seq / step:.1f} tokens/s; collectives "
+            f"{100 * share:.1f} % of the step ({kinds(a['train']['kinds'])}); loss "
+            f"{', '.join(f'{x:.4f}' for x in a['train']['losses'])}; peak memory "
+            f"{a['train']['peak'] / 1e9:.2f} GB beside spec_bytes of its share (parameters and "
+            f"both moments) {a['state_bytes'] / 1e9:.2f} GB; on {card}")
+        p, d = a["prefill"], a["decode"]
+        pr, ps = TP_PREFILL
+        log(f"tp (a) rank {r}: prefill {pr} x {ps} {p['s'] * 1e3:.1f} ms "
+            f"({pr * ps / p['s']:.1f} tokens/s; collectives "
+            f"{100 * sum(p['kinds'][1].values()) / p['s']:.1f} %: {kinds(p['kinds'])}); "
+            f"decode at batch {pr} against {TP_CACHE}-token kv_seq-split caches "
+            f"({d['cache_bytes'] / mb:.1f} MB a rank) {d['s'] * 1e3:.2f} ms a step "
+            f"({pr / d['s']:.1f} tokens/s; collectives "
+            f"{100 * sum(d['kinds'][1].values()) / (d['s'] * TP_DECODE):.1f} % over "
+            f"{TP_DECODE} steps: {kinds(d['kinds'])}); serving peak "
+            f"{a['serve_peak'] / 1e9:.2f} GB; on {card}")
+    errs = r0["errs"]
+    first = next(iter(errs))
+    worst = {k: max(v.values()) if k != first else max(
+        v[x] for x in ("loss", "grad", "param", "prefill", "decode")) for k, v in errs.items()}
+    log(f"tp (b): the 2-rank train step against one process within rtol {TRAIN_ACCUM_RTOL}, "
+        f"atol {TRAIN_ACCUM_ATOL} (loss, every gradient leaf, every parameter after one step), "
+        f"prefill and {TP_CHECK_DECODE} decode steps' logits within {TP_LM_TOL} "
+        f"({TP_CHECK_CACHE}-slot caches, both ranks' blocks written), float32, largest "
+        f"|diff|: " + ", ".join(f"{a} {e:.2e}" for a, e in worst.items())
+        + f"; planted faults: wo's partial sums not reduced (loss off by "
+        f"{errs[first]['wo_fault']:.3e}), the decode combine without rank 1's block "
+        f"(logits off by {errs[first]['decode_fault']:.3e}), both failing the check")
+    log(f"phase 20 took {time.perf_counter() - t_started:.0f}s beside phase 7 "
+        f"((a) {r0['a_s']:.1f}s, (b) {r0['b_s']:.1f}s on rank 0), {own:.1f}s of the "
+        f"script's own (the wait after phase 7's build); on {card}")
 
 
 def build_kernels() -> None:

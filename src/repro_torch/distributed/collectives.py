@@ -17,6 +17,9 @@
     ``g + e`` to int8 with a per-tensor scale, the int32 sum of the codes
     and the mean of the scales cross the group, and the quantization
     residual stays on the rank as the next step's ``e``;
+  * ``AxisComm`` and ``gather_along`` / ``reduce_scatter_along`` /
+    ``reduce_all`` / ``split_along`` — the tensor-parallel collectives over
+    one mesh axis, each a ``torch.autograd.Function`` (below);
   * ``gather_sharded`` / ``gather_sharded_many`` — the full tensors of
     which each rank holds the pieces ``distributed.sharding`` specs name
     (the ZeRO parameter all-gather of the data-parallel train step, and a
@@ -29,11 +32,16 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import mesh_axis_sizes
+import collections
+import contextlib
+import time
+
+from repro_torch.distributed.sharding import RankView, mesh_axis_sizes
 from repro_torch.kernels.ivf_scan import merge_windows
 from repro_torch.launch.op_census import report_collective
 
-__all__ = ["Stripes", "group_size", "quantize_int8", "dequantize_int8", "staged", "all_gather",
+__all__ = ["AxisComm", "Traffic", "gather_along", "reduce_scatter_along", "reduce_all", "split_along",
+           "Stripes", "group_size", "quantize_int8", "dequantize_int8", "staged", "all_gather",
            "broadcast",
            "all_reduce", "send", "recv", "hierarchical_topk", "compressed_grad_allreduce",
            "gather_sharded", "gather_sharded_many"]
@@ -68,6 +76,21 @@ class Stripes(tuple):
     def of(cls, group=None, n: int = 4) -> "Stripes":
         ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
         return cls(dist.new_group(ranks) for _ in range(n))
+
+    @classmethod
+    def over(cls, mesh, axis: str, n: int = 4) -> "Stripes":
+        """This rank's group along mesh dimension ``axis``, opened ``n``
+        times.  Every rank of the default group opens every group of the
+        dimension, in the same order (``new_group`` is collective), and
+        keeps its own."""
+        dim = list(mesh.mesh_dim_names).index(axis)
+        ranks = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.mesh.shape[dim]).tolist()
+        me, mine = dist.get_rank(), None
+        for row in ranks:
+            groups = [dist.new_group(row) for _ in range(n)]
+            if me in row:
+                mine = groups
+        return cls(mine)
 
 
 def _one(group):
@@ -262,3 +285,229 @@ def gather_sharded_many(pieces: list, specs: list, mesh, groups: dict | None = N
             out[i] = torch.cat(parts, dim=dim)
             at += r.numel()
     return out
+
+
+# ---- tensor parallelism over one mesh axis ----------------------------------
+#
+# The gradient convention: a tensor that every rank of the axis holds whole
+# (replicated) carries, on each rank, a PARTIAL gradient, whose sum over the
+# ranks is its gradient; a tensor that the ranks hold in pieces carries its
+# piece's gradient.  A loss is therefore a partial sum too (``models.model.
+# LM.loss_fn``: terms computed alike on every rank count on one of them),
+# and a parameter replicated over the axis sums its gradient over the axis
+# (``launch.steps.DataParallel``).  Under it the four placements changes
+# pair up as:
+#
+#   gather_along          pieces -> whole        backward: reduce-scatter
+#   reduce_scatter_along  partial sums -> pieces  backward: all-gather
+#   reduce_all            partial sums -> whole   backward: all-reduce
+#   split_along           whole -> pieces         backward: zero-padded piece
+#
+# (Megatron's identity / all-reduce pair belongs to the other convention,
+# in which a replicated tensor carries its whole gradient; there every
+# place where a replicated tensor meets rank-distinct work needs an extra
+# operator, and the MoE router, read by both kinds of work, would need its
+# gradient split by hand.)
+
+
+class Traffic:
+    """What one rank's collectives carried, by kind: ``bytes`` (each one's
+    own payload) and, with ``clock`` set, ``seconds`` (the host time from
+    its start, the card synchronised first, to its end; without ``clock``
+    nothing is synchronised and ``seconds`` stays empty)."""
+
+    def __init__(self, clock: bool = False):
+        self.clock = clock
+        self.bytes: collections.Counter = collections.Counter()
+        self.seconds: collections.Counter = collections.Counter()
+
+    def reset(self) -> None:
+        self.bytes.clear()
+        self.seconds.clear()
+
+    @contextlib.contextmanager
+    def timed(self, kind: str, nbytes: int, device: torch.device):
+        """Count one collective of ``kind`` carrying ``nbytes``."""
+        self.bytes[kind] += nbytes
+        if not self.clock:
+            yield
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.seconds[kind] += time.perf_counter() - t0
+
+
+class AxisComm:
+    """Mesh axes ``names`` (one, or several taken as one: the first
+    major) as this rank executes them: ``size`` ranks, this rank's
+    ``index`` among them (its piece in ``sharding.local_slice``'s order)
+    and their process group (None over a
+    :class:`~repro_torch.distributed.sharding.RankView`: the collectives
+    then return tensors of the shape they would, with nothing moved, for a
+    dry run on ``device="meta"``; several axes must span every rank of the
+    mesh, whose group they then use).  Each collective is counted in
+    ``traffic`` (a :class:`Traffic`, or None) under its kind prefixed by
+    the axes' ``name`` ("model all-gather"), and by a census open around
+    the step (``op_census.report_collective``)."""
+
+    def __init__(self, mesh, names, traffic: Traffic | None = None):
+        names = (names,) if isinstance(names, str) else tuple(names)
+        sizes = mesh_axis_sizes(mesh)
+        coord = dict(zip(sizes, mesh.get_coordinate()))
+        self.mesh, self.name, self.traffic = mesh, "+".join(names), traffic
+        self.size, self.index = 1, 0
+        for nm in names:
+            self.size *= sizes[nm]
+            self.index = self.index * sizes[nm] + coord[nm]
+        if isinstance(mesh, RankView):
+            self.group = None
+        elif len(names) == 1:
+            self.group = mesh.get_group(names[0])
+        else:
+            others = [nm for nm, n in sizes.items() if n > 1 and nm not in names]
+            if others:
+                raise NotImplementedError(f"a group over {list(names)} but not {others} is not "
+                                          f"executed")
+            self.group = dist.group.WORLD
+
+    def _timed(self, kind: str, nbytes: int, device: torch.device):
+        if self.traffic is None:
+            return contextlib.nullcontext()
+        return self.traffic.timed(f"{self.name} {kind}", nbytes, device)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's piece, concatenated along ``dim`` in rank order.
+        bfloat16 crosses as its bytes (gloo has no 16-bit all-gather)."""
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        nbytes = x.numel() * x.element_size() * self.size
+        if self.group is None:
+            report_collective("all-gather", nbytes)
+            return x.new_empty(shape)
+        bits = x.dtype == torch.bfloat16
+        w = x.contiguous().view(torch.uint8) if bits else x.contiguous()
+        with self._timed("all-gather", nbytes, x.device):
+            g = all_gather(w, self.group)
+        out = torch.cat(tuple(g), dim=dim)
+        return out.view(torch.bfloat16) if bits else out
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``, added in float32 (a new tensor in
+        ``x``'s dtype)."""
+        nbytes = x.numel() * 4
+        if self.group is None:
+            report_collective("all-reduce", nbytes)
+            return x.new_empty(x.shape)
+        w = x.float().contiguous() if x.dtype != torch.float32 else x.clone()
+        with self._timed("all-reduce", nbytes, x.device):
+            all_reduce(w, group=self.group)
+        return w.to(x.dtype)
+
+    def maximum(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of every rank's ``x`` (no gradient)."""
+        nbytes = x.numel() * 4
+        if self.group is None:
+            report_collective("all-reduce", nbytes)
+            return x.detach()
+        w = x.detach().float().clone()
+        with self._timed("all-reduce", nbytes, x.device):
+            all_reduce(w, op=dist.ReduceOp.MAX, group=self.group)
+        return w.to(x.dtype)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's piece along ``dim`` of the sum of every rank's ``x``:
+        an all-reduce, then the piece (gloo has no reduce-scatter of its
+        own, so the bytes counted are the all-reduce's)."""
+        return self.piece(self.reduce(x), dim)
+
+    def piece(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's piece of ``x`` along ``dim`` (a copy, contiguous)."""
+        n = x.shape[dim]
+        if n % self.size:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split "
+                             f"over {self.size} {self.name!r} ranks")
+        size = n // self.size
+        return x.narrow(dim, self.index * size, size).contiguous()
+
+    def pad(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` as this rank's piece along ``dim`` of a tensor that is zero
+        elsewhere."""
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        out = x.new_zeros(shape)
+        out.narrow(dim, self.index * x.shape[dim], x.shape[dim]).copy_(x)
+        return out
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, comm):
+        ctx.dim, ctx.comm = dim, comm
+        return comm.gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g, ctx.dim), None, None
+
+
+class _ReduceScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, comm):
+        ctx.dim, ctx.comm = dim, comm
+        return comm.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.gather(g, ctx.dim), None, None
+
+
+class _ReduceAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce(g), None
+
+
+class _SplitAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, comm):
+        ctx.dim, ctx.comm = dim, comm
+        return comm.piece(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.pad(g, ctx.dim), None, None
+
+
+def gather_along(x: torch.Tensor, dim: int, comm: AxisComm) -> torch.Tensor:
+    """The whole tensor of which each rank of ``comm`` holds the piece
+    ``x`` along ``dim``; backward: the reduce-scatter of the partial
+    gradients."""
+    return _GatherAlong.apply(x, dim, comm)
+
+
+def reduce_scatter_along(x: torch.Tensor, dim: int, comm: AxisComm) -> torch.Tensor:
+    """This rank's piece along ``dim`` of the sum of the ranks' partial
+    sums ``x``; backward: the all-gather of the pieces' gradients."""
+    return _ReduceScatterAlong.apply(x, dim, comm)
+
+
+def reduce_all(x: torch.Tensor, comm: AxisComm) -> torch.Tensor:
+    """The sum of the ranks' partial sums ``x``, on every rank; backward:
+    the all-reduce of the partial gradients (each rank's ``x`` is its own
+    and takes the whole gradient)."""
+    return _ReduceAll.apply(x, comm)
+
+
+def split_along(x: torch.Tensor, dim: int, comm: AxisComm) -> torch.Tensor:
+    """This rank's piece along ``dim`` of the whole tensor ``x``; backward:
+    the piece's gradient, zero elsewhere (a partial gradient)."""
+    return _SplitAlong.apply(x, dim, comm)

@@ -15,10 +15,16 @@ or a tuple of mesh-axis names, as the reference's ``PartitionSpec`` holds;
 a dimension sharded over (a1, a2) is split into size(a1) x size(a2)
 pieces, a1 major.
 
-Torch has no partitioner, so nothing here places a tensor: ``constrain``
-returns its input, and the data-parallel train step
-(``launch.steps.DataParallel``) slices, gathers and sums explicitly by the
-specs :func:`tree_shardings` gives.
+Torch has no partitioner, so the port executes the reference's layout
+itself.  The step (``launch.steps.DataParallel``) splits the batch rows
+over the "data" axis, gathers each parameter's ``embed_fsdp`` pieces and
+sums the gradients; inside the model the "model" axis (:data:`MODEL_AXIS`)
+is executed by :func:`constrain`: under :func:`use_rules` over a live mesh
+(a ``DeviceMesh``, or a :class:`RankView` on ``device="meta"``) it moves a
+tensor from the placement the rank's local computation produced to the one
+the reference's annotation names, with the autograd-aware collectives of
+``distributed.collectives``.  Over a plain :class:`AbstractMesh`, or with
+no rules, it returns its input.
 """
 
 from __future__ import annotations
@@ -26,12 +32,18 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import Any, Sequence
 
-__all__ = ["AbstractMesh", "Rules", "DEFAULT_RULE_TABLE", "Sharding", "use_rules",
+__all__ = ["AbstractMesh", "RankView", "MODEL_AXIS", "Rules", "DEFAULT_RULE_TABLE", "Sharding", "use_rules",
            "current_rules", "constrain", "logical_to_spec", "tree_shardings",
-           "spec_bytes", "mesh_axis_sizes", "local_shape", "local_slice"]
+           "spec_bytes", "mesh_axis_sizes", "local_shape", "local_slice", "model_dim", "rules_in",
+           "make_rules", "comm_over", "cache_split", "executes"]
+
+# The mesh axis that the model's own code executes (tensor parallelism);
+# the step has split the batch over the others before the model runs.
+MODEL_AXIS = "model"
 
 # Mesh axes: "pod" (inter-pod DP), "data" (DP + FSDP), "model" (TP).
 DEFAULT_RULE_TABLE: dict[str, tuple[str, ...]] = {
@@ -85,17 +97,50 @@ class AbstractMesh:
         return math.prod(self.axis_sizes)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankView(AbstractMesh):
+    """An :class:`AbstractMesh` seen from one rank's ``coordinate``, with no
+    process group: enough for :func:`local_slice`, and for :func:`constrain`
+    to run one rank's step on ``device="meta"`` (its collectives give the
+    shapes they would return and are counted, nothing moves)."""
+
+    coordinate: tuple = ()
+
+    def get_coordinate(self) -> list[int]:
+        return list(self.coordinate)
+
+
+def executes(mesh) -> bool:
+    """Whether :func:`constrain` places tensors over ``mesh``: a
+    ``DeviceMesh`` or a :class:`RankView`; not a plain
+    :class:`AbstractMesh`, whose layout is only reasoned about."""
+    return mesh is not None and (isinstance(mesh, RankView)
+                                 or not isinstance(mesh, AbstractMesh))
+
+
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     """{axis name: size} of an :class:`AbstractMesh` or a ``DeviceMesh``."""
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 @dataclasses.dataclass(frozen=True)
 class Rules:
+    """The rule table over ``mesh``.  Over a live mesh, :func:`comm_over`
+    builds each group of mesh axes' ``collectives.AxisComm`` once, in
+    ``comms``, counting into ``traffic`` (a ``collectives.Traffic`` or
+    None)."""
+
     mesh: Any
     table: dict[str, tuple[str, ...]]
+    traffic: Any = None
+    comms: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @functools.cached_property
+    def sizes(self) -> dict[str, int]:
+        """:func:`mesh_axis_sizes` of the mesh, read once."""
+        return mesh_axis_sizes(self.mesh)
 
     def resolve(self, axis: str | None, dim: int,
                 used: set[str] | None = None) -> tuple[str, ...] | None:
@@ -110,7 +155,7 @@ class Rules:
         if not names:
             return None
         used = used if used is not None else set()
-        sizes = mesh_axis_sizes(self.mesh)
+        sizes = self.sizes
         # use only the prefix of mesh axes whose product divides dim
         chosen: list[str] = []
         prod = 1
@@ -137,17 +182,31 @@ def _table(overrides: dict | None) -> dict[str, tuple[str, ...]]:
     return table
 
 
+def make_rules(mesh, overrides: dict[str, tuple[str, ...]] | None = None,
+               traffic=None) -> Rules:
+    """The default rule table, updated by ``overrides``, over ``mesh``."""
+    return Rules(mesh=mesh, table=_table(overrides), traffic=traffic)
+
+
 @contextlib.contextmanager
 def use_rules(mesh, overrides: dict[str, tuple[str, ...]] | None = None):
-    token = _RULES.set(Rules(mesh=mesh, table=_table(overrides)))
-    try:
+    with rules_in(make_rules(mesh, overrides)):
         yield
-    finally:
-        _RULES.reset(token)
 
 
 def current_rules() -> Rules | None:
     return _RULES.get()
+
+
+@contextlib.contextmanager
+def rules_in(rules: Rules | None):
+    """The block runs under ``rules`` (a :func:`current_rules` value, None
+    included): a recomputation under the rules of its forward pass."""
+    token = _RULES.set(rules)
+    try:
+        yield
+    finally:
+        _RULES.reset(token)
 
 
 def logical_to_spec(axes: Sequence[str | None], shape: Sequence[int],
@@ -165,10 +224,106 @@ def logical_to_spec(axes: Sequence[str | None], shape: Sequence[int],
     return tuple(parts)
 
 
-def constrain(x, *axes: str | None):
-    """The reference's sharding constraint: a no-op (nothing here places a
-    tensor; placement is explicit in the step)."""
-    return x
+def _model_split(spec, sizes) -> tuple[int | None, tuple[str, ...]]:
+    """(the dimension of ``spec`` split over :data:`MODEL_AXIS`, the mesh
+    axes of size > 1 it is split over, the model axis first as the spec
+    names them), or (None, ()); ``sizes``: the mesh's axis sizes."""
+    if sizes.get(MODEL_AXIS, 1) == 1:
+        return None, ()
+    for dim, part in enumerate(spec or ()):
+        names = (part,) if isinstance(part, str) else (part or ())
+        if MODEL_AXIS in names:
+            return dim, tuple(nm for nm in names if sizes[nm] > 1)
+    return None, ()
+
+
+def _model_part(spec, sizes) -> int | None:
+    """The dimension of ``spec`` split over :data:`MODEL_AXIS` (None: none).
+    Raises, by name, for a dimension split over the model axis together
+    with another axis of size > 1: an activation's placement changes only
+    along the model axis (the step splits only rows over "data")."""
+    dim, names = _model_split(spec, sizes)
+    if len(names) > 1:
+        raise NotImplementedError(
+            f"a dimension split over {MODEL_AXIS!r} and {list(names[1:])} is not executed "
+            f"(spec {tuple(spec)})")
+    return dim
+
+
+def model_dim(axes: Sequence[str | None], shape: Sequence[int]) -> int | None:
+    """The dimension of a tensor of (global) ``shape`` with logical ``axes``
+    that the current rules split over the model axis, where a live mesh
+    executes them (:func:`executes`); None otherwise."""
+    rules = current_rules()
+    if rules is None or not executes(rules.mesh):
+        return None
+    return _model_part(logical_to_spec(axes, shape, rules), rules.sizes)
+
+
+def cache_split(axes: Sequence[str | None], shape: Sequence[int]
+                ) -> tuple[int | None, tuple[str, ...]]:
+    """(dimension, mesh axes) over which the current rules split a decode
+    cache leaf of (global) ``shape`` with logical ``axes``, where a live
+    mesh executes them: the model axis, alone or with others (long_500k's
+    ``kv_seq`` over "model" and "data": every rank one block of slots);
+    (None, ()) otherwise."""
+    rules = current_rules()
+    if rules is None or not executes(rules.mesh):
+        return None, ()
+    return _model_split(logical_to_spec(axes, shape, rules), rules.sizes)
+
+
+def comm_over(names: tuple[str, ...] = (MODEL_AXIS,)):
+    """The mesh axes ``names`` of the current rules' live mesh as one
+    ``collectives.AxisComm`` (its size, this rank's piece index in
+    :func:`local_slice`'s order, the group), built once per rules, or
+    None: no rules, a mesh that is only reasoned about, or a model axis of
+    size 1."""
+    rules = current_rules()
+    if rules is None or not executes(rules.mesh):
+        return None
+    if rules.sizes.get(MODEL_AXIS, 1) == 1:
+        return None
+    names = tuple(names)
+    comm = rules.comms.get(names)
+    if comm is None:
+        from repro_torch.distributed.collectives import AxisComm
+        comm = rules.comms[names] = AxisComm(rules.mesh, names, rules.traffic)
+    return comm
+
+
+def constrain(x, *axes: str | None, src: int | None = None, partial: bool = False):
+    """The reference's sharding constraint, executed over the model axis.
+
+    ``x`` is this rank's piece of a tensor: split along dimension ``src``
+    over the model axis (None: whole), or, with ``partial``, whole-shaped
+    partial sums whose sum over the model ranks is the tensor.  Returns this
+    rank's piece of it placed as ``logical_to_spec(axes, its global
+    shape)`` says: all-gathered, sliced or reduce-scattered along the model
+    axis where the placement changes, differentiable both ways
+    (``collectives.gather_along`` and siblings: a replicated tensor's
+    gradient on a rank is its partial sum).  The batch rows stay as the
+    step split them over the data ranks.  A no-op without rules, over a
+    mesh that is only reasoned about, and over a model axis of size 1."""
+    comm = comm_over()
+    if comm is None:
+        return x
+    from repro_torch.distributed import collectives as C
+
+    shape = list(x.shape)
+    if src is not None:
+        if partial:
+            raise ValueError("partial sums are whole-shaped: give no src")
+        shape[src] *= comm.size
+    rules = current_rules()
+    tgt = _model_part(logical_to_spec(axes, shape, rules), rules.sizes)
+    if partial:
+        return C.reduce_all(x, comm) if tgt is None else C.reduce_scatter_along(x, tgt, comm)
+    if src == tgt:
+        return x
+    if src is not None:
+        x = C.gather_along(x, src, comm)
+    return x if tgt is None else C.split_along(x, tgt, comm)
 
 
 @dataclasses.dataclass(frozen=True)

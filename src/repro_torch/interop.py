@@ -25,7 +25,8 @@ from repro_torch.quant.scalar import QuantConfig
 
 __all__ = ["transform_from_arrays", "table_from_arrays", "estimator_from_arrays",
            "flat_from_arrays", "ivf_from_arrays", "graph_from_arrays", "lm_param_map",
-           "lm_from_arrays", "adamw_state_from_arrays", "lm_caches_close"]
+           "lm_from_arrays", "adamw_state_from_arrays", "local_state_from_arrays",
+           "lm_caches_close"]
 
 
 def _t(x, dev, dtype=None) -> torch.Tensor:
@@ -194,6 +195,25 @@ def adamw_state_from_arrays(cfg: ArchConfig, opt_state, *, device="cuda") -> dic
                              f"{sorted(want.keys() - moments.keys())[:4]}")
         out[key] = {name: moments[name] for name in want}
     return out
+
+
+def local_state_from_arrays(cfg: ArchConfig, params, opt_state, shardings: dict, *,
+                            device="cuda") -> tuple[dict, dict]:
+    """This rank's pieces (copies) of the reference's parameter tree and
+    AdamW state (numpy leaves), as ``launch.steps.DataParallel`` holds
+    them: each leaf sliced by ``sharding.local_slice`` under
+    ``shardings[name]`` (a ``Sharding`` per port parameter name, over a
+    ``DeviceMesh`` or a ``RankView``), the moments as their parameters,
+    the step whole."""
+    from repro_torch.distributed.sharding import local_slice
+
+    def pieces(tree):
+        return {k: local_slice(v.detach(), shardings[k].spec, shardings[k].mesh).clone()
+                for k, v in tree.items()}
+
+    state = adamw_state_from_arrays(cfg, opt_state, device=device)
+    return (pieces(dict(lm_from_arrays(cfg, params, device=device).named_parameters())),
+            {"m": pieces(state["m"]), "v": pieces(state["v"]), "step": state["step"]})
 
 
 def lm_caches_close(ref, got, *, rtol: float, atol: float, near_ties: float = 1e-3,

@@ -14,17 +14,18 @@ from ``launch.op_census`` runs of its step:
     ``alias_bytes``: the arguments the reference donates (train: params and
     opt_state; decode: the caches), which the port updates in place;
     ``output_bytes``: the step's outputs under the same rules;
-    ``temp_bytes``: the census's ``peak_bytes`` of one data rank's step
-    (its rows of the batch, every layer at full width: the port has no
-    tensor parallelism, so the model axis does not split activations here);
+    ``temp_bytes``: the census's ``peak_bytes`` of one (data, model)
+    rank's step (:func:`rank_step`): its rows of the batch, its model
+    pieces of the parameters and caches, the model axis executed by
+    ``sharding.constrain`` with a ``sharding.RankView`` in place of the
+    process group (its collectives return their shapes and are counted);
   * ``cost``: the census of the whole global step divided by the device
     count — the even split, which no partition beats, so a roofline's lower
     bound (``cost.basis`` says so);
-  * ``collectives``: the layout minimum — each parameter leaf sharded k
-    ways is all-gathered once a step, bringing in (k-1)/k of its bytes, and
-    a train step reduce-scatters each gradient leaf once for the same bytes
-    again.  ``DataParallel`` refuses a model axis > 1, so these terms are
-    derived, not executed;
+  * ``collectives``: what that rank's step moves (:func:`rank_collectives`):
+    the model axis's activation collectives as the census counted them,
+    and in training ``DataParallel``'s own: the all-gather of the model
+    pieces along "data" and the all-reduce of their gradients;
   * ``dade-ivf`` / ``search_1m``: one rank's step of
     ``annservice.build_search_step`` at its defaults (int8, fused) over
     ``search_input_specs`` with ``corpus_per_device`` rows, the kernel
@@ -58,15 +59,20 @@ import torch
 
 from repro_torch.configs import LM_ARCHS, get_config
 from repro_torch.configs.dade_ivf import CONFIG as SVC_CONFIG
-from repro_torch.distributed.sharding import (Sharding, mesh_axis_sizes, spec_bytes,
-                                              tree_shardings)
+from repro_torch.distributed.sharding import (MODEL_AXIS, RankView, Sharding, local_shape,
+                                              mesh_axis_sizes, spec_bytes, tree_shardings,
+                                              use_rules)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_census import Census
 from repro_torch.launch.roofline import RESULTS
 from repro_torch.launch.specs import SHAPES, cell_is_runnable
-from repro_torch.launch.steps import RULE_OVERRIDES, build_cell
+from repro_torch.launch.steps import (RULE_OVERRIDES, bind_model_pieces, build_cell,
+                                     model_specs, train_step)
+from repro_torch.models.model import build_model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
-__all__ = ["run_cell", "memory", "layout_collectives", "rank_args", "step_args", "cut_batch",
+__all__ = ["run_cell", "memory", "rank_step", "rank_collectives", "rank_args", "step_args",
+           "cut_batch",
            "leaves", "tensor_bytes", "MESHES", "main"]
 
 MESHES = {"pod16x16": dict(multi_pod=False), "pod2x16x16": dict(multi_pod=True)}
@@ -152,24 +158,81 @@ def memory(cell, mesh, out=None) -> dict:
     return mem
 
 
-def layout_collectives(cell, mesh) -> dict:
-    """The layout minimum of one rank's collectives a step: every parameter
-    leaf split k ways all-gathered once ((k-1)/k of its bytes), and in a
-    train step every gradient leaf reduce-scattered once (the same bytes)."""
-    sizes = mesh_axis_sizes(mesh)
-    gathered, n = 0.0, 0
-    for t, sh in _pairs(step_args(cell)[0], cell.in_shardings[0]):
-        k = math.prod(sizes[a] for part in sh.spec for a in (part or ()))
-        if k > 1:
-            gathered += t.numel() * t.element_size() * (k - 1) / k
-            n += 1
-    by_kind, count = {"all-gather": gathered}, {"all-gather": n}
+def _rules(cell, overrides: dict | None) -> dict:
+    rules = dict(RULE_OVERRIDES.get(cell.shape, {}))
+    rules.update(overrides or {})
+    return rules
+
+
+def rank_step(cell, mesh, overrides: dict | None = None):
+    """(census, output) of one (data, model) rank's step of ``cell`` (built
+    on meta over the ``AbstractMesh`` ``mesh``), on meta: a model holding
+    the rank's model pieces, its rows of the batch (and of the decode
+    caches, its pieces of them), under ``use_rules`` over a ``RankView``
+    of the mesh at coordinate 0, whose collectives the census counts.  A
+    train step updates the rank's model pieces (``DataParallel``'s
+    data-axis collectives are :func:`rank_collectives`')."""
+    view = RankView(mesh.axis_sizes, mesh.axis_names, (0,) * mesh.ndim)
+    rules = _rules(cell, overrides)
+    model = build_model(cell.model.cfg, device="meta")
+    full = dict(model.named_parameters())
+    bind_model_pieces(model, model_specs(tree_shardings(model.param_axes(), full, view,
+                                                        rules)), view)
+    args = rank_args(cell, mesh)
+    with use_rules(view, rules):
+        if cell.kind == "train":
+            model.requires_grad_(True)
+            params = dict(model.named_parameters())
+            fn, args = (lambda p, o, b: train_step(model, AdamWConfig(), p, o, b),
+                        (params, adamw_init(params), args[2]))
+        elif cell.kind == "prefill":
+            fn = model.prefill
+        else:
+            token, _, pos = args
+            caches, _ = model.init_caches(token.shape[0], SHAPES[cell.shape].seq)
+            fn, args = model.decode_step, (token, caches, pos)
+        return _counted(fn, args, f"{cell.kind}_step")
+
+
+def rank_collectives(cell, mesh, rank_census: dict, overrides: dict | None = None) -> dict:
+    """What one rank's step moves: the model axis's collectives counted in
+    ``rank_census`` (:func:`rank_step`'s), and in a train step
+    ``DataParallel``'s: each model piece split along "data" all-gathered
+    whole (its output bytes) and, where the batch splits over the data
+    ranks, every gradient all-reduced (in the parameters' dtype at
+    ``grad_accum`` 1, float32 above)."""
+    by_kind = dict(rank_census["coll_by_kind"])
+    count = dict(rank_census["coll_count_by_kind"])
     if cell.kind == "train":
-        by_kind["reduce-scatter"], count["reduce-scatter"] = gathered, n
+        sizes = mesh_axis_sizes(mesh)
+        data = math.prod(n for a, n in sizes.items() if a != MODEL_AXIS)
+        rules = _rules(cell, overrides)
+        shapes = dict(cell.model.named_parameters())
+        sh = tree_shardings(cell.model.param_axes(), shapes, mesh, rules)
+        pieces = model_specs(sh)
+        ga = max(cell.model.cfg.grad_accum, 1)
+        gathered = grads = 0.0
+        n_gathered = 0
+        for k, p in shapes.items():
+            local = math.prod(local_shape(tuple(p.shape), pieces[k], mesh))
+            if any(part and a != MODEL_AXIS and sizes[a] > 1
+                   for part in sh[k].spec for a in (part or ())):
+                gathered += local * p.element_size()
+                n_gathered += 1
+            grads += local * (p.element_size() if ga == 1 else 4)
+        rows = cell.args[2]["tokens"].shape[0]
+        if n_gathered:
+            by_kind["all-gather"] = by_kind.get("all-gather", 0) + gathered
+            count["all-gather"] = count.get("all-gather", 0) + n_gathered
+        if data > 1 and rows % (ga * data) == 0:
+            by_kind["all-reduce"] = by_kind.get("all-reduce", 0) + grads
+            count["all-reduce"] = count.get("all-reduce", 0) + 1
     return {"bytes_by_kind": by_kind, "count_by_kind": count,
             "total_bytes": sum(by_kind.values()),
-            "basis": "layout minimum: each sharded parameter leaf all-gathered once a "
-                     "step (and each gradient leaf reduce-scattered once in training)"}
+            "basis": "what one (data, model) rank's step moves: the model axis's "
+                     "collectives counted by the census of its step on meta, and in "
+                     "training the model pieces' all-gather along 'data' and their "
+                     "gradients' all-reduce"}
 
 
 def _local_rows(rows: int, spec_part, mesh, ga: int = 1) -> int:
@@ -301,15 +364,16 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str | None = None, *,
         if (arch, shape) not in cache:
             cache[(arch, shape)] = _counted(cell.step_fn, cell.args, f"{cell.kind}_step")
         cen, out = cache[(arch, shape)]
-        rank, _ = _counted(cell.step_fn, rank_args(cell, mesh), f"{cell.kind}_step")
+        rank, _ = rank_step(cell, mesh, overrides)
         rec = _finish(rec, memory(cell, mesh, out),
                       cost=dict(_split(cen, rec["devices"]),
                                 basis="even split: the global step's counts / devices "
                                       "(a roofline lower bound)"),
-                      coll=layout_collectives(cell, mesh), cen=cen,
+                      coll=rank_collectives(cell, mesh, rank, overrides), cen=cen,
                       temp=rank["peak_bytes"])
-        rec["temp_basis"] = ("peak live bytes of one data rank's step (its batch rows, "
-                             "full model width)")
+        rec["temp_basis"] = ("peak live bytes of one (data, model) rank's step on meta (its "
+                             "batch rows, its model pieces; a RankView in place of the "
+                             "process group)")
     if keep_ops:
         rec["census"]["by_op"] = cen["by_op"]
     rec["compile_s"] = round(time.perf_counter() - t0, 1)

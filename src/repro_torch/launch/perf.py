@@ -102,7 +102,10 @@ def run(arch: str, shape: str, *, multipod: bool = False, overrides: dict | None
     ``device``) with ``args`` (its step's arguments there), or the cell
     built on ``device`` with one data rank's rows (or ``rows`` rows) of
     fresh inputs; its terms are that step's, beside the layout's argument
-    and alias bytes and, on the card, the allocator's peak.
+    and alias bytes and, on the card, the allocator's peak.  Its
+    collectives: on meta, those of one (data, model) rank's step of the
+    layout (``dryrun.rank_step``); on a device, the step's own (one device
+    moves nothing between ranks).
     ``donate=False`` counts no argument as updated in place."""
     mesh = make_production_mesh(multi_pod=multipod)
     t0 = time.perf_counter()
@@ -136,9 +139,13 @@ def run(arch: str, shape: str, *, multipod: bool = False, overrides: dict | None
         if device == "cuda":
             torch.cuda.synchronize()
             alloc = torch.cuda.max_memory_allocated()
-        coll = dryrun.layout_collectives(meta, mesh)
-        cen = dict(c.result(), collective_bytes=coll["total_bytes"],
-                   coll_by_kind=coll["bytes_by_kind"], coll_count_by_kind=coll["count_by_kind"])
+        cen = c.result()
+        if device == "meta":  # what one (data, model) rank's step of the layout moves
+            coll = dryrun.rank_collectives(meta, mesh,
+                                           dryrun.rank_step(meta, mesh, overrides)[0], overrides)
+            cen = dict(cen, collective_bytes=coll["total_bytes"],
+                       coll_by_kind=coll["bytes_by_kind"],
+                       coll_count_by_kind=coll["count_by_kind"])
         mem = dict(dryrun.memory(meta, mesh), output_bytes=dryrun.tensor_bytes(out),
                    temp_bytes=cen["peak_bytes"])
         even = False

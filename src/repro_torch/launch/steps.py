@@ -4,20 +4,22 @@ The port of ``repro.launch.steps``: ``build_cell`` returns the model, its
 step function with the model bound, meta-device arguments and, given a
 mesh, the reference's ``in_shardings`` (each leaf a
 ``distributed.sharding.Sharding``) under the per-shape ``RULE_OVERRIDES``.
-The model itself carries no sharding annotation (the reference's
-``constrain`` is a no-op here): over a rank mesh the train step places its
-state explicitly.
 
-Over a ``DeviceMesh`` whose one axis of size > 1 is "data" (the
-reference's ``make_host_mesh(data=N, model=1)``), the train step is
-data-parallel (:class:`DataParallel`): each rank holds its piece of every
-parameter and of both AdamW moments as the shardings assign it
-(``embed_fsdp`` dimensions split over "data": the reference's ZeRO
-layout), gathers the full parameters on its device, runs ``loss_fn`` on
-its rows of each microbatch, sums the gradients over the data ranks (the
-reduction GSPMD inserts) and updates its own pieces, clipping by the norm
-of the whole summed gradient.  Over an ``AbstractMesh`` only the
-shardings are derived.
+Over a ``DeviceMesh`` of ("data", "model") ranks (the reference's
+``make_host_mesh(data=D, model=M)``; a "pod" axis must be 1) the steps
+execute the reference's partition (:class:`DataParallel`): each rank
+holds its piece of every parameter and of both AdamW moments as the
+shardings assign it (``embed_fsdp`` dimensions split over "data": the
+reference's ZeRO layout; ``qkv``, ``ffn``, ``vocab``, ``inner`` ... over
+"model"), gathers its model pieces whole along "data" into the model, runs
+``loss_fn`` under ``use_rules(mesh)`` on its rows of each microbatch
+(the model executes the "model" axis: ``distributed.sharding.constrain``),
+sums the gradients over the data ranks (and over the model ranks for a
+leaf the model axis replicates: its gradient there is a partial sum) and
+updates its own pieces, clipping by the norm of the whole summed gradient.
+Prefill and decode run under the same rules on the rank's rows, the
+model holding its model pieces (gathered along "data" once).  Over an
+``AbstractMesh`` only the shardings are derived.
 
 The train step takes and returns the reference's (params, opt_state,
 batch) -> (params, opt_state, metrics), with ``params`` the model's
@@ -28,11 +30,9 @@ parameters and the moments IN PLACE and returns the same tensors
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import functools
-import time
 from typing import Callable
 
 import numpy as np
@@ -40,9 +40,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import microbatch_rows
-from repro_torch.distributed.collectives import (Stripes, all_reduce,
+from repro_torch.distributed.collectives import (Stripes, Traffic, all_reduce,
                                                  compressed_grad_allreduce, gather_sharded_many)
-from repro_torch.distributed.sharding import (AbstractMesh, local_slice, mesh_axis_sizes,
+from repro_torch.distributed.sharding import (MODEL_AXIS, AbstractMesh, local_slice,
+                                              make_rules, mesh_axis_sizes, rules_in,
                                               tree_shardings)
 from repro_torch.launch.specs import cell_is_runnable, input_specs
 from repro_torch.models.common import DataShare
@@ -51,7 +52,8 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, glob
                                      opt_state_axes)
 
 __all__ = ["Cell", "DataParallel", "RULE_OVERRIDES", "build_cell", "train_grads",
-           "train_step", "compress_grads", "prefill_step", "serve_step"]
+           "train_step", "compress_grads", "prefill_step", "serve_step", "dp_rows",
+           "bind_model_pieces", "model_specs"]
 
 # Per-shape logical-rule overrides (the reference's).
 RULE_OVERRIDES: dict[str, dict] = {
@@ -78,12 +80,21 @@ class Cell:
     data_parallel: "DataParallel | None" = None
 
 
+def _only(spec: tuple, axis: str) -> tuple:
+    """``spec`` with only its ``axis`` entries."""
+    return tuple(tuple(nm for nm in ((part,) if isinstance(part, str) else (part or ()))
+                       if nm == axis) or None for part in spec)
+
+
 class DataParallel:
-    """The data-parallel placement of a train step over ``mesh`` (a
-    ``DeviceMesh`` whose one axis of size > 1 is "data"; tensor
-    parallelism is not ported), for the parameters placed by ``shardings``
-    ({name: Sharding}, from ``tree_shardings`` of the model's logical
-    axes).
+    """The (data, model) placement of a step over ``mesh`` (a
+    ``DeviceMesh`` with a "data" axis and, optionally, a "model" axis; any
+    other axis must be of size 1), for the parameters placed by
+    ``shardings`` ({name: Sharding}, from ``tree_shardings`` of the model's
+    logical axes under ``overrides``).  Given ``model`` and a model axis of
+    size > 1, the model's parameters become this rank's model pieces
+    (whole along "data"): from then on the model computes only under
+    :meth:`rules`.
 
     A batch of B rows with ``grad_accum`` ga splits over the ``size`` data
     ranks when B divides by ga x size: rank ``index`` takes its contiguous
@@ -91,40 +102,46 @@ class DataParallel:
     every rank computes the whole batch and nothing is summed (the
     reference replicates a batch that does not divide).
 
-    ``bytes`` and ``seconds`` count, by kind, what each collective of this
-    rank carried (its own payload) and the host time from its start (the
-    card synchronised first) to its end; ``reset()`` zeroes them."""
+    ``traffic`` (a ``collectives.Traffic``) counts, by kind, what each
+    collective of this rank carried, the model axis's activations
+    included (their kinds prefixed "model "), and with ``traffic.clock``
+    set the host time each took."""
 
-    def __init__(self, mesh, shardings: dict):
+    def __init__(self, mesh, shardings: dict, model: LM | None = None,
+                 overrides: dict | None = None):
         sizes = mesh_axis_sizes(mesh)
-        if "data" not in sizes or any(n > 1 for k, n in sizes.items() if k != "data"):
-            raise ValueError(f"a data-parallel step needs a mesh whose one axis of size > 1 "
-                             f"is 'data' (tensor parallelism is not ported); got {sizes}")
-        self.mesh, self.shardings = mesh, shardings
+        other = {k: n for k, n in sizes.items() if k not in ("data", MODEL_AXIS) and n > 1}
+        if "data" not in sizes or other:
+            raise ValueError(f"a step over a mesh needs a 'data' axis and no axis of size > 1 "
+                             f"but 'data' and {MODEL_AXIS!r} (a 'pod' axis > 1 is not "
+                             f"executed); got {sizes}")
+        self.mesh, self.shardings, self.overrides = mesh, shardings, overrides
         self.size = sizes["data"]
+        self.model_size = sizes.get(MODEL_AXIS, 1)
         self.index = mesh.get_coordinate()[list(sizes).index("data")]
         self.group = mesh.get_group("data")
         # the large collectives (parameters, gradients, codes) run striped
-        self.stripes = Stripes.of(self.group)
+        self.stripes = Stripes.over(mesh, "data") if self.size > 1 else self.group
+        # a leaf the model axis replicates sums its gradient over the model
+        # ranks too (over every rank where the batch splits)
+        self.model_stripes = self.world_stripes = None
+        if self.model_size > 1:
+            self.model_stripes = Stripes.over(mesh, MODEL_AXIS)
+            self.world_stripes = Stripes.of() if self.size > 1 else None
         self.share = DataShare(self.size, self._sum_counts)
-        self.bytes: collections.Counter = collections.Counter()
-        self.seconds: collections.Counter = collections.Counter()
+        self.traffic = Traffic()
+        self._rules = make_rules(mesh, overrides, self.traffic)
+        self.data_specs = {k: _only(sh.spec, "data") for k, sh in shardings.items()}
+        self.model_specs = model_specs(shardings)
+        self.model_split = {k for k, sp in self.model_specs.items()
+                            if self.model_size > 1 and any(sp)}
+        if model is not None and self.model_size > 1:
+            bind_model_pieces(model, self.model_specs, self.mesh)
 
-    def reset(self) -> None:
-        self.bytes.clear()
-        self.seconds.clear()
-
-    @contextlib.contextmanager
-    def timed(self, kind: str, nbytes: int, device: torch.device):
-        """Count one collective of ``kind`` carrying ``nbytes``."""
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self.seconds[kind] += time.perf_counter() - t0
-        self.bytes[kind] += nbytes
+    def rules(self):
+        """The rules the model computes under (over the mesh, counting
+        into ``traffic``), one object for the step's life."""
+        return rules_in(self._rules)
 
     def splits(self, rows: int, ga: int) -> bool:
         """Whether a batch of ``rows`` rows in ``ga`` microbatches is split
@@ -135,54 +152,100 @@ class DataParallel:
         """This rank's piece (a view) of each full tensor of ``tree``."""
         return {k: local_slice(v, self.shardings[k].spec, self.mesh) for k, v in tree.items()}
 
+    def local_data(self, tree: dict) -> dict:
+        """This rank's "data" piece (a view) of each tensor of ``tree`` that
+        is whole along "data" (the model's own parameters and gradients)."""
+        return {k: local_slice(v, self.data_specs[k], self.mesh) for k, v in tree.items()}
+
     def local_params(self, model: LM) -> dict:
         """This rank's pieces of the model's parameters, copies of their own."""
-        return {k: v.detach().clone() for k, v in self.local(
-            dict(model.named_parameters())).items()}
+        own = dict(model.named_parameters())
+        pieces = self.local_data(own) if self.model_size > 1 else self.local(own)
+        return {k: v.detach().clone() for k, v in pieces.items()}
 
     @torch.no_grad()
     def gather_into(self, params: dict, model: LM) -> None:
-        """The full parameters, gathered from every rank's pieces
-        ``params``, written into the model's own."""
+        """The model pieces, gathered along "data" from every data rank's
+        pieces ``params``, written into the model's own parameters."""
         own = dict(model.named_parameters())
         names = list(params)
         nbytes = sum(params[k].numel() * params[k].element_size() for k in names
-                     if any(self.shardings[k].spec))
-        with self.timed("param all-gather", nbytes, model.device):
+                     if self.size > 1 and any(self.data_specs[k]))
+        with self.traffic.timed("param all-gather", nbytes, model.device):
             full = gather_sharded_many([params[k] for k in names],
-                                       [self.shardings[k].spec for k in names], self.mesh,
+                                       [self.data_specs[k] for k in names], self.mesh,
                                        groups={"data": self.stripes})
         for k, t in zip(names, full):
             own[k].copy_(t)
 
-    def sum(self, tensors: dict, kind: str) -> dict:
-        """Each tensor summed over the data ranks in its dtype (float32 where
-        the dtypes differ): one all-reduce of them packed into one buffer."""
-        dtypes = {t.dtype for t in tensors.values()}
-        dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
-        flat = torch.cat([t.to(dtype).reshape(-1) for t in tensors.values()])
-        with self.timed(kind, flat.numel() * flat.element_size(), flat.device):
-            all_reduce(flat, group=self.stripes)
-        out, at = {}, 0
-        for k, t in tensors.items():
-            out[k] = flat[at:at + t.numel()].reshape(t.shape)
-            at += t.numel()
-        return out
+    def sum(self, tensors: dict, kind: str, model_too=(), data: bool = True) -> dict:
+        """Each tensor summed over the data ranks (``data``) in its dtype
+        (float32 where the dtypes differ), and those named in ``model_too``
+        (all of them: ``True``) over the model ranks as well: one
+        all-reduce of each set packed into one buffer."""
+        every = set(tensors) if model_too is True else set(model_too)
+        data = data and self.size > 1
+        if self.model_size == 1:
+            every = set()
+        out = {}
+        for names, group, what in (
+                ([k for k in tensors if k not in every], self.stripes if data else None, ""),
+                ([k for k in tensors if k in every],
+                 self.world_stripes if data else self.model_stripes, " (over model)")):
+            if not names or group is None:
+                out.update({k: tensors[k] for k in names})
+                continue
+            dtypes = {tensors[k].dtype for k in names}
+            dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+            flat = torch.cat([tensors[k].to(dtype).reshape(-1) for k in names])
+            nbytes = flat.numel() * flat.element_size()
+            with self.traffic.timed(kind + what, nbytes, flat.device):
+                all_reduce(flat, group=group)
+            at = 0
+            for k in names:
+                t = tensors[k]
+                out[k] = flat[at:at + t.numel()].reshape(t.shape)
+                at += t.numel()
+        return {k: out[k] for k in tensors}
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model ranks (one float32 all-reduce)."""
+        if self.model_size == 1:
+            return x
+        with self.traffic.timed("grad-norm all-reduce", 4, x.device):
+            return all_reduce(x.float().clone(), group=self.mesh.get_group(MODEL_AXIS))
 
     def _sum_counts(self, counts: torch.Tensor) -> torch.Tensor:
-        with self.timed("moe counts all-reduce", counts.numel() * 4, counts.device):
+        with self.traffic.timed("moe counts all-reduce", counts.numel() * 4, counts.device):
             return all_reduce(counts, group=self.group)
 
     def state_shardings(self, model: LM, ebuf: dict | None = None) -> tuple:
         """Shardings of the trainer's state (params, opt_state, ebuf): the
         moments as the parameters, the step and the error-feedback buffer
         replicated."""
-        full = dict(model.named_parameters())
+        shapes = model._param_shapes
         opt = tree_shardings(opt_state_axes(model.param_axes()),
-                             {"m": full, "v": full, "step": ()}, self.mesh)
+                             {"m": shapes, "v": shapes, "step": ()}, self.mesh, self.overrides)
         rep = None if ebuf is None else tree_shardings(
             {k: (None,) * v.ndim for k, v in ebuf.items()}, ebuf, self.mesh)
         return self.shardings, opt, rep
+
+
+def bind_model_pieces(model: LM, specs: dict, mesh) -> None:
+    """Replace each of the model's parameters by this rank's piece of it
+    under ``specs[name]`` over ``mesh`` (a ``DeviceMesh`` or a
+    ``sharding.RankView``): a copy of its own."""
+    for name, p in list(model.named_parameters()):
+        piece = local_slice(p.detach(), specs[name], mesh).clone()
+        mod, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(mod) if mod else model
+        owner._parameters[leaf] = torch.nn.Parameter(piece, requires_grad=p.requires_grad)
+
+
+def model_specs(shardings: dict) -> dict:
+    """{name: the spec with only its model-axis entries} of ``shardings``:
+    the pieces the model holds (whole along every other axis)."""
+    return {k: _only(sh.spec, MODEL_AXIS) for k, sh in shardings.items()}
 
 
 def _to_device(batch: dict, dev) -> dict:
@@ -206,7 +269,10 @@ def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
     With ``dp`` splitting the batch, this rank computes its rows of each
     microbatch as its share (``LM.sharing``: the global token count, the
     MoE counts of every rank) and the gradients, loss and metrics are summed
-    over the data ranks, every rank returning the global batch's: the
+    over the data ranks, every rank returning the global batch's (over a
+    model axis, its model pieces of the gradients; the partial sums of the
+    loss, the metrics and each model-replicated leaf's gradient summed over
+    the model ranks as well): the
     gradients in their dtype (the parameters' at ga = 1, as the reference's
     reduction of its bf16 gradients; the float32 accumulators at ga > 1),
     the loss and metrics in float32."""
@@ -228,7 +294,8 @@ def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
         return loss.detach(), {k: v.detach() for k, v in mets.items()}, [
             torch.zeros_like(p) if g is None else g for p, g in zip(plist, gs)]
 
-    with model.sharing(dp.share if split else None):
+    rules = dp.rules() if dp is not None else contextlib.nullcontext()
+    with model.sharing(dp.share if split else None), rules:
         if ga == 1:
             loss, mets, gs = grads_of(mbs[0])
             grads = dict(zip(names, gs))
@@ -243,9 +310,11 @@ def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
                 lsum = lsum + loss_i
                 del gs  # this microbatch's gradients go before the next one's backward
             loss = lsum
-    if split:
-        grads = dp.sum(grads, "gradient all-reduce")
-        scalars = dp.sum({"loss": loss, **mets}, "loss all-reduce")
+    if split or (dp is not None and dp.model_size > 1):
+        grads = dp.sum(grads, "gradient all-reduce", data=split,
+                       model_too=[k for k in grads if k not in dp.model_split])
+        scalars = dp.sum({"loss": loss, **mets}, "loss all-reduce", data=split,
+                         model_too=True)
         loss, mets = scalars.pop("loss"), scalars
     if ga > 1:
         for g in grads.values():
@@ -306,29 +375,58 @@ def train_step(model: LM, opt: AdamWConfig, params: dict, opt_state: dict, batch
         dp.gather_into(params, model)
     loss, mets, grads = train_grads(model, batch, dp)
     if ebuf is not None:
+        if dp is not None and dp.model_size > 1:
+            raise ValueError("--grad-compress runs over a data mesh only (the reference's "
+                             "trainer keeps model=1)")
         group = None if dp is None else dp.stripes
         codes = sum(g.numel() for g in grads.values()) * 4 + 4 * len(reference_leaves(grads))
-        with (dp.timed("compressed all-reduce (int32 codes, scales)", codes, model.device)
+        with (dp.traffic.timed("compressed all-reduce (int32 codes, scales)", codes, model.device)
               if dp is not None else contextlib.nullcontext()):
             grads, new_e = compress_grads(grads, ebuf, group)
         for k, e in new_e.items():
             ebuf[k].copy_(e)
-    gnorm = global_norm(grads)
-    if dp is not None:
-        grads = dp.local(grads)
+    if dp is not None and dp.model_size > 1:
+        gnorm = global_norm(grads, split=dp.model_split, reduce=dp.model_sum)
+        grads = dp.local_data(grads)
+    else:
+        gnorm = global_norm(grads)
+        if dp is not None:
+            grads = dp.local(grads)
     params, opt_state, om = adamw_update(opt, params, grads, opt_state,
                                          ndims=reference_ndims(params), grad_norm=gnorm)
     return params, opt_state, {"loss": loss, **mets, **om}
 
 
-def prefill_step(model: LM, batch: dict[str, torch.Tensor]):
-    """(last-position logits, caches) of a prompt batch."""
-    return model.prefill(batch)
+def prefill_step(model: LM, batch: dict[str, torch.Tensor], *, dp: DataParallel | None = None):
+    """(last-position logits, caches) of a prompt batch; with ``dp``, of
+    this rank's rows (where they split over the data ranks), its pieces of
+    the logits (``vocab``) and of the caches as decode takes them."""
+    if dp is None:
+        return model.prefill(batch)
+    with dp.rules():
+        return model.prefill(dp_rows(dp, batch))
 
 
-def serve_step(model: LM, token: torch.Tensor, caches: dict, pos):
-    """One new token against ``caches`` (updated in place) at ``pos``."""
-    return model.decode_step(token, caches, pos)
+def serve_step(model: LM, token: torch.Tensor, caches: dict, pos, *,
+               dp: DataParallel | None = None):
+    """One new token against ``caches`` (updated in place) at ``pos``; with
+    ``dp``, this rank's rows of ``token`` against its pieces of the caches
+    (``init_caches`` under ``dp.rules()`` of its rows)."""
+    if dp is None:
+        return model.decode_step(token, caches, pos)
+    with dp.rules():
+        return model.decode_step(dp_rows(dp, {"tokens": token})["tokens"], caches, pos)
+
+
+def dp_rows(dp: DataParallel, batch: dict) -> dict:
+    """This data rank's rows of ``batch`` where they split over the data
+    ranks (else the whole batch, as the reference replicates it)."""
+    rows = batch["tokens"].shape[0]
+    if not dp.splits(rows, 1):
+        return batch
+    return {k: (v[dp.index * (rows // dp.size):(dp.index + 1) * (rows // dp.size)]
+                if hasattr(v, "shape") and v.ndim and v.shape[0] == rows else v)
+            for k, v in batch.items()}
 
 
 def build_cell(arch_id: str, shape: str, *, mesh=None, device="cuda",
@@ -339,9 +437,12 @@ def build_cell(arch_id: str, shape: str, *, mesh=None, device="cuda",
     train cell's: parameters, optimizer state, batch; its model's
     parameters take gradients).  Given ``mesh`` (an ``AbstractMesh`` or a
     ``DeviceMesh``), the in_shardings under ``RULE_OVERRIDES`` for the
-    shape plus ``overrides``; a train cell over a ``DeviceMesh`` steps
-    data-parallel (``cell.data_parallel``; its initial state is
-    ``data_parallel.local_params(cell.model)`` and ``adamw_init`` of it)."""
+    shape plus ``overrides``; a cell over a ``DeviceMesh`` steps over its
+    ranks (``cell.data_parallel``, which holds the model's model pieces:
+    a train cell's initial state is ``data_parallel.local_params(
+    cell.model)`` and ``adamw_init`` of it; a decode cell's caches are
+    ``cell.model.init_caches`` of the rank's rows under
+    ``data_parallel.rules()``)."""
     cfg = get_config(arch_id)
     if cfgset:
         cfg = dataclasses.replace(cfg, **cfgset)
@@ -358,11 +459,11 @@ def build_cell(arch_id: str, shape: str, *, mesh=None, device="cuda",
         return None if mesh is None else tree_shardings(axes, shaped, mesh, rules)
 
     param_sh, batch_sh = shard(meta.param_axes(), shapes), shard(baxes, bspecs)
+    live = mesh is not None and not isinstance(mesh, AbstractMesh)
     if spec.kind == "train":
         model.requires_grad_(True)
         opt_shapes = adamw_init(shapes)
-        dp = (DataParallel(mesh, param_sh)
-              if mesh is not None and not isinstance(mesh, AbstractMesh) else None)
+        dp = DataParallel(mesh, param_sh, model, rules) if live else None
         return Cell(arch_id, shape, spec.kind,
                     functools.partial(train_step, model, opt or AdamWConfig(), dp=dp),
                     (shapes, opt_shapes, bspecs), model, ok, why,
@@ -370,16 +471,18 @@ def build_cell(arch_id: str, shape: str, *, mesh=None, device="cuda",
                         param_sh, shard(opt_state_axes(meta.param_axes()), opt_shapes),
                         batch_sh),
                     data_parallel=dp)
+    dp = DataParallel(mesh, param_sh, model, rules) if live else None
     if spec.kind == "prefill":
-        return Cell(arch_id, shape, spec.kind, functools.partial(prefill_step, model),
+        return Cell(arch_id, shape, spec.kind, functools.partial(prefill_step, model, dp=dp),
                     (bspecs,), model, ok, why,
-                    in_shardings=None if mesh is None else (param_sh, batch_sh))
+                    in_shardings=None if mesh is None else (param_sh, batch_sh),
+                    data_parallel=dp)
     b = spec.global_batch
     caches, cache_axes = meta.init_caches(b, spec.seq)
     token = torch.empty((b, 1), dtype=torch.int32, device="meta")
     pos = torch.empty((), dtype=torch.int32, device="meta")
-    cell = Cell(arch_id, shape, spec.kind, functools.partial(serve_step, model),
-                (token, caches, pos), model, ok, why)
+    cell = Cell(arch_id, shape, spec.kind, functools.partial(serve_step, model, dp=dp),
+                (token, caches, pos), model, ok, why, data_parallel=dp)
     if mesh is not None:
         cache_sh = shard(cache_axes, caches)
         cell.in_shardings = (param_sh, shard(("batch", "seq"), token), cache_sh,

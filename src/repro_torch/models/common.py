@@ -8,23 +8,31 @@ reference tree moves into the port without transposes
 (``repro_torch.interop.lm_from_arrays``).  Every parameter carries the
 reference's logical sharding axes (``Initializer``: its ``logical_axes``,
 collected by ``LM.param_axes``), from which ``distributed.sharding`` derives
-each rank's placement; the model itself constrains nothing.  A
-:class:`DataShare` tells the loss that its batch is one rank's share of a
-batch split over data-parallel ranks.
+each rank's placement.  The model learns its groups as the reference's
+does: the data ranks from a :class:`DataShare` (its batch is one rank's
+share of a batch split over them), the model axis from the rules in force
+(``sharding.use_rules`` over a live mesh: ``sharding.comm_over``), under
+which each ``Params`` node reads which of its parameters the rank holds in
+pieces (:meth:`Params.split`) and the model code executes the reference's
+``constrain`` sites.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import comm_over, current_rules, model_dim, rules_in
+
 __all__ = ["ArchConfig", "Params", "Initializer", "DataShare", "rmsnorm", "layernorm",
-           "rope", "softcap", "remat"]
+           "rope", "softcap", "remat", "embed_lookup", "mark_split", "split_of", "split_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +154,26 @@ class Params(nn.Module):
 
     def __init__(self, **children):
         super().__init__()
+        meta = {}
         for key, child in children.items():
             setattr(self, key, child)
+            if isinstance(child, nn.Parameter):
+                meta[key] = (child.logical_axes, tuple(child.shape))
+        self._meta = meta  # each parameter's logical axes and whole shape
+
+    def split(self, key: str) -> int | None:
+        """The dimension of parameter ``key`` that this rank holds a piece
+        of (split over the model axis by the rules in force), or None."""
+        axes, shape = self._meta[key]
+        return model_dim(axes, shape)
+
+    def whole(self, key: str) -> torch.Tensor:
+        """Parameter ``key`` whole: gathered over the model axis where this
+        rank holds a piece (``collectives.gather_along``: its gradient
+        reduce-scattered back onto the piece)."""
+        from repro_torch.distributed.collectives import gather_along
+        dim = self.split(key)
+        return self[key] if dim is None else gather_along(self[key], dim, comm_over())
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -201,10 +227,58 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def remat(cfg: ArchConfig, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (its activations
     recomputed in the backward pass) where the reference applies
-    ``jax.checkpoint``: ``cfg.remat`` set and gradients on."""
+    ``jax.checkpoint``: ``cfg.remat`` set and gradients on.  The
+    recomputation runs under the sharding rules of the forward pass (the
+    card's backward runs on the autograd engine's own thread, which does
+    not see them), so it repeats the same collectives in the same order on
+    every rank."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        rules = current_rules()
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), rules_in(rules)))
     return fn(*args)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, split: int | None):
+    """Rows ``tokens`` of an embedding ``table``.  Where ``split`` is 0 the
+    table is this rank's piece of the vocabulary rows: tokens outside it
+    read zeros, so the result is this rank's partial sum of the lookup (one
+    rank holds each token's row; the others add exact zeros)."""
+    if split is None:
+        return F.embedding(tokens, table)
+    rows = table.shape[0]
+    local = tokens - comm_over().index * rows
+    inside = (local >= 0) & (local < rows)
+    h = F.embedding(torch.where(inside, local, 0), table)
+    return h * inside[..., None].to(h.dtype)
+
+
+def mark_split(t: torch.Tensor, dim: int | None,
+               axes: tuple[str, ...] = ("model",)) -> torch.Tensor:
+    """Record on a cache tensor the dimension this rank holds a piece of
+    and the mesh axes it is split over (the model axis, alone or with
+    others), read by :func:`split_of`; returns ``t``.  A decode cache's
+    placement cannot be read off its shape alone (a local block of slots
+    and a whole cache of the same length look alike)."""
+    t._model_split, t._split_axes = dim, tuple(axes)
+    return t
+
+
+def split_of(t: torch.Tensor) -> int | None:
+    """The dimension :func:`mark_split` recorded on ``t``: None without a
+    model axis; a cache used under one must come from ``LM.init_caches`` or
+    ``LM.prefill`` under the same rules."""
+    if comm_over() is None:
+        return None
+    if not hasattr(t, "_model_split"):
+        raise ValueError("a decode cache under a model axis must come from LM.init_caches "
+                         "or LM.prefill under the same rules")
+    return t._model_split
+
+
+def split_axes(t: torch.Tensor) -> tuple[str, ...]:
+    """The mesh axes :func:`mark_split` recorded on ``t``."""
+    return getattr(t, "_split_axes", ("model",))
 
 
 # ---- initialization --------------------------------------------------------
@@ -258,7 +332,8 @@ class Initializer:
 
 class DataShare(NamedTuple):
     """This rank's share of a batch split row-wise over ``size``
-    data-parallel ranks: the loss is normalised by the global token count
+    data-parallel ranks (the model axis, where there is one, is the rules'
+    ``sharding.comm_over``): the loss is normalised by the global token count
     (``size`` x the rank's), the MoE load-balance loss takes the global
     fraction routed to each expert (``all_reduce`` sums its (E,) counts over
     the ranks) and this rank's mean probabilities, divided by ``size``; so

@@ -1,10 +1,17 @@
-"""Feed-forward blocks: gated (SiLU/GeGLU) and plain (whisper GELU)."""
+"""Feed-forward blocks: gated (SiLU/GeGLU) and plain (whisper GELU).
+
+Over the model axis (``distributed.sharding.use_rules`` over a live mesh)
+a rank holds the ``ffn`` columns of ``w_gate`` / ``w_up`` (and ``b_up``)
+and the rows of ``w_down``: its input is gathered along the sequence, its
+product with ``w_down`` is a partial sum, reduce-scattered onto the
+residual's pieces, and ``b_down`` is added once, after the sum."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import ArchConfig, Initializer, Params
 
 __all__ = ["init_mlp", "mlp_fwd"]
@@ -29,12 +36,17 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # geglu and gelu alike
 
 
-def mlp_fwd(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_fwd(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+            act: int | None = None) -> torch.Tensor:
+    """x: (B, S, D), this rank's piece (split along ``act`` over the model
+    axis, or whole) -> y placed as the residual (``act_seq``)."""
+    x = constrain(x, "batch", "seq", "embed", src=act)
     if "w_gate" in p:
         h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = _act(cfg, x @ p["w_up"] + p["b_up"])
-    y = h @ p["w_down"]
+    y = constrain(h @ p["w_down"], "batch", "act_seq", "embed",
+                  partial=p.split("w_down") is not None)
     if "b_down" in p:
         y = y + p["b_down"]
     return y

@@ -9,6 +9,15 @@ order is undefined.  The bucket scatter writes disjoint slots
 (``scatter_add_``; dropped pairs add zeros into slot 0); the combine sums
 each token's k contributions with ``index_put_(accumulate=True)``, which
 is deterministic on the card where ``index_add_`` uses atomics.
+
+Over the model axis every rank routes the whole sequence (the reference
+gathers it: ``moe.py:73``), so the router, the capacity and the buckets
+are the global ones; the experts' weights are the rank's pieces:
+``expert_ffn`` columns (TP-in-expert, the default rules) or whole experts
+(the EP variant, ``{"expert": ("model",)}``, E padded to the axis by
+``cfg.pad_experts_to``).  Either way a rank's expert outputs are partial
+sums of the combine (another rank's experts add exact zeros), which is
+reduce-scattered onto the residual's pieces.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import comm_over, constrain
 from repro_torch.models.common import ArchConfig, DataShare, Initializer, Params
 from repro_torch.models.mlp import init_mlp, mlp_fwd
 
@@ -42,19 +52,23 @@ def _capacity(cfg: ArchConfig, tokens: int) -> int:
 
 
 def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, *, renorm: bool = True,
-            share: DataShare | None = None):
+            share: DataShare | None = None, act: int | None = None):
     """x: (B, S, D) -> (y, aux_loss).  Dispatch is per batch row; capacity
     is per (row, expert): S·k·cf/E slots.  With ``share`` (the B rows are one
     data-parallel rank's) the load-balance loss takes the fraction routed to
     each expert over every rank's rows (the counts summed across the ranks,
     no gradient through them) and this rank's mean probabilities: the
-    ranks' values then average to the global batch's."""
+    ranks' values then average to the global batch's.  ``x`` is placed
+    as ``mlp.mlp_fwd``'s, and so is the output."""
+    x = constrain(x, "batch", "seq", "embed", src=act)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     e_pad = cfg.pad_experts_to or e
     dev = x.device
 
-    logits = (x @ p["router"]).float()  # (B, S, E)
+    logits = (x @ p["router"]).float()  # (B, S, E): the EP rules split its columns
+    logits = constrain(logits, "batch", "seq", None,
+                       src=None if p.split("router") is None else 2)
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, eidx = top_vals[..., :k], top_idx[..., :k]  # (B, S, k)
@@ -95,20 +109,27 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, *, renorm: bool = True,
     gathered = torch.where(keep[..., None], gathered, 0).to(x.dtype)  # (B, sk, D)
     expert_in = torch.zeros((b, e_pad * cap, d), dtype=x.dtype, device=dev)
     expert_in.scatter_add_(1, slot[..., None].expand(b, sk, d), gathered)
-    expert_in = expert_in.reshape(b, e_pad, cap, d)
+    expert_in = constrain(expert_in.reshape(b, e_pad, cap, d),
+                          "batch", "expert", "expert_cap", "embed")
 
     h = torch.einsum("becd,edf->becf", expert_in, p["w_gate"])
     u = torch.einsum("becd,edf->becf", expert_in, p["w_up"])
     h = F.silu(h) * u
-    y_e = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(b, e_pad * cap, d)
+    y_e = torch.einsum("becf,efd->becd", h, p["w_down"])
+    if y_e.shape[1] != e_pad:  # EP: this rank's experts, the others' zero
+        e_loc = y_e.shape[1]
+        at = e_loc * comm_over().index
+        y_e = F.pad(y_e, (0, 0, 0, 0, at, e_pad - at - e_loc))
+    y_e = y_e.reshape(b, e_pad * cap, d)
 
     contrib = torch.gather(y_e, 1, slot[..., None].expand(b, sk, d))
     contrib = contrib * (sgate * keep.to(x.dtype))[..., None]
     rows = torch.arange(b, device=dev)[:, None].expand(b, sk)
     out = torch.zeros((b, s, d), dtype=x.dtype, device=dev)
     out.index_put_((rows, stok), contrib, accumulate=True)
+    out = constrain(out, "batch", "act_seq", "embed", partial=p.split("w_gate") is not None)
 
     if "shared" in p:
         sg = torch.sigmoid((x @ p["shared_gate"]).float()).to(x.dtype)
-        out = out + sg * mlp_fwd(p["shared"], x, cfg)
+        out = out + constrain(sg, "batch", "act_seq", None) * mlp_fwd(p["shared"], x, cfg)
     return out, aux

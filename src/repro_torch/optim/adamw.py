@@ -56,11 +56,23 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squared float32 values."""
+def global_norm(tree: dict, *, split=(), reduce=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squared float32 values.  Over a
+    partitioned tree, the leaves named in ``split`` are this rank's pieces:
+    their squares are summed by ``reduce`` (the sum over the ranks that
+    hold the other pieces), and every other leaf, whole on each rank, is
+    counted once."""
     total = 0
-    for leaf in tree.values():
-        total = total + torch.sum(torch.square(leaf.float()))
+    pieces = torch.zeros((), dtype=torch.float32,
+                         device=next(iter(tree.values())).device if tree else None)
+    for name, leaf in tree.items():
+        sq = torch.sum(torch.square(leaf.float()))
+        if name in split:
+            pieces = pieces + sq
+        else:
+            total = total + sq
+    if reduce is not None:
+        total = total + reduce(pieces)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

@@ -3,6 +3,8 @@
 the ``gpu`` ones in ``test_torch_gpu.py``).  A spawned rank imports its function
 by module path, so they live here, in a module that imports no JAX."""
 
+import pickle
+
 import numpy as np
 import torch
 
@@ -154,19 +156,11 @@ def train_parity_rank(rank, world, dev, cases, codec, one_ckpt, out_dir):
 
 
 def rank_view(sizes, names, coordinate):
-    """An ``AbstractMesh`` seen from one rank's ``coordinate``: enough for
-    ``sharding.local_slice`` and ``CheckpointManager.restore(shardings=)``
-    to place that rank's pieces without a process group."""
-    import dataclasses
-
-    from repro_torch.distributed.sharding import AbstractMesh
-
-    @dataclasses.dataclass(frozen=True)
-    class RankView(AbstractMesh):
-        coordinate: tuple = ()
-
-        def get_coordinate(self):
-            return list(self.coordinate)
+    """An ``AbstractMesh`` seen from one rank's ``coordinate``
+    (``sharding.RankView``): enough for ``sharding.local_slice`` and
+    ``CheckpointManager.restore(shardings=)`` to place that rank's pieces
+    without a process group."""
+    from repro_torch.distributed.sharding import RankView
 
     return RankView(tuple(sizes), tuple(names), tuple(coordinate))
 
@@ -213,4 +207,222 @@ def dp_step_devices_rank(rank, world, dev, arch, batch, lr):
         params, _, _ = train_step(model, AdamWConfig(lr=lr, warmup_steps=1, total_steps=10),
                                   params, adamw_init(params), batch, dp=dp)
         out.append((float(loss), grads, _gathered(params, dp.shardings)))
+    return out
+
+
+def _placed(t, spec_model_dim, rows_split, mesh):
+    """A rank's piece of a step output gathered whole: its rows split over
+    "data" (dimension ``rows_split``, or None) and ``spec_model_dim`` split
+    over "model" (or None)."""
+    from repro_torch.distributed.collectives import gather_sharded
+    spec = [None] * t.ndim
+    if rows_split is not None:
+        spec[rows_split] = ("data",)
+    if spec_model_dim is not None:
+        spec[spec_model_dim] = ("model",)
+    return gather_sharded(t.contiguous(), tuple(spec), mesh)
+
+
+def tp_parity_rank(rank, world, dev, cases_path, ckpt):
+    """Rank ``rank`` of a (data, model) gloo mesh (``case["mesh"]``, whose
+    size is ``world``).  For each case of the pickle at ``cases_path`` (read
+    here, so that starting the ranks moves no large argument through their
+    pipes; a reduced architecture, its
+    reference parameters, a train batch, a prompt batch, rule
+    ``overrides``): the partitioned train step's loss, metrics and summed
+    gradients (gathered whole), the parameters and moments after one
+    ``train_step`` (gathered), the shapes of this rank's pieces, the
+    prefill's logits and caches, and 4 decode steps' logits (from position
+    ``case["decode_at"]``) and the caches after them, all gathered whole.  ``ckpt`` ((dir, arch) or None): a
+    one-process checkpoint restored onto the mesh (the pieces), then saved
+    from the mesh into ``dir + "-back"``."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.collectives import gather_sharded
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.interop import lm_from_arrays, local_state_from_arrays
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (DataParallel, prefill_step, serve_step, train_grads,
+                                          train_step)
+    from repro_torch.models.common import split_of
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = {"cases": {}}
+    for c, case in cases.items():
+        d, m = case["mesh"]
+        mesh = make_host_mesh(d, m)
+        cfg = dataclasses.replace(reduced_config(case["arch"]), **case["cfgset"])
+        model = lm_from_arrays(cfg, case["params"], device="cpu").requires_grad_(True)
+        full = dict(model.named_parameters())
+        sh = tree_shardings(model.param_axes(), full, mesh, case["overrides"])
+        dp = DataParallel(mesh, sh, model, case["overrides"])
+        res = {}
+        loss, mets, grads = train_grads(model, case["batch"], dp)
+        res["loss"], res["mets"] = float(loss), {k: float(v) for k, v in mets.items()}
+        res["grads"] = {k: gather_sharded(g.contiguous(), dp.model_specs[k], mesh).numpy()
+                        for k, g in grads.items()}
+        params = dp.local_params(model)
+        opt_state = adamw_init(params)
+        ref_params, ref_state = local_state_from_arrays(cfg, case["params"], case["opt_state"],
+                                                        sh, device="cpu")
+        res["pieces_equal"] = all(torch.equal(params[k], ref_params[k]) for k in params) and all(
+            torch.equal(opt_state[m][k], ref_state[m][k]) for m in ("m", "v") for k in params)
+        res["shapes"] = {k: tuple(v.shape) for k, v in params.items()}
+        res["moment_shapes"] = {k: tuple(v.shape) for k, v in opt_state["m"].items()}
+        params, opt_state, om = train_step(model, AdamWConfig(**case["opt"]), params,
+                                           opt_state, case["batch"], dp=dp)
+        res["om"] = {k: float(v) for k, v in om.items()}
+        for part, tree in (("params", params), ("m", opt_state["m"]), ("v", opt_state["v"])):
+            res[part] = {k: gather_sharded(v, sh[k].spec, mesh).numpy() for k, v in tree.items()}
+
+        # serving from the parameters the reference's prefill and decode take
+        model = lm_from_arrays(cfg, case["params"], device="cpu")
+        dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
+                                               mesh, case["overrides"]), model, case["overrides"])
+        prompt = {k: torch.as_tensor(v) for k, v in case["prompt"].items()}
+        rows = prompt["tokens"].shape[0]
+        split = 0 if dp.splits(rows, 1) else None
+        logits, caches = prefill_step(model, prompt, dp=dp)
+
+        def gathered(cs):
+            return {key: type(cv)(*(_placed(t, split_of(t) if m > 1 else None,
+                                            None if split is None else 1, mesh).numpy()
+                                    for t in cv)) for key, cv in cs.items()}
+
+        with dp.rules():
+            res["prefill_logits"] = _placed(logits, 1 if m > 1 else None, split, mesh).numpy()
+            res["prefill_caches"] = gathered(caches)
+            local_rows = rows // d if split is not None else rows
+            caches, _ = model.init_caches(local_rows, case["cache_len"])
+        steps = []
+        for t in range(4):
+            lg, caches = serve_step(model, prompt["tokens"][:, t:t + 1], caches,
+                                    case["decode_at"] + t, dp=dp)
+            with dp.rules():
+                steps.append(_placed(lg, 1 if m > 1 else None, split, mesh).numpy())
+        res["decode_logits"] = steps
+        with dp.rules():
+            res["decode_caches"] = gathered(caches)
+        out["cases"][c] = res
+
+    # build_cell over the mesh: every reduced architecture's train, prefill
+    # and decode cells run one step on a small batch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch.steps import build_cell
+    mesh = make_host_mesh(world // 2, 2)
+    out["cells"] = {}
+    for arch in LM_ARCHS:
+        cfgset = dataclasses.asdict(reduced_config(arch))
+        cfgset.pop("arch_id")
+        rng = np.random.default_rng(len(arch))
+        cfg = reduced_config(arch)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32),
+                 "labels": rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal((8, cfg.encoder_seq, cfg.d_model),
+                                                  dtype=np.float32)
+        if cfg.family == "vlm":
+            batch["vision"] = rng.standard_normal((8, cfg.vision_seq, cfg.vision_dim),
+                                                  dtype=np.float32)
+        got = {}
+        cell = build_cell(arch, "train_4k", mesh=mesh, device="cpu", cfgset=cfgset)
+        params = cell.data_parallel.local_params(cell.model)
+        _, _, mets = cell.step_fn(params, adamw_init(params), batch)
+        got["train"] = float(mets["loss"])
+        prompt = {k: torch.as_tensor(v) for k, v in batch.items() if k != "labels"}
+        cell = build_cell(arch, "prefill_32k", mesh=mesh, device="cpu", cfgset=cfgset)
+        logits, _ = cell.step_fn(prompt)
+        got["prefill"] = tuple(logits.shape), bool(torch.isfinite(logits).all())
+        cell = build_cell(arch, "decode_32k", mesh=mesh, device="cpu", cfgset=cfgset)
+        dp = cell.data_parallel
+        with dp.rules():
+            caches, _ = cell.model.init_caches(8 // dp.size, 16)
+        logits, _ = cell.step_fn(prompt["tokens"][:, :1], caches, 0)
+        got["decode"] = tuple(logits.shape), bool(torch.isfinite(logits).all())
+        if arch == "gemma2-9b":  # long_500k: one row, the slots over every rank
+            cell = build_cell(arch, "long_500k", mesh=mesh, device="cpu", cfgset=cfgset)
+            one = build_model(cell.model.cfg, device="cpu")  # build_cell's seed
+            with cell.data_parallel.rules():
+                caches, _ = cell.model.init_caches(1, 16)
+                got["long_blocks"] = caches["kv1"].k.shape[2]
+            ones, _ = one.init_caches(1, 16)
+            worst = 0.0
+            for t in range(12):
+                tok = prompt["tokens"][:1, t:t + 1]
+                lg, caches = cell.step_fn(tok, caches, t)
+                lo, _ = one.decode_step(tok, ones, t)
+                v = lg.shape[-1]
+                piece = lo[:, mesh.get_coordinate()[1] * v:(mesh.get_coordinate()[1] + 1) * v]
+                worst = max(worst, float((lg - piece).abs().max()))
+            got["long_500k"] = worst
+        out["cells"][arch] = got
+
+    if ckpt is not None:
+        path, arch = ckpt
+        model = build_model(reduced_config(arch), device="cpu")
+        full = {k: v.detach().clone() for k, v in model.named_parameters()}
+        dp = DataParallel(mesh, tree_shardings(model.param_axes(), full, mesh), model)
+        params = dp.local_params(model)
+        like = (params, adamw_init(params))
+        shardings = dp.state_shardings(model)[:2]
+        mgr = CheckpointManager(path, async_save=False)
+        params, opt_state = mgr.restore(mgr.latest_step(), like, shardings=shardings)
+        out["restored"] = ({k: v.numpy().copy() for k, v in params.items()},
+                           {k: v.numpy().copy() for k, v in opt_state["m"].items()},
+                           int(opt_state["step"]))
+        out["specs"] = {k: s.spec for k, s in dp.shardings.items()}
+        CheckpointManager(f"{path}-back{world}", async_save=False).save(
+            int(opt_state["step"]), (params, opt_state), shardings=shardings)
+    return out
+
+
+def tp_devices_rank(rank, world, dev, arch, batch, lr):
+    """One partitioned (data=1, model=world) train step, prefill and 4
+    decode steps of the same seeded reduced model on the CPU and on the
+    rank's device, over a gloo mesh: for each, (loss, {name: the summed
+    gradient, gathered}, {name: the gathered parameter after the step},
+    the gathered prefill logits, the gathered decode logits) as numpy."""
+    import copy
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.collectives import gather_sharded
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (DataParallel, prefill_step, serve_step, train_grads,
+                                          train_step)
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(1, world)
+    cpu = build_model(reduced_config(arch), seed=1, device="cpu").requires_grad_(True)
+    out = []
+    for model in (cpu, copy.deepcopy(cpu).to(dev)):
+        full = dict(model.named_parameters())
+        dp = DataParallel(mesh, tree_shardings(model.param_axes(), full, mesh), model)
+        loss, _, grads = train_grads(model, batch, dp)
+        grads = {k: gather_sharded(g.contiguous(), dp.model_specs[k], mesh).cpu().numpy()
+                 for k, g in grads.items()}
+        params = dp.local_params(model)
+        params, _, _ = train_step(model, AdamWConfig(lr=lr, warmup_steps=1, total_steps=10),
+                                  params, adamw_init(params), batch, dp=dp)
+        after = {k: gather_sharded(v, dp.shardings[k].spec, mesh).cpu().numpy()
+                 for k, v in params.items()}
+        tokens = torch.as_tensor(batch["tokens"], device=model.device)
+        with torch.no_grad():
+            logits, _ = prefill_step(model, {"tokens": tokens}, dp=dp)
+            with dp.rules():
+                pre = gather_sharded(logits, (None, ("model",)), mesh).cpu().numpy()
+                caches, _ = model.init_caches(tokens.shape[0], 8)
+            dec = []
+            for t in range(4):
+                lg, caches = serve_step(model, tokens[:, t:t + 1], caches, 2 + t, dp=dp)
+                dec.append(gather_sharded(lg, (None, ("model",)), mesh).cpu().numpy())
+        out.append((float(loss), grads, after, pre, dec))
     return out

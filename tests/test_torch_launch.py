@@ -330,6 +330,12 @@ def test_dryrun_full_config_cell_is_ok_and_skips_carry_reference_reason():
         dryrun.spec_bytes(t, sh.spec, mesh) for t, sh in dryrun._pairs(
             dryrun.step_args(cell), cell.in_shardings))
     assert 0 < m["alias_bytes"] < m["argument_bytes"] and m["temp_bytes"] > 0
+    # one (data, model) rank's step: its model pieces fit the card where a
+    # data rank's whole-width step did not (103.2 GB)
+    assert "(data, model) rank" in rec["temp_basis"] and m["temp_bytes"] < 80e9
+    coll = rec["collectives"]
+    assert "rank's step moves" in coll["basis"]
+    assert coll["bytes_by_kind"]["all-gather"] > 0 and coll["count_by_kind"]["all-reduce"] > 0
     n_params = sum(p.numel() for p in cell.model.parameters())
     # the census's FLOPs exceed 6·N·D (attention, remat's recomputed forward)
     assert rec["census"]["step_flops"] > 6 * n_params * 256 * 4096
