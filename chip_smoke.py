@@ -236,7 +236,12 @@ on any fault.  Phases, one line each:
      prefill of 2 x 2,048 tokens, then 16 decode steps at batch 2 against
      4,096-token ``kv_seq``-split caches (the slots written across both
      ranks' blocks): ms a step, tokens/s, each collective kind's bytes and
-     share, each rank's peak memory beside ``spec_bytes`` of its share;
+     share, each rank's peak memory beside ``spec_bytes`` of its share,
+     and the dry run's temp bytes of the same rank step counted on meta
+     (``dryrun.rank_step``'s census peak plus ``model_piece_bytes``; a
+     background run from phase 1), which must be no more than the
+     allocator's peak, read after ``reset_peak_memory_stats()`` following
+     the bind;
      (b) float32 identities: the 2-rank train step (loss, every gradient
      leaf gathered, the parameters after one step; rtol 2e-3, atol 2e-4),
      prefill and 8 decode steps' logits (1e-4) against one process, on
@@ -244,6 +249,26 @@ on any fault.  Phases, one line each:
      that must fail them (``wo``'s partial sums sliced, not reduced; the
      decode combine without rank 1's block of slots), and on every reduced
      architecture, mixtral also under ``{"expert": ("model",)}``.
+ 21. the pod axis (``launch.steps.DataParallel`` over a ("pod", "data",
+     "model") = (2, 1, 2) mesh: the batch over pod x data, the gradients
+     summed over both, the parameters and moments split over "data" only
+     and replicated between pods; plain PyTorch, no hand-written kernel):
+     four gloo ranks share the card (the protocol, not NVLink), started
+     beside phase 7's build with phase 20 and begun once phase 20(a) is
+     done.  (a) ``mamba2-130m`` at full width and depth on phase 18's 8 x
+     128 tokens: one warm and two timed train steps: ms a step, tokens/s,
+     each collective kind's bytes and share (the "pod" kinds included),
+     each rank's peak memory beside ``spec_bytes`` of its share; (b)
+     float32 identities against one process on ``mamba2-130m`` at full
+     width cut to 2 layers (loss, every gradient leaf gathered, the
+     parameters after one AdamW step; rtol 2e-3, atol 2e-4), beside two
+     planted faults that must fail them: the gradients summed over "data"
+     only (not "pod"), and every pod taking the same rows; (c)
+     ``gemma2-9b`` at its reduced config under long_500k's rules, its
+     cache slots split over model x data x pod, 12 decode steps against
+     one process within 1e-4.
+
+Each phase's start is stamped with the script's elapsed seconds.
 
 The ``kernels`` line reports, for each kernel, its launches on the main
 paths (phases 3 and 4's served run for ivf_scan, 7-8 for graph_scan's
@@ -430,6 +455,18 @@ TP_CHECK_LAYERS, TP_CHECK = 2, (4, 128)
 TP_CHECK_CACHE, TP_CHECK_DECODE = 8, 8
 TP_LM_TOL = 1e-4
 TP_EP = {"expert": ("model",)}
+# Phase 21: the pod axis.  POD_RANKS gloo ranks on the card as a POD_MESH
+# ("pod", "data", "model") mesh.  (a) DP_ARCH at full width and depth on
+# phase 18's DP_BATCH x DP_SEQ tokens: POD_WARM warm-up and POD_STEPS timed
+# train steps at DP_LR; (b) the float32 identities at phase 17(b)'s
+# tolerances (DP_ARCH at full width cut to DP_CHECK_LAYERS layers, phase
+# 18's batch), each beside two planted faults; (c) gemma2-9b at its reduced
+# config under long_500k's rules, POD_DECODE decode steps into
+# POD_CACHE-slot caches against one process at TP_LM_TOL.
+POD_MESH = (2, 1, 2)
+POD_RANKS = 4
+POD_WARM, POD_STEPS = 1, 2
+POD_CACHE, POD_DECODE = 16, 12
 # Phase 19: the launch tooling.  The dry run of every cell on both
 # production layouts runs beside phases 1-18 (DRYRUN_JOBS worker processes
 # at one torch thread each, niced), as does gemma-2b's train_4k step on
@@ -440,10 +477,19 @@ DRYRUN_JOBS = 2
 PHASE19_S: dict = {}
 # 19(c)'s census row of the served ivf_scan launch, for 19(a)'s meta bound.
 CENSUS_FLAT: dict = {}
+# The background runs of phase 1 (start_launch_tooling's dict), read by
+# phase 20 for its meta count.
+LAUNCH: dict = {}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(what: str) -> None:
+    """Log the script's elapsed seconds as ``what`` starts (where the time
+    goes, for the next cut)."""
+    log(f"[{time.perf_counter() - T_START:.1f}s] {what}")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -584,6 +630,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     t_start = time.perf_counter()
 
     # ---- 2. parity: kernel vs plain on identical inputs ----
+    stamp("phase 2")
     # Both query-tile widths the kernel holds, and split walks (6 or 12 waves in 2 or 8 segments, some of them all
     # gaps) from empty windows.
     max_err = 0.0
@@ -623,6 +670,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
                                        args, kw, segments=g))
 
     # ---- 3. IVF search at full width ----
+    stamp("phase 3")
     t0 = time.perf_counter()
     ivf_kw = dict(n_clusters=n_clusters, scan_block_d=svc.delta_d, delta_d=svc.delta_d,
                   p_s=svc.p_s, device=DEV)
@@ -679,6 +727,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     del idx
 
     # ---- 4. serving route at the dade_ivf configuration ----
+    stamp("phase 4")
     # The one-walk route first, for comparison; then the served shard count,
     # whose launches are the main path's.
     serve_argv = [
@@ -706,6 +755,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
             f"{report['queries'] / report['qps']:.3f} s")
 
     # ---- 5. the kernel at the serving shape: time, bound, plain, library ----
+    stamp("phase 5")
     q_raw = synthetic_queries(svc.query_batch, svc.dim, srv.corpus, seed=7)
     qb = srv.prep(q_raw)
     r0 = seed_rsq(svc, srv.rows, qb, srv.eps, segments=SHARDS)
@@ -729,6 +779,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
         f"{float(st_one[::FUSED_BLOCK_Q, 4].sum()):.0f} from the first wave's seed")
     del st_one
     t0 = time.perf_counter()
+    stamp("phase 5: the plain ivf_scan")
     plain_ms, out_p = cuda_ms(lambda: ivf_scan.ivf_scan_plain(*args, **kw), 1)
     log(f"plain: one call at the serving shape in {time.perf_counter() - t0:.1f}s")
     max_err = max(max_err, agree(f"serving_shape_{qb.shape[0]}x{srv.rows.shape[0]}",
@@ -737,6 +788,7 @@ def run(svc, *, n_clusters: int, n_queries: int, slice_rows: int,
     a8, b8 = args[1], srv.codes
     library_ms, _ = cuda_ms(lambda: torch._int_mm(a8, b8.T), 3)
     _, gt = exact_knn(q_raw, srv.corpus_t, svc.k, device=DEV)
+    stamp("phase 5b")
     design = scan_design(svc, srv, qb, gt, card, widths=ivf_scan.KERNEL_BLOCK_QS,
                          segment_counts=(1, 2, 4, 8, 16), served=(FUSED_BLOCK_Q, SHARDS))
     del design
@@ -986,6 +1038,7 @@ def run_graph(card: str, flat_served) -> dict:
     t_start = time.perf_counter()
 
     # ---- 6. parity: the one-wave kernel vs plain on identical inputs ----
+    stamp("phase 6")
     max_err = 0.0
     cases = [
         ("ef1", dict(seed=11, ef=1)),
@@ -1005,18 +1058,34 @@ def run_graph(card: str, flat_served) -> dict:
         max_err = max(max_err, agree_graph(f"graph_{name}", out_k, out_p, 8))
 
     # ---- 7. the graph route at GRAPH_NODES x 256 ----
+    stamp("phase 7 (phases 20 and 21 beside its build)")
     # The reference's host-side NSW build inserts one node at a time, so
     # 2^20 nodes would take hours to build.
     nodes = GRAPH_NODES
     gsvc = ServiceConfig(corpus_per_device=nodes, dim=256, query_batch=1024,
                          k=10, delta_d=64, p_s=0.02, dtype="float32")
+    # phases 20 and 21's six ranks need the card's memory this process
+    # holds cached from phases 2-5
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"graph: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card "
+        f"as phases 20 and 21 start")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tp_tmp:
         tp = start_tp(tp_tmp)  # phase 20, on the card while the host builds
-        gsrv = serve.prepare_graph(gsvc, "dade", m=16, ef=48, device=DEV)
-        sync()
-        build_s = time.perf_counter() - t0
-        finish_tp(tp, card)
+        # phase 21 beside it, once phase 20's timed part is done
+        pod = start_pod(tp_tmp, after=os.path.join(tp_tmp, "tp_a_done"))
+        try:
+            gsrv = serve.prepare_graph(gsvc, "dade", m=16, ef=48, device=DEV)
+            sync()
+            build_s = time.perf_counter() - t0
+            stamp("phase 7's build done")
+            finish_tp(tp, card)
+            finish_pod(pod, card)
+        finally:
+            tp[0].terminate()
+            pod[0].terminate()
     gidx = gsrv.index
     log(f"graph: built {nodes}x{gsvc.dim} m=16 ef_construction=96 "
         f"adj_block={gidx.adj_block} scan_block_d={gidx.scan_block_d} "
@@ -1025,6 +1094,7 @@ def run_graph(card: str, flat_served) -> dict:
                      decoupled=True, route_mult=1.0)
 
     # ---- 6b. the walk kernel vs the plain walk on this graph ----
+    stamp("phase 6b")
     # 203 queries: 26 tiles, the last with 5 pad rows; every case's tiles
     # converge at different waves but the cap's.
     q_cases = synthetic_queries(203, gsvc.dim, gsrv.corpus, seed=3)
@@ -1252,6 +1322,7 @@ def run_graph(card: str, flat_served) -> dict:
         f"version {wave_plain_ms:.1f} ms")
 
     # ---- 8. graph serving route on the same graph ----
+    stamp("phase 8")
     walk_kernel.launches = 0
     reports = []
     for _ in range(SERVE_RUNS):
@@ -1279,10 +1350,13 @@ def run_graph(card: str, flat_served) -> dict:
         f"{100 * (qps[-1] - qps[0]) / qps[0]:.1f} %), timed windows {windows_s} s; "
         f"recall@10={reports[0]['recall']:.4f} waves={reports[0]['waves']:.0f} "
         f"launches={serve_launches}")
+    stamp("phase 14")
     churn = run_churn(gsrv, gsvc, queries, card)
     max_err = max(max_err, churn["max_err"])
+    stamp("phase 12")
     cont = run_continuous_graph(gsrv, gsvc, (queries, gt.cpu().numpy(), rec), card)
     max_err = max(max_err, cont["max_err"])
+    stamp("phase 15")
     shard = run_sharded(gsrv, gsvc, queries, gt, churn["snapshot"], card, flat_served)
     max_err = max(max_err, shard["max_err"])
     sharded_launches = (shard["host_launches"] + shard["pg_launches"]
@@ -2162,6 +2236,7 @@ def run_flat(svc, card: str) -> list:
     errs = {"dade_dco": 0.0, "quant_dco": 0.0, "l2_scan": 0.0}
 
     # ---- 9. parity on awkward cases: kernel vs plain on identical inputs ----
+    stamp("phase 9")
     cases = [
         ("dade_d64_bd32", dict(seed=21, method="dade", dim=64, block_d=32, n=1037)),
         ("adsampling_d200_bd64_bf16", dict(seed=22, method="adsampling", dim=200,
@@ -2938,21 +3013,50 @@ def run_train(card: str, dp_tmp: str, started: list, launch: dict) -> tuple:
 def start_launch_tooling(tmp: str) -> dict:
     """Phase 19's background runs, started at phase 1 beside the card
     phases (niced, one torch thread each): the dry run of every cell on
-    both production layouts into ``tmp/dryrun``, and gemma-2b's train_4k
-    step on meta at TRAIN_BATCH rows (``launch.perf``) into ``tmp``."""
+    both production layouts into ``tmp/dryrun``, gemma-2b's train_4k
+    step on meta at TRAIN_BATCH rows (``launch.perf``) into ``tmp``, and
+    phase 20(a)'s rank step counted on meta (:func:`tp_meta_count`)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = {"results": os.path.join(tmp, "dryrun"), "meta_json": os.path.join(tmp, "meta.json"),
            "t0": time.perf_counter()}
+    out["tp_meta_json"] = os.path.join(tmp, "tp_meta.json")
     cmds = {"dryrun": ["-m", "repro_torch.launch.dryrun", "--jobs", str(DRYRUN_JOBS),
                        "--results", out["results"]],
             "meta": ["-m", "repro_torch.launch.perf", "--arch", TRAIN_ARCH, "--shape",
-                     "train_4k", "--rows", str(TRAIN_BATCH), "--json", out["meta_json"]]}
+                     "train_4k", "--rows", str(TRAIN_BATCH), "--json", out["meta_json"]],
+            "tp_meta": ["-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import "
+                              f"chip_smoke; chip_smoke.tp_meta_count({out['tp_meta_json']!r})"]}
     for name, cmd in cmds.items():
         log_f = open(os.path.join(tmp, f"{name}.log"), "w")
         out[name] = subprocess.Popen([sys.executable, *cmd], env=env, cwd=tmp, stdout=log_f,
                                      stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
         out[f"{name}_log"] = log_f.name
     return out
+
+
+def tp_meta_count(path: str) -> None:
+    """Phase 20(a)'s train step counted on meta, written to ``path`` as
+    JSON: one (data=1, model=TP_RANKS) rank's step of TP_ARCH's train_4k
+    cell at TP_TRAIN (rows, seq) tokens, as the dry run counts a record's
+    temp bytes (``dryrun.rank_step``'s census peak plus the rank's model
+    pieces whole along "data", ``dryrun.model_piece_bytes``)."""
+    import torch
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_cell
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    mesh = AbstractMesh((1, TP_RANKS), ("data", "model"))
+    cell = build_cell(TP_ARCH, "train_4k", mesh=mesh, device="meta")
+    params, opt_state, batch = cell.args
+    cell.args = (params, opt_state, {k: torch.empty(TP_TRAIN, dtype=v.dtype, device="meta")
+                                     for k, v in batch.items()})
+    rank, _ = dryrun.rank_step(cell, mesh)
+    pieces = dryrun.model_piece_bytes(cell, mesh)
+    Path(path).write_text(json.dumps({"peak_bytes": rank["peak_bytes"], "pieces": pieces,
+                                      "temp_bytes": rank["peak_bytes"] + pieces,
+                                      "s": time.perf_counter() - t0}))
 
 
 def _finished(launch: dict, name: str, timeout: float) -> str:
@@ -3524,10 +3628,11 @@ def _tp_identity(cfg, mesh, dev, overrides, faults: bool) -> dict:
     return err
 
 
-def tp_rank(rank, world, dev):
+def tp_rank(rank, world, dev, tmp=None):
     """Phase 20 on one rank (spawned; the card shared over gloo): (a) the
-    timed full-width bf16 steps, then (b) the identities.  Returns what
-    the parent logs."""
+    timed full-width bf16 steps, then (b) the identities.  With ``tmp``,
+    rank 0 marks the end of (a) there (``tp_a_done``: phase 21's ranks
+    wait for it).  Returns what the parent logs."""
     import dataclasses
 
     import torch
@@ -3621,6 +3726,8 @@ def tp_rank(rank, world, dev):
     del cell, model, dp, caches, logits, lg
     torch.cuda.empty_cache()
     out["a_s"] = time.perf_counter() - t_start
+    if tmp is not None and rank == 0:
+        (Path(tmp) / "tp_a_done").touch()
 
     # (b) the float32 identities
     t0 = time.perf_counter()
@@ -3640,7 +3747,7 @@ def tp_rank(rank, world, dev):
 def start_tp(tmp: str):
     """Phase 20's ranks, started (see :func:`tp_rank`)."""
     from repro_torch.launch.mesh import spawn
-    return spawn(tp_rank, TP_RANKS, backend="gloo", device=DEV,
+    return spawn(tp_rank, TP_RANKS, backend="gloo", device=DEV, args=(tmp,),
                  init_file=os.path.join(tmp, "tp_init")), time.perf_counter()
 
 
@@ -3688,6 +3795,20 @@ def finish_tp(started, card: str) -> None:
             f"{100 * sum(d['kinds'][1].values()) / (d['s'] * TP_DECODE):.1f} % over "
             f"{TP_DECODE} steps: {kinds(d['kinds'])}); serving peak "
             f"{a['serve_peak'] / 1e9:.2f} GB; on {card}")
+    _finished(LAUNCH, "tp_meta", 300)
+    meta = json.loads(Path(LAUNCH["tp_meta_json"]).read_text())
+    for r in sorted(out):
+        peak = out[r]["train"]["peak"]
+        check(meta["temp_bytes"] <= peak,
+              f"tp (a) rank {r}: the dry run's count of this step on meta "
+              f"{meta['temp_bytes'] / 1e9:.3f} GB exceeds the allocator's peak {peak / 1e9:.3f} GB")
+        log(f"tp (a) rank {r}: the dry run's temp bytes of this step counted on meta (the same "
+            f"(1, {TP_RANKS}) mesh, {rows} x {seq} tokens; {meta['s']:.1f}s in the background): "
+            f"census peak {meta['peak_bytes'] / 1e9:.3f} GB + the rank's model pieces "
+            f"{meta['pieces'] / 1e9:.3f} GB = {meta['temp_bytes'] / 1e9:.3f} GB, "
+            f"{meta['temp_bytes'] / peak:.4f} of torch.cuda.max_memory_allocated "
+            f"{peak / 1e9:.3f} GB (read after reset_peak_memory_stats() following the bind; "
+            f"it also holds the arguments: pieces and moments); on {card}")
     errs = r0["errs"]
     first = next(iter(errs))
     worst = {k: max(v.values()) if k != first else max(
@@ -3703,6 +3824,226 @@ def finish_tp(started, card: str) -> None:
     log(f"phase 20 took {time.perf_counter() - t_started:.0f}s beside phase 7 "
         f"((a) {r0['a_s']:.1f}s, (b) {r0['b_s']:.1f}s on rank 0), {own:.1f}s of the "
         f"script's own (the wait after phase 7's build); on {card}")
+
+
+def _pod_identity(cfg, mesh, dev) -> dict:
+    """Phase 21(b): the (pod, data, model) train step against one process
+    on the same card, from the same seeded parameters: loss, every
+    gradient leaf (gathered), the parameters after one AdamW step (rtol
+    2e-3, atol 2e-4); beside two planted faults that must fail the loss and
+    gradient check: the gradients summed over "data" only (not "pod"), and
+    every pod taking the same rows.  Returns the largest deviations."""
+    import torch
+    from repro_torch.distributed.collectives import gather_sharded
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.steps import DataParallel, train_grads, train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    opt = AdamWConfig(lr=TRAIN_CARD_LR, warmup_steps=1, total_steps=10)
+    batch = _dp_batch(cfg, DP_BATCH, DP_SEQ, seed=5)
+    model = build_model(cfg, seed=1, device=dev).requires_grad_(True)
+    l1, _, g1 = train_grads(model, batch)
+    g1 = {k: v.float() for k, v in g1.items()}
+    p1 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    train_step(model, opt, p1, adamw_init(p1), batch)
+    del model
+
+    model = build_model(cfg, seed=1, device=dev).requires_grad_(True)
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
+                                           mesh), model)
+
+    def step_err():
+        loss, _, g = train_grads(model, batch, dp)
+        full = {k: gather_sharded(v.contiguous(), dp.model_specs[k], mesh) for k, v in g.items()}
+        bad = [k for k in g1 if not _tp_close(full[k], g1[k])]
+        worst = max((full[k].float() - g1[k]).abs().max().item() for k in g1)
+        return abs(float(loss) - float(l1)), worst, _tp_close(loss, l1) and not bad, bad
+
+    err = {}
+    err["loss"], err["grad"], ok, bad = step_err()
+    check(ok, f"pod (b): loss off by {err['loss']:.3e}, gradients differ ({bad[:3]})")
+    keep = dp.sum  # planted: the gradients summed over "data" only, not "pod"
+    dp.sum = lambda t, kind, axes=(), model_too=(): keep(
+        t, kind, tuple(a for a in axes if a != "pod"), model_too)
+    try:
+        err["data_only_loss"], err["data_only_grad"], ok, _ = step_err()
+    finally:
+        dp.sum = keep
+    check(not ok, "pod (b): gradients summed over 'data' only pass the check")
+    coord = dp.coord  # planted: every pod takes pod 0's rows
+    dp.coord = dict(coord, pod=0)
+    try:
+        err["same_rows_loss"], err["same_rows_grad"], ok, _ = step_err()
+    finally:
+        dp.coord = coord
+    check(not ok, "pod (b): every pod taking the same rows passes the check")
+    params = dp.local_params(model)
+    params, _, _ = train_step(model, opt, params, adamw_init(params), batch, dp=dp)
+    after = {k: gather_sharded(v, dp.shardings[k].spec, mesh) for k, v in params.items()}
+    bad = [k for k in p1 if not _tp_close(after[k], p1[k])]
+    err["param"] = max((after[k].float() - p1[k].float()).abs().max().item() for k in p1)
+    check(not bad, f"pod (b): parameters after a step differ ({bad[:3]})")
+    return err
+
+
+def pod_rank(rank, world, dev, after=None):
+    """Phase 21 on one rank (spawned; the card shared over gloo): (a) the
+    timed full-width steps, (b) the identities, (c) long_500k's decode,
+    once the file ``after`` exists (None: at once).  Returns what the
+    parent logs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import spec_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.common import split_axes
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = make_mesh(POD_MESH, ("pod", "data", "model"), "cpu")
+    out = {"device": str(dev), "coord": tuple(mesh.get_coordinate())}
+    deadline = time.monotonic() + 600
+    while after is not None and not Path(after).exists():
+        check(time.monotonic() < deadline, f"pod: {after} never came")
+        time.sleep(0.2)
+    out["waited_s"] = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+
+    # (a) DP_ARCH at full width and depth
+    n = POD_WARM + POD_STEPS
+    cell = build_cell(DP_ARCH, "train_4k", mesh=mesh, device=dev,
+                      opt=AdamWConfig(lr=DP_LR, warmup_steps=1, total_steps=2 * n))
+    model, dp = cell.model, cell.data_parallel
+    dp.traffic.clock = True
+    cfg = model.cfg
+    out["params"] = sum(math.prod(v) for v in model._param_shapes.values())
+    out["dtype"] = str(cfg.param_dtype).replace("torch.", "")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = dp.local_params(model)
+    opt_state = adamw_init(params)
+    out["state_bytes"] = sum(
+        spec_bytes(torch.empty(shape, dtype=dt, device="meta"), dp.shardings[k].spec, mesh)
+        for k, shape in model._param_shapes.items()
+        for dt in (cfg.param_dtype, torch.float32, torch.float32))
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=DP_BATCH, seq=DP_SEQ, seed=0)
+    times, losses = [], []
+    for i in range(n):
+        batch = pipe.batch_at(i)
+        dp.traffic.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, mets = cell.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        losses.append(float(mets["loss"]))
+        if i >= POD_WARM:
+            times.append(dt)
+            kinds = (dict(dp.traffic.bytes), dict(dp.traffic.seconds))
+    check(all(map(math.isfinite, losses)), f"pod (a): a loss is not finite: {losses}")
+    out["train"] = dict(s=times, losses=losses, kinds=kinds,
+                        peak=torch.cuda.max_memory_allocated(dev))
+    del cell, model, dp, params, opt_state, mets
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t_start
+
+    # (b) the float32 identities
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(DP_ARCH), num_layers=DP_CHECK_LAYERS, dtype="float32")
+    out["errs"] = _pod_identity(cfg, mesh, dev)
+    torch.cuda.empty_cache()
+    out["b_s"] = time.perf_counter() - t0
+
+    # (c) long_500k: one row, the slots over model x data x pod
+    t0 = time.perf_counter()
+    cfgset = dataclasses.asdict(reduced_config("gemma2-9b"))
+    cfgset.pop("arch_id")
+    cell = build_cell("gemma2-9b", "long_500k", mesh=mesh, device=dev, cfgset=cfgset)
+    dp = cell.data_parallel
+    one = build_model(cell.model.cfg, device=dev)  # build_cell's seed
+    caches = dp.init_caches(cell.model, 1, POD_CACHE)
+    with dp.rules():
+        out["slots"] = (caches["kv1"].k.shape[2], split_axes(caches["kv1"].k))
+    ones, _ = one.init_caches(1, POD_CACHE)
+    tokens = _dp_batch(one.cfg, 1, POD_DECODE, seed=9)["tokens"]
+    v = one.cfg.vocab_padded // dp.model_size
+    lo = dp.coord["model"] * v
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(POD_DECODE):
+            tok = torch.as_tensor(tokens[:, t:t + 1], device=dev)
+            lg, caches = cell.step_fn(tok, caches, t)
+            ref, _ = one.decode_step(tok, ones, t)
+            check(_tp_close(lg, ref[:, lo:lo + v], TP_LM_TOL, TP_LM_TOL),
+                  f"pod (c): decode step {t} differs from one process")
+            worst = max(worst, (lg - ref[:, lo:lo + v]).abs().max().item())
+    out["long_500k"] = worst
+    out["c_s"] = time.perf_counter() - t0
+    return out
+
+
+def start_pod(tmp: str, after: str | None = None):
+    """Phase 21's ranks, started (see :func:`pod_rank`); they begin once
+    the file ``after`` exists."""
+    from repro_torch.launch.mesh import spawn
+    return spawn(pod_rank, POD_RANKS, backend="gloo", device=DEV, args=(after,),
+                 init_file=os.path.join(tmp, "pod_init")), time.perf_counter()
+
+
+def finish_pod(started, card: str) -> None:
+    """Phase 21: join the ranks and log."""
+    procs, t_started = started
+    t_wait = time.perf_counter()
+    try:
+        out = procs.join(timeout_s=600)
+    finally:
+        procs.terminate()
+    own = time.perf_counter() - t_wait
+    mb = 1e6
+    r0 = out[0]
+    log(f"pod: {POD_RANKS} ranks on {r0['device']} as a (pod, data, model) = {POD_MESH} mesh "
+        f"over gloo (host-staged: the protocol, not NVLink): {DP_ARCH} {r0['dtype']} at full "
+        f"width and depth, {r0['params']:,} parameters, {DP_BATCH} x {DP_SEQ} tokens a step "
+        f"(the batch over pod x data), lr {DP_LR}")
+    for r in sorted(out):
+        a = out[r]
+        step = statistics.median(a["train"]["s"])
+        b, sec = a["train"]["kinds"]
+        kinds = ", ".join(f"{k} {b[k] / mb:.1f} MB {sec.get(k, 0) * 1e3:.1f} ms"
+                          for k in sorted(b))
+        log(f"pod (a) rank {r} {a['coord']}: {step * 1e3:.1f} ms a step (median of "
+            f"{POD_STEPS} after {POD_WARM} warm-up: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in a['train']['s'])} ms), "
+            f"{DP_BATCH * DP_SEQ / step:.1f} tokens/s; collectives "
+            f"{100 * sum(sec.values()) / step:.1f} % of the step ({kinds}); loss "
+            f"{', '.join(f'{x:.4f}' for x in a['train']['losses'])}; peak memory "
+            f"{a['train']['peak'] / 1e9:.3f} GB beside spec_bytes of its share (parameters and "
+            f"both moments) {a['state_bytes'] / 1e9:.3f} GB; on {card}")
+    e = r0["errs"]
+    log(f"pod (b): the {POD_MESH} train step against one process within rtol "
+        f"{TRAIN_ACCUM_RTOL}, atol {TRAIN_ACCUM_ATOL} ({DP_ARCH} at full width, "
+        f"{DP_CHECK_LAYERS} layers, float32; loss, every gradient leaf gathered, every parameter "
+        f"after one step): largest |diff| loss {e['loss']:.2e}, gradient {e['grad']:.2e}, "
+        f"parameter {e['param']:.2e}; planted faults: the gradients summed over 'data' only "
+        f"(loss off by {e['data_only_loss']:.3e}, a gradient by {e['data_only_grad']:.3e}), "
+        f"every pod on the same rows (loss {e['same_rows_loss']:.3e}, gradient "
+        f"{e['same_rows_grad']:.3e}), both failing the check")
+    slots, axes = r0["slots"]
+    log(f"pod (c): gemma2-9b (reduced) long_500k decode over {POD_MESH}: the global layers' "
+        f"{POD_CACHE} slots in blocks of {slots} over {'+'.join(axes)} (\"data\" of size 1), "
+        f"{POD_DECODE} steps against one process within {TP_LM_TOL}: largest |diff| "
+        f"{max(out[r]['long_500k'] for r in out):.2e} over the ranks")
+    log(f"phase 21 took {time.perf_counter() - t_started:.0f}s from its start beside phase 7 "
+        f"(rank 0 waited {r0['waited_s']:.1f}s for phase 20(a) to end; then (a) "
+        f"{r0['a_s']:.1f}s, (b) {r0['b_s']:.1f}s, (c) {r0['c_s']:.1f}s), {own:.1f}s of the "
+        f"script's own (the wait after phase 20); on {card}")
 
 
 def build_kernels() -> None:
@@ -3739,6 +4080,7 @@ def main() -> int:
     import tempfile
     launch_tmp = tempfile.TemporaryDirectory()
     launch = start_launch_tooling(launch_tmp.name)
+    LAUNCH.update(launch)
     build_kernels()
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -3753,11 +4095,14 @@ def main() -> int:
     flat = run_flat(CONFIG, card)
     ivf["snapshot_launches"] = graph.pop("flat_snapshot_launches")
     ivf["ranked_launches"] = graph.pop("ranked_flat_launches")
+    stamp("phase 16")
     run_lm(card)
     with tempfile.TemporaryDirectory() as dp_tmp:
         started = []  # phase 18's drill, started in phase 17
         try:
+            stamp("phase 17")
             one_process_p50, t_drill = run_train(card, dp_tmp, started, launch)
+            stamp("phase 18")
             run_train_dp(card, one_process_p50, started[0], t_drill, dp_tmp)
         finally:
             for proc in started:
@@ -3766,9 +4111,10 @@ def main() -> int:
                     proc.wait()
     log(f"phases 2-18 took {time.perf_counter() - t0:.0f}s")
     try:
+        stamp("phase 19")
         collect_dryrun(launch, card)
     finally:
-        for name in ("dryrun", "meta"):
+        for name in ("dryrun", "meta", "tp_meta"):
             if launch[name].poll() is None:
                 launch[name].kill()
                 launch[name].wait()

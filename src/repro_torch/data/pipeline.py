@@ -80,12 +80,16 @@ def synthetic_vectors(
     return (x + centers[mode]) @ q.astype(np.float32)
 
 
-def synthetic_queries(n: int, dim: int, corpus: np.ndarray, *, seed: int = 1) -> np.ndarray:
-    """Queries near corpus points (realistic ANN workload)."""
+def synthetic_queries(n: int, dim: int, corpus: np.ndarray, *, seed: int = 1,
+                      spread: np.ndarray | None = None) -> np.ndarray:
+    """Queries near corpus points (realistic ANN workload).  ``spread`` is
+    ``np.std(corpus, axis=0, keepdims=True)``, given by a caller that draws
+    many batches from one large corpus (each call otherwise reads it all:
+    about a second at 2^20 x 256)."""
     rng = np.random.default_rng(seed)
     base = corpus[rng.integers(0, len(corpus), n)]
     jitter = rng.standard_normal((n, dim)).astype(np.float32)
-    jitter *= 0.1 * np.std(corpus, axis=0, keepdims=True)
+    jitter *= 0.1 * (np.std(corpus, axis=0, keepdims=True) if spread is None else spread)
     return base + jitter
 
 

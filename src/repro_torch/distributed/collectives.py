@@ -34,15 +34,17 @@ import torch.distributed as dist
 
 import collections
 import contextlib
+import itertools
+import math
 import time
 
 from repro_torch.distributed.sharding import RankView, mesh_axis_sizes
 from repro_torch.kernels.ivf_scan import merge_windows
 from repro_torch.launch.op_census import report_collective
 
-__all__ = ["AxisComm", "Traffic", "gather_along", "reduce_scatter_along", "reduce_all", "split_along",
-           "Stripes", "group_size", "quantize_int8", "dequantize_int8", "staged", "all_gather",
-           "broadcast",
+__all__ = ["AxisComm", "Traffic", "axis_classes", "axis_groups", "mesh_built", "gather_along",
+           "reduce_scatter_along", "reduce_all", "split_along", "Stripes", "group_size",
+           "quantize_int8", "dequantize_int8", "staged", "all_gather", "broadcast",
            "all_reduce", "send", "recv", "hierarchical_topk", "compressed_grad_allreduce",
            "gather_sharded", "gather_sharded_many"]
 
@@ -70,27 +72,75 @@ class Stripes(tuple):
     cut into one slice per group and the slices' collectives run at once,
     their transfers overlapping: with four, gloo moves about twice the
     bytes a second that one group moves.  Every rank of the default group
-    builds it (``of``), in the same order."""
+    builds it (``over``), in the same order."""
 
     @classmethod
-    def of(cls, group=None, n: int = 4) -> "Stripes":
-        ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
-        return cls(dist.new_group(ranks) for _ in range(n))
+    def over(cls, mesh, axes, n: int = 4) -> "Stripes":
+        """This rank's group over mesh dimensions ``axes`` (one name, or
+        several taken as one), opened ``n`` times.  Every rank of the
+        default group opens every group of those dimensions, in the same
+        order (``new_group`` is collective), and keeps its own; once per
+        mesh object (:func:`mesh_built`)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
 
-    @classmethod
-    def over(cls, mesh, axis: str, n: int = 4) -> "Stripes":
-        """This rank's group along mesh dimension ``axis``, opened ``n``
-        times.  Every rank of the default group opens every group of the
-        dimension, in the same order (``new_group`` is collective), and
-        keeps its own."""
-        dim = list(mesh.mesh_dim_names).index(axis)
-        ranks = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.mesh.shape[dim]).tolist()
-        me, mine = dist.get_rank(), None
-        for row in ranks:
-            groups = [dist.new_group(row) for _ in range(n)]
-            if me in row:
-                mine = groups
-        return cls(mine)
+        def build():
+            me, mine = dist.get_rank(), None
+            for row in axis_classes(mesh, axes):
+                groups = [dist.new_group(row) for _ in range(n)]
+                if me in row:
+                    mine = groups
+            return cls(mine)
+
+        return mesh_built(mesh, ("stripes", axes, n), build)
+
+
+def mesh_built(mesh, key, build):
+    """``build()``'s process groups for ``mesh`` under ``key``, built the
+    first time and kept on the mesh object.  Every rank makes the same
+    calls in the same order, so every rank builds, or finds, the same
+    groups: a step made again over the same mesh opens no new group."""
+    cache = mesh.__dict__.setdefault("_process_groups", {})
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
+def axis_classes(mesh, axes) -> list:
+    """The ranks of ``mesh`` (a ``DeviceMesh``) grouped by their coordinates
+    off the mesh dimensions ``axes``: one list of global ranks per group,
+    ordered along ``axes``, the first major (the order of
+    :class:`AxisComm`'s ``index``)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    ranks = mesh.mesh  # built once here: a DeviceMesh rebuilds it on every read
+    order = [d for d in range(ranks.ndim) if d not in dims] + dims
+    return ranks.permute(order).reshape(-1, math.prod(ranks.shape[d] for d in dims)).tolist()
+
+
+def axis_groups(mesh) -> dict:
+    """{frozenset of mesh axes: this rank's plain process group over them}
+    for every set of two or more of ``mesh``'s axes of size > 1 (a single
+    axis's group is the mesh's own, ``get_group``).  Every rank of the mesh
+    builds every group, in the same order: ``new_group`` is collective over
+    the default group, so they are built where the mesh's step is made,
+    never inside a step, and once per mesh object (:func:`mesh_built`).
+    (``DeviceMesh._flatten`` would build the same groups, but it is
+    private and its group creation has changed between releases; plain
+    ``new_group`` calls are the same on each.)"""
+
+    def build():
+        live = [nm for nm, n in mesh_axis_sizes(mesh).items() if n > 1]
+        me, out = dist.get_rank(), {}
+        for k in range(2, len(live) + 1):
+            for axes in itertools.combinations(live, k):
+                for row in axis_classes(mesh, axes):
+                    group = dist.new_group(row)
+                    if me in row:
+                        out[frozenset(axes)] = group
+        return out
+
+    return mesh_built(mesh, "axis_groups", build)
 
 
 def _one(group):
@@ -348,13 +398,19 @@ class AxisComm:
     and their process group (None over a
     :class:`~repro_torch.distributed.sharding.RankView`: the collectives
     then return tensors of the shape they would, with nothing moved, for a
-    dry run on ``device="meta"``; several axes must span every rank of the
-    mesh, whose group they then use).  Each collective is counted in
-    ``traffic`` (a :class:`Traffic`, or None) under its kind prefixed by
-    the axes' ``name`` ("model all-gather"), and by a census open around
-    the step (``op_census.report_collective``)."""
+    dry run on ``device="meta"``).  Over several axes of size > 1 the group
+    is the one ``groups`` (:func:`axis_groups` of the mesh, built when the
+    step was made) holds for them; it may leave out ranks of the mesh (the
+    ("model", "data") slots of a (pod, data, model) mesh: one group per
+    pod).  A group orders its ranks by global rank, which may differ from
+    ``index``'s order: :meth:`gather` puts the pieces in ``index`` order.
+    Each collective is counted in ``traffic`` (a :class:`Traffic`, or None)
+    under its kind prefixed by the axes' ``name`` ("model all-gather",
+    "model+data+pod all-reduce"), and by a census open around the step
+    (``op_census.report_collective``)."""
 
-    def __init__(self, mesh, names, traffic: Traffic | None = None):
+    def __init__(self, mesh, names, traffic: Traffic | None = None,
+                 groups: dict | None = None):
         names = (names,) if isinstance(names, str) else tuple(names)
         sizes = mesh_axis_sizes(mesh)
         coord = dict(zip(sizes, mesh.get_coordinate()))
@@ -363,16 +419,20 @@ class AxisComm:
         for nm in names:
             self.size *= sizes[nm]
             self.index = self.index * sizes[nm] + coord[nm]
+        self.order = None  # group rank -> index, where they differ
+        live = [nm for nm in names if sizes[nm] > 1]
         if isinstance(mesh, RankView):
             self.group = None
-        elif len(names) == 1:
-            self.group = mesh.get_group(names[0])
+        elif len(live) <= 1:
+            self.group = mesh.get_group(live[0] if live else names[0])
         else:
-            others = [nm for nm, n in sizes.items() if n > 1 and nm not in names]
-            if others:
-                raise NotImplementedError(f"a group over {list(names)} but not {others} is not "
-                                          f"executed")
-            self.group = dist.group.WORLD
+            self.group = (groups or {}).get(frozenset(live))
+            if self.group is None:
+                raise ValueError(f"no process group over {live}: build the mesh's groups "
+                                 f"with collectives.axis_groups where the step is made")
+            row = next(r for r in axis_classes(mesh, names) if dist.get_rank() in r)
+            if row != sorted(row):
+                self.order = [row.index(r) for r in sorted(row)]
 
     def _timed(self, kind: str, nbytes: int, device: torch.device):
         if self.traffic is None:
@@ -392,7 +452,11 @@ class AxisComm:
         w = x.contiguous().view(torch.uint8) if bits else x.contiguous()
         with self._timed("all-gather", nbytes, x.device):
             g = all_gather(w, self.group)
-        out = torch.cat(tuple(g), dim=dim)
+        pieces = list(g.unbind(0))
+        if self.order is not None:
+            for at, i in enumerate(self.order):
+                pieces[i] = g[at]
+        out = torch.cat(pieces, dim=dim)
         return out.view(torch.bfloat16) if bits else out
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:

@@ -17,12 +17,14 @@ pieces, a1 major.
 
 Torch has no partitioner, so the port executes the reference's layout
 itself.  The step (``launch.steps.DataParallel``) splits the batch rows
-over the "data" axis, gathers each parameter's ``embed_fsdp`` pieces and
-sums the gradients; inside the model the "model" axis (:data:`MODEL_AXIS`)
-is executed by :func:`constrain`: under :func:`use_rules` over a live mesh
-(a ``DeviceMesh``, or a :class:`RankView` on ``device="meta"``) it moves a
-tensor from the placement the rank's local computation produced to the one
-the reference's annotation names, with the autograd-aware collectives of
+over the "pod" and "data" axes (the prefix of them the rows divide by),
+gathers each parameter's ``embed_fsdp`` pieces along "data" and sums the
+gradients over the ranks that took other rows; inside the model the
+"model" axis (:data:`MODEL_AXIS`) is executed by :func:`constrain`: under
+:func:`use_rules` over a live mesh (a ``DeviceMesh``, or a
+:class:`RankView` on ``device="meta"``) it moves a tensor from the
+placement the rank's local computation produced to the one the
+reference's annotation names, with the autograd-aware collectives of
 ``distributed.collectives``.  Over a plain :class:`AbstractMesh`, or with
 no rules, it returns its input.
 """
@@ -130,11 +132,16 @@ class Rules:
     """The rule table over ``mesh``.  Over a live mesh, :func:`comm_over`
     builds each group of mesh axes' ``collectives.AxisComm`` once, in
     ``comms``, counting into ``traffic`` (a ``collectives.Traffic`` or
-    None)."""
+    None), over the process groups of several axes in ``groups``
+    (``collectives.axis_groups`` of the mesh).  ``rows``: the mesh axes
+    the step split its batch rows over (a tensor's "batch" dimension then
+    holds this rank's rows of them), read by :func:`cache_split`."""
 
     mesh: Any
     table: dict[str, tuple[str, ...]]
     traffic: Any = None
+    groups: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    rows: tuple = ()
     comms: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @functools.cached_property
@@ -183,9 +190,9 @@ def _table(overrides: dict | None) -> dict[str, tuple[str, ...]]:
 
 
 def make_rules(mesh, overrides: dict[str, tuple[str, ...]] | None = None,
-               traffic=None) -> Rules:
+               traffic=None, groups: dict | None = None) -> Rules:
     """The default rule table, updated by ``overrides``, over ``mesh``."""
-    return Rules(mesh=mesh, table=_table(overrides), traffic=traffic)
+    return Rules(mesh=mesh, table=_table(overrides), traffic=traffic, groups=groups or {})
 
 
 @contextlib.contextmanager
@@ -265,11 +272,15 @@ def cache_split(axes: Sequence[str | None], shape: Sequence[int]
     """(dimension, mesh axes) over which the current rules split a decode
     cache leaf of (global) ``shape`` with logical ``axes``, where a live
     mesh executes them: the model axis, alone or with others (long_500k's
-    ``kv_seq`` over "model" and "data": every rank one block of slots);
+    ``kv_seq`` over "model", "data" and "pod", as far as the batch has not
+    claimed them: every rank of those axes one block of slots);
     (None, ()) otherwise."""
     rules = current_rules()
     if rules is None or not executes(rules.mesh):
         return None, ()
+    if rules.rows:  # the leaf holds this rank's rows: place the global batch's
+        n = math.prod(rules.sizes[nm] for nm in rules.rows)
+        shape = [d * n if a == "batch" else d for a, d in zip(axes, shape)]
     return _model_split(logical_to_spec(axes, shape, rules), rules.sizes)
 
 
@@ -288,7 +299,7 @@ def comm_over(names: tuple[str, ...] = (MODEL_AXIS,)):
     comm = rules.comms.get(names)
     if comm is None:
         from repro_torch.distributed.collectives import AxisComm
-        comm = rules.comms[names] = AxisComm(rules.mesh, names, rules.traffic)
+        comm = rules.comms[names] = AxisComm(rules.mesh, names, rules.traffic, rules.groups)
     return comm
 
 

@@ -15,17 +15,22 @@ from ``launch.op_census`` runs of its step:
     opt_state; decode: the caches), which the port updates in place;
     ``output_bytes``: the step's outputs under the same rules;
     ``temp_bytes``: the census's ``peak_bytes`` of one (data, model)
-    rank's step (:func:`rank_step`): its rows of the batch, its model
-    pieces of the parameters and caches, the model axis executed by
+    rank's step (:func:`rank_step`: its rows of the batch, its model
+    pieces of the caches, the model axis executed by
     ``sharding.constrain`` with a ``sharding.RankView`` in place of the
-    process group (its collectives return their shapes and are counted);
+    process group, whose collectives return their shapes and are counted)
+    plus the rank's model pieces of the parameters, whole along "data"
+    (:func:`model_piece_bytes`, kept as ``model_piece_bytes``): the train
+    step all-gathers them once and a serving rank keeps them for the whole
+    step, as XLA's temp holds the gathered weights;
   * ``cost``: the census of the whole global step divided by the device
     count — the even split, which no partition beats, so a roofline's lower
     bound (``cost.basis`` says so);
   * ``collectives``: what that rank's step moves (:func:`rank_collectives`):
     the model axis's activation collectives as the census counted them,
-    and in training ``DataParallel``'s own: the all-gather of the model
-    pieces along "data" and the all-reduce of their gradients;
+    and in training ``DataParallel``'s own (``data_parallel``): the
+    all-gather of the model pieces along "data" and the all-reduce of
+    their gradients over the ranks the batch splits over (pod x data);
   * ``dade-ivf`` / ``search_1m``: one rank's step of
     ``annservice.build_search_step`` at its defaults (int8, fused) over
     ``search_input_specs`` with ``corpus_per_device`` rows, the kernel
@@ -60,18 +65,19 @@ import torch
 from repro_torch.configs import LM_ARCHS, get_config
 from repro_torch.configs.dade_ivf import CONFIG as SVC_CONFIG
 from repro_torch.distributed.sharding import (MODEL_AXIS, RankView, Sharding, local_shape,
-                                              mesh_axis_sizes, spec_bytes, tree_shardings,
-                                              use_rules)
+                                              make_rules, mesh_axis_sizes, spec_bytes,
+                                              tree_shardings, use_rules)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_census import Census
 from repro_torch.launch.roofline import RESULTS
 from repro_torch.launch.specs import SHAPES, cell_is_runnable
 from repro_torch.launch.steps import (RULE_OVERRIDES, bind_model_pieces, build_cell,
-                                     model_specs, train_step)
+                                     model_specs, row_split, train_step)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
 __all__ = ["run_cell", "memory", "rank_step", "rank_collectives", "rank_args", "step_args",
+           "model_piece_bytes",
            "cut_batch",
            "leaves", "tensor_bytes", "MESHES", "main"]
 
@@ -194,23 +200,41 @@ def rank_step(cell, mesh, overrides: dict | None = None):
         return _counted(fn, args, f"{cell.kind}_step")
 
 
+def model_piece_bytes(cell, mesh, overrides: dict | None = None) -> int:
+    """The bytes of one rank's model pieces of ``cell``'s parameters over
+    ``mesh``: each whole along every axis but "model" (``steps.
+    model_specs``), as ``bind_model_pieces`` binds them and the rank holds
+    them through its step."""
+    shapes = dict(cell.model.named_parameters())
+    specs = model_specs(tree_shardings(cell.model.param_axes(), shapes, mesh,
+                                       _rules(cell, overrides)))
+    return sum(math.prod(local_shape(tuple(p.shape), specs[k], mesh)) * p.element_size()
+               for k, p in shapes.items())
+
+
 def rank_collectives(cell, mesh, rank_census: dict, overrides: dict | None = None) -> dict:
     """What one rank's step moves: the model axis's collectives counted in
     ``rank_census`` (:func:`rank_step`'s), and in a train step
-    ``DataParallel``'s: each model piece split along "data" all-gathered
-    whole (its output bytes) and, where the batch splits over the data
-    ranks, every gradient all-reduced (in the parameters' dtype at
-    ``grad_accum`` 1, float32 above)."""
+    ``DataParallel``'s (also apart, as ``data_parallel``): each model piece
+    split along "data" all-gathered whole (its output bytes; ``param
+    all-gather``) and the gradients all-reduced (``gradient all-reduce``,
+    in the parameters' dtype at ``grad_accum`` 1, float32 above): every
+    one where the batch splits over the batch's ranks (``steps.row_split``:
+    pod x data, or the prefix of them the rows divide by), else those of
+    the leaves the model axis replicates, over the model ranks."""
     by_kind = dict(rank_census["coll_by_kind"])
     count = dict(rank_census["coll_count_by_kind"])
+    dp_kinds = {}
     if cell.kind == "train":
         sizes = mesh_axis_sizes(mesh)
-        data = math.prod(n for a, n in sizes.items() if a != MODEL_AXIS)
         rules = _rules(cell, overrides)
+        batch_axes = tuple(nm for nm in make_rules(mesh, rules).table["batch"] if nm in sizes)
         shapes = dict(cell.model.named_parameters())
         sh = tree_shardings(cell.model.param_axes(), shapes, mesh, rules)
         pieces = model_specs(sh)
         ga = max(cell.model.cfg.grad_accum, 1)
+        split = row_split(sizes, batch_axes, cell.args[2]["tokens"].shape[0], ga)[0] > 1
+        tp = sizes.get(MODEL_AXIS, 1) > 1
         gathered = grads = 0.0
         n_gathered = 0
         for k, p in shapes.items():
@@ -219,20 +243,21 @@ def rank_collectives(cell, mesh, rank_census: dict, overrides: dict | None = Non
                    for part in sh[k].spec for a in (part or ())):
                 gathered += local * p.element_size()
                 n_gathered += 1
-            grads += local * (p.element_size() if ga == 1 else 4)
-        rows = cell.args[2]["tokens"].shape[0]
+            if split or (tp and not any(pieces[k])):
+                grads += local * (p.element_size() if ga == 1 else 4)
+        dp_kinds = {"param all-gather": gathered, "gradient all-reduce": grads}
         if n_gathered:
             by_kind["all-gather"] = by_kind.get("all-gather", 0) + gathered
             count["all-gather"] = count.get("all-gather", 0) + n_gathered
-        if data > 1 and rows % (ga * data) == 0:
+        if grads:
             by_kind["all-reduce"] = by_kind.get("all-reduce", 0) + grads
             count["all-reduce"] = count.get("all-reduce", 0) + 1
     return {"bytes_by_kind": by_kind, "count_by_kind": count,
-            "total_bytes": sum(by_kind.values()),
+            "total_bytes": sum(by_kind.values()), "data_parallel": dp_kinds,
             "basis": "what one (data, model) rank's step moves: the model axis's "
                      "collectives counted by the census of its step on meta, and in "
                      "training the model pieces' all-gather along 'data' and their "
-                     "gradients' all-reduce"}
+                     "gradients' all-reduce over the batch's ranks"}
 
 
 def _local_rows(rows: int, spec_part, mesh, ga: int = 1) -> int:
@@ -365,15 +390,18 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str | None = None, *,
             cache[(arch, shape)] = _counted(cell.step_fn, cell.args, f"{cell.kind}_step")
         cen, out = cache[(arch, shape)]
         rank, _ = rank_step(cell, mesh, overrides)
-        rec = _finish(rec, memory(cell, mesh, out),
+        mem = memory(cell, mesh, out)
+        mem["model_piece_bytes"] = model_piece_bytes(cell, mesh, overrides)
+        rec = _finish(rec, mem,
                       cost=dict(_split(cen, rec["devices"]),
                                 basis="even split: the global step's counts / devices "
                                       "(a roofline lower bound)"),
                       coll=rank_collectives(cell, mesh, rank, overrides), cen=cen,
-                      temp=rank["peak_bytes"])
+                      temp=rank["peak_bytes"] + mem["model_piece_bytes"])
         rec["temp_basis"] = ("peak live bytes of one (data, model) rank's step on meta (its "
-                             "batch rows, its model pieces; a RankView in place of the "
-                             "process group)")
+                             "batch rows, its model pieces of the caches; a RankView in "
+                             "place of the process group) plus its model pieces of the "
+                             "parameters whole along 'data' (model_piece_bytes)")
     if keep_ops:
         rec["census"]["by_op"] = cen["by_op"]
     rec["compile_s"] = round(time.perf_counter() - t0, 1)

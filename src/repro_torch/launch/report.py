@@ -54,8 +54,8 @@ def dryrun_table(mesh: str, results: str | None = None) -> str:
             f"{cen.get('bytes', 0):.3g} | {cen.get('collective_bytes', 0):.3g} | "
             f"{rec.get('compile_s', 0)}s |")
     out.append(f"\n*held = args + (out − aliased) + temp, against the {H100.name}'s "
-               f"{H100.hbm_bytes / 1e9:.0f} GB; temp is one data rank's step at full "
-               f"model width (counts, not measurements).")
+               f"{H100.hbm_bytes / 1e9:.0f} GB; temp is one (data, model) rank's step with "
+               f"its model pieces whole along 'data' (counts, not measurements).")
     return "\n".join(out)
 
 

@@ -419,10 +419,11 @@ class ServeRun:
         clock starts — ground truth is evaluation, not serving work."""
         svc = self.svc
         rng = np.random.default_rng(9)
+        spread = np.std(corpus, axis=0, keepdims=True)  # one pass for every request
         out = []
         for r in range(self.args.requests):
             nq = int(rng.integers(svc.query_batch // 2, 2 * svc.query_batch))
-            q = synthetic_queries(nq, svc.dim, corpus, seed=100 + r)
+            q = synthetic_queries(nq, svc.dim, corpus, seed=100 + r, spread=spread)
             _, gt = exact_knn(q, corpus_t, svc.k, device=self.dev)
             out.append((prep(q), gt.cpu().numpy()))
         return out

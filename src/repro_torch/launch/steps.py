@@ -5,18 +5,20 @@ step function with the model bound, meta-device arguments and, given a
 mesh, the reference's ``in_shardings`` (each leaf a
 ``distributed.sharding.Sharding``) under the per-shape ``RULE_OVERRIDES``.
 
-Over a ``DeviceMesh`` of ("data", "model") ranks (the reference's
-``make_host_mesh(data=D, model=M)``; a "pod" axis must be 1) the steps
-execute the reference's partition (:class:`DataParallel`): each rank
-holds its piece of every parameter and of both AdamW moments as the
-shardings assign it (``embed_fsdp`` dimensions split over "data": the
-reference's ZeRO layout; ``qkv``, ``ffn``, ``vocab``, ``inner`` ... over
-"model"), gathers its model pieces whole along "data" into the model, runs
-``loss_fn`` under ``use_rules(mesh)`` on its rows of each microbatch
-(the model executes the "model" axis: ``distributed.sharding.constrain``),
-sums the gradients over the data ranks (and over the model ranks for a
-leaf the model axis replicates: its gradient there is a partial sum) and
-updates its own pieces, clipping by the norm of the whole summed gradient.
+Over a ``DeviceMesh`` of ("pod", "data", "model") ranks (the
+reference's ``make_host_mesh(data=D, model=M)``, or its multi-pod layout
+with a "pod" axis) the steps execute the reference's partition
+(:class:`DataParallel`): each rank holds its piece of every parameter and
+of both AdamW moments as the shardings assign it (``embed_fsdp``
+dimensions split over "data": the reference's ZeRO layout, replicated
+over "pod"; ``qkv``, ``ffn``, ``vocab``, ``inner`` ... over "model"),
+gathers its model pieces whole along "data" into the model, runs
+``loss_fn`` under ``use_rules(mesh)`` on its rows of each microbatch (the
+batch over "pod" x "data"; the model executes the "model" axis:
+``distributed.sharding.constrain``), sums the gradients over the ranks
+that took other rows (and over the model ranks for a leaf the model axis
+replicates: its gradient there is a partial sum) and updates its own
+pieces, clipping by the norm of the whole summed gradient.
 Prefill and decode run under the same rules on the rank's rows, the
 model holding its model pieces (gathered along "data" once).  Over an
 ``AbstractMesh`` only the shardings are derived.
@@ -33,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Callable
 
 import numpy as np
@@ -40,7 +43,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import microbatch_rows
-from repro_torch.distributed.collectives import (Stripes, Traffic, all_reduce,
+from repro_torch.distributed.collectives import (Stripes, Traffic, all_reduce, axis_groups,
                                                  compressed_grad_allreduce, gather_sharded_many)
 from repro_torch.distributed.sharding import (MODEL_AXIS, AbstractMesh, local_slice,
                                               make_rules, mesh_axis_sizes, rules_in,
@@ -53,7 +56,7 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, glob
 
 __all__ = ["Cell", "DataParallel", "RULE_OVERRIDES", "build_cell", "train_grads",
            "train_step", "compress_grads", "prefill_step", "serve_step", "dp_rows",
-           "bind_model_pieces", "model_specs"]
+           "row_split", "bind_model_pieces", "model_specs"]
 
 # Per-shape logical-rule overrides (the reference's).
 RULE_OVERRIDES: dict[str, dict] = {
@@ -87,50 +90,74 @@ def _only(spec: tuple, axis: str) -> tuple:
 
 
 class DataParallel:
-    """The (data, model) placement of a step over ``mesh`` (a
-    ``DeviceMesh`` with a "data" axis and, optionally, a "model" axis; any
-    other axis must be of size 1), for the parameters placed by
+    """The (pod, data, model) placement of a step over ``mesh`` (a
+    ``DeviceMesh`` with a "data" axis and, optionally, the rules' other
+    batch axis "pod" and a "model" axis; an axis of size > 1 that is none
+    of these is refused by name), for the parameters placed by
     ``shardings`` ({name: Sharding}, from ``tree_shardings`` of the model's
     logical axes under ``overrides``).  Given ``model`` and a model axis of
     size > 1, the model's parameters become this rank's model pieces
-    (whole along "data"): from then on the model computes only under
-    :meth:`rules`.
+    (whole along "data" and "pod"): from then on the model computes only
+    under :meth:`rules`.
 
-    A batch of B rows with ``grad_accum`` ga splits over the ``size`` data
-    ranks when B divides by ga x size: rank ``index`` takes its contiguous
-    part of each microbatch (``data.pipeline.microbatch_rows``); otherwise
-    every rank computes the whole batch and nothing is summed (the
-    reference replicates a batch that does not divide).
+    A batch of B rows with ``grad_accum`` ga splits over the batch's mesh
+    axes (the rules' ``batch``: "pod", then "data") as far as the
+    reference's prefix rule takes them: the longest prefix whose product n
+    divides every microbatch (:meth:`split`; at ga 1 exactly the
+    reference's ``Rules.resolve``).  Rank ``index`` (pod-major: ``pod x
+    data_size + data``) takes its contiguous part of each microbatch
+    (``data.pipeline.microbatch_rows``) and the gradients sum over those n
+    ranks; where nothing divides, every rank computes the whole batch and
+    nothing is summed (the reference replicates such a batch).  The
+    parameters and moments are split over "data" only (``embed_fsdp``), so
+    the parameter all-gather runs along "data" and every pod computes the
+    same update of its (equal) pieces: "pod" is pure data parallelism.
+    ``size`` and ``index`` are the whole batch axes' (a batch that splits
+    over all of them).
 
-    ``traffic`` (a ``collectives.Traffic``) counts, by kind, what each
-    collective of this rank carried, the model axis's activations
-    included (their kinds prefixed "model "), and with ``traffic.clock``
-    set the host time each took."""
+    Every process group a step uses is built here, once, by every rank in
+    the same order: the plain groups of each set of axes
+    (``collectives.axis_groups``) and the striped groups of the large
+    collectives.  ``traffic`` (a ``collectives.Traffic``) counts, by kind,
+    what each collective of this rank carried, the kinds prefixed by the
+    mesh axes they ran over ("pod+data gradient all-reduce", "model
+    all-gather"), and with ``traffic.clock`` set the host time each
+    took."""
 
     def __init__(self, mesh, shardings: dict, model: LM | None = None,
                  overrides: dict | None = None):
         sizes = mesh_axis_sizes(mesh)
-        other = {k: n for k, n in sizes.items() if k not in ("data", MODEL_AXIS) and n > 1}
-        if "data" not in sizes or other:
+        rules = make_rules(mesh, overrides)
+        self.batch_axes = tuple(nm for nm in rules.table["batch"] if nm in sizes)
+        known = set(self.batch_axes) | {"data", MODEL_AXIS}
+        unknown = [k for k, n in sizes.items() if n > 1 and k not in known]
+        if "data" not in sizes or unknown:
             raise ValueError(f"a step over a mesh needs a 'data' axis and no axis of size > 1 "
-                             f"but 'data' and {MODEL_AXIS!r} (a 'pod' axis > 1 is not "
-                             f"executed); got {sizes}")
+                             f"but the batch's {self.batch_axes} and {MODEL_AXIS!r}; "
+                             f"{unknown or ['data']} cannot be expressed (mesh {sizes})")
         self.mesh, self.shardings, self.overrides = mesh, shardings, overrides
-        self.size = sizes["data"]
+        self.sizes = sizes
+        self.coord = dict(zip(sizes, mesh.get_coordinate()))
         self.model_size = sizes.get(MODEL_AXIS, 1)
-        self.index = mesh.get_coordinate()[list(sizes).index("data")]
-        self.group = mesh.get_group("data")
-        # the large collectives (parameters, gradients, codes) run striped
-        self.stripes = Stripes.over(mesh, "data") if self.size > 1 else self.group
-        # a leaf the model axis replicates sums its gradient over the model
-        # ranks too (over every rank where the batch splits)
-        self.model_stripes = self.world_stripes = None
-        if self.model_size > 1:
-            self.model_stripes = Stripes.over(mesh, MODEL_AXIS)
-            self.world_stripes = Stripes.of() if self.size > 1 else None
-        self.share = DataShare(self.size, self._sum_counts)
+        self.size, self.index = 1, 0
+        for nm in self.batch_axes:
+            self.size, self.index = self.size * sizes[nm], self.index * sizes[nm] + self.coord[nm]
+        self.groups = axis_groups(mesh)
+        # the large collectives (parameters, gradients, codes) run striped:
+        # the parameters along "data", the gradients over each prefix of the
+        # batch's axes, with the model axis too for a leaf it replicates
+        self._stripes: dict = {}
+        for axes in [("data",)] + [self.batch_axes[:i] + extra
+                                   for i in range(len(self.batch_axes) + 1)
+                                   for extra in ((), (MODEL_AXIS,))]:
+            live = self._live(axes)
+            if live and live not in self._stripes:
+                self._stripes[live] = Stripes.over(mesh, live)
+        # the group of --grad-compress: every rank of the batch's axes
+        self.stripes = self._stripes.get(self._live(self.batch_axes)) or mesh.get_group("data")
+        self.share = DataShare(self.size, functools.partial(self._sum_counts, self.batch_axes))
         self.traffic = Traffic()
-        self._rules = make_rules(mesh, overrides, self.traffic)
+        self._rules = make_rules(mesh, overrides, self.traffic, self.groups)
         self.data_specs = {k: _only(sh.spec, "data") for k, sh in shardings.items()}
         self.model_specs = model_specs(shardings)
         self.model_split = {k for k, sp in self.model_specs.items()
@@ -138,15 +165,46 @@ class DataParallel:
         if model is not None and self.model_size > 1:
             bind_model_pieces(model, self.model_specs, self.mesh)
 
-    def rules(self):
+    def _live(self, axes) -> tuple:
+        """The axes of ``axes`` of size > 1."""
+        return tuple(nm for nm in axes if self.sizes.get(nm, 1) > 1)
+
+    def _group(self, axes):
+        """The plain process group over the mesh axes ``axes`` (None: no
+        axis of size > 1)."""
+        live = self._live(axes)
+        if len(live) > 1:
+            return self.groups[frozenset(live)]
+        return self.mesh.get_group(live[0]) if live else None
+
+    def rules(self, rows: tuple = ()):
         """The rules the model computes under (over the mesh, counting
-        into ``traffic``), one object for the step's life."""
-        return rules_in(self._rules)
+        into ``traffic``), one object for the step's life; ``rows``: the
+        mesh axes the batch rows split over (:meth:`split`), which the
+        placement of new decode caches reads (``sharding.cache_split``:
+        :meth:`init_caches`)."""
+        rules = self._rules
+        if rows:
+            rules = dataclasses.replace(rules, rows=tuple(rows), comms=rules.comms)
+        return rules_in(rules)
+
+    def split(self, rows: int, ga: int = 1) -> tuple[int, int, tuple]:
+        """:func:`row_split` of a batch of ``rows`` rows in ``ga``
+        microbatches over this rank's mesh."""
+        return row_split(self.sizes, self.batch_axes, rows, ga, self.coord)
 
     def splits(self, rows: int, ga: int) -> bool:
         """Whether a batch of ``rows`` rows in ``ga`` microbatches is split
-        over the data ranks."""
-        return self.size > 1 and rows % (ga * self.size) == 0
+        over the batch's ranks."""
+        return self.split(rows, ga)[0] > 1
+
+    def share_of(self, axes: tuple) -> DataShare:
+        """The ``DataShare`` of a batch split over the mesh axes ``axes``:
+        :attr:`share` where they hold every batch rank."""
+        n = math.prod(self.sizes[nm] for nm in axes)
+        if n == self.size:
+            return self.share
+        return DataShare(n, functools.partial(self._sum_counts, axes))
 
     def local(self, tree: dict) -> dict:
         """This rank's piece (a view) of each full tensor of ``tree``."""
@@ -163,6 +221,14 @@ class DataParallel:
         pieces = self.local_data(own) if self.model_size > 1 else self.local(own)
         return {k: v.detach().clone() for k, v in pieces.items()}
 
+    def init_caches(self, model: LM, rows: int, cache_len: int) -> dict:
+        """This rank's pieces of zeroed decode caches for a batch of
+        ``rows`` rows (its rows of them, as :func:`serve_step` takes
+        them), placed as the reference places a global batch's."""
+        n, _, axes = self.split(rows)
+        with self.rules(axes):
+            return model.init_caches(rows // n, cache_len)[0]
+
     @torch.no_grad()
     def gather_into(self, params: dict, model: LM) -> None:
         """The model pieces, gathered along "data" from every data rank's
@@ -170,37 +236,36 @@ class DataParallel:
         own = dict(model.named_parameters())
         names = list(params)
         nbytes = sum(params[k].numel() * params[k].element_size() for k in names
-                     if self.size > 1 and any(self.data_specs[k]))
-        with self.traffic.timed("param all-gather", nbytes, model.device):
+                     if self.sizes["data"] > 1 and any(self.data_specs[k]))
+        with self.traffic.timed("data param all-gather", nbytes, model.device):
             full = gather_sharded_many([params[k] for k in names],
                                        [self.data_specs[k] for k in names], self.mesh,
-                                       groups={"data": self.stripes})
+                                       groups={"data": self._stripes.get(("data",))})
         for k, t in zip(names, full):
             own[k].copy_(t)
 
-    def sum(self, tensors: dict, kind: str, model_too=(), data: bool = True) -> dict:
-        """Each tensor summed over the data ranks (``data``) in its dtype
-        (float32 where the dtypes differ), and those named in ``model_too``
-        (all of them: ``True``) over the model ranks as well: one
-        all-reduce of each set packed into one buffer."""
+    def sum(self, tensors: dict, kind: str, axes: tuple = (), model_too=()) -> dict:
+        """Each tensor summed over the ranks of the mesh axes ``axes`` (those
+        the batch split over) in its dtype (float32 where the dtypes
+        differ), and those named in ``model_too`` (all of them: ``True``)
+        over the model ranks as well: one all-reduce of each set packed
+        into one buffer, counted as "<axes joined by '+'> <kind>"."""
         every = set(tensors) if model_too is True else set(model_too)
-        data = data and self.size > 1
         if self.model_size == 1:
             every = set()
         out = {}
-        for names, group, what in (
-                ([k for k in tensors if k not in every], self.stripes if data else None, ""),
-                ([k for k in tensors if k in every],
-                 self.world_stripes if data else self.model_stripes, " (over model)")):
-            if not names or group is None:
+        for names, over in (([k for k in tensors if k not in every], tuple(axes)),
+                            ([k for k in tensors if k in every], tuple(axes) + (MODEL_AXIS,))):
+            live = self._live(over)
+            if not names or not live:
                 out.update({k: tensors[k] for k in names})
                 continue
             dtypes = {tensors[k].dtype for k in names}
             dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
             flat = torch.cat([tensors[k].to(dtype).reshape(-1) for k in names])
             nbytes = flat.numel() * flat.element_size()
-            with self.traffic.timed(kind + what, nbytes, flat.device):
-                all_reduce(flat, group=group)
+            with self.traffic.timed(f"{'+'.join(live)} {kind}", nbytes, flat.device):
+                all_reduce(flat, group=self._stripes[live])
             at = 0
             for k in names:
                 t = tensors[k]
@@ -212,12 +277,15 @@ class DataParallel:
         """``x`` summed over the model ranks (one float32 all-reduce)."""
         if self.model_size == 1:
             return x
-        with self.traffic.timed("grad-norm all-reduce", 4, x.device):
+        with self.traffic.timed("model grad-norm all-reduce", 4, x.device):
             return all_reduce(x.float().clone(), group=self.mesh.get_group(MODEL_AXIS))
 
-    def _sum_counts(self, counts: torch.Tensor) -> torch.Tensor:
-        with self.traffic.timed("moe counts all-reduce", counts.numel() * 4, counts.device):
-            return all_reduce(counts, group=self.group)
+    def _sum_counts(self, axes: tuple, counts: torch.Tensor) -> torch.Tensor:
+        """A MoE layer's expert counts summed over the ranks of ``axes``."""
+        live = self._live(axes)
+        with self.traffic.timed(f"{'+'.join(live)} moe counts all-reduce", counts.numel() * 4,
+                                counts.device):
+            return all_reduce(counts, group=self._group(live))
 
     def state_shardings(self, model: LM, ebuf: dict | None = None) -> tuple:
         """Shardings of the trainer's state (params, opt_state, ebuf): the
@@ -229,6 +297,23 @@ class DataParallel:
         rep = None if ebuf is None else tree_shardings(
             {k: (None,) * v.ndim for k, v in ebuf.items()}, ebuf, self.mesh)
         return self.shardings, opt, rep
+
+
+def row_split(sizes: dict, batch_axes: tuple, rows: int, ga: int = 1,
+              coord: dict | None = None) -> tuple[int, int, tuple]:
+    """(n, index, axes) of a batch of ``rows`` rows in ``ga`` microbatches
+    over a mesh of axis ``sizes``: the longest prefix ``axes`` of the
+    batch's mesh axes ``batch_axes`` whose product n divides every
+    microbatch (at ga 1 the reference's ``Rules.resolve``), and the index
+    among those n ranks of the rank at ``coord`` (default: coordinate 0),
+    pod-major."""
+    n, index, axes = 1, 0, ()
+    for nm in batch_axes:
+        k = sizes[nm]
+        if rows % (ga * n * k):
+            break
+        n, index, axes = n * k, index * k + (coord or {}).get(nm, 0), axes + (nm,)
+    return n, index, axes
 
 
 def bind_model_pieces(model: LM, specs: dict, mesh) -> None:
@@ -285,8 +370,9 @@ def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
     rows = batch["tokens"].shape[0]
     if rows % ga:
         raise ValueError(f"batch of {rows} rows does not split into {ga} microbatches")
-    split = dp is not None and dp.splits(rows, ga)
-    mbs = microbatch_rows(batch, ga, dp.index, dp.size) if split else microbatch_rows(batch, ga)
+    n, index, axes = dp.split(rows, ga) if dp is not None else (1, 0, ())
+    split = n > 1
+    mbs = microbatch_rows(batch, ga, index, n) if split else microbatch_rows(batch, ga)
 
     def grads_of(b):
         loss, mets = model.loss_fn(b)
@@ -295,7 +381,7 @@ def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
             torch.zeros_like(p) if g is None else g for p, g in zip(plist, gs)]
 
     rules = dp.rules() if dp is not None else contextlib.nullcontext()
-    with model.sharing(dp.share if split else None), rules:
+    with model.sharing(dp.share_of(axes) if split else None), rules:
         if ga == 1:
             loss, mets, gs = grads_of(mbs[0])
             grads = dict(zip(names, gs))
@@ -311,10 +397,9 @@ def train_grads(model: LM, batch: dict, dp: DataParallel | None = None
                 del gs  # this microbatch's gradients go before the next one's backward
             loss = lsum
     if split or (dp is not None and dp.model_size > 1):
-        grads = dp.sum(grads, "gradient all-reduce", data=split,
+        grads = dp.sum(grads, "gradient all-reduce", axes,
                        model_too=[k for k in grads if k not in dp.model_split])
-        scalars = dp.sum({"loss": loss, **mets}, "loss all-reduce", data=split,
-                         model_too=True)
+        scalars = dp.sum({"loss": loss, **mets}, "loss all-reduce", axes, model_too=True)
         loss, mets = scalars.pop("loss"), scalars
     if ga > 1:
         for g in grads.values():
@@ -380,7 +465,9 @@ def train_step(model: LM, opt: AdamWConfig, params: dict, opt_state: dict, batch
                              "trainer keeps model=1)")
         group = None if dp is None else dp.stripes
         codes = sum(g.numel() for g in grads.values()) * 4 + 4 * len(reference_leaves(grads))
-        with (dp.traffic.timed("compressed all-reduce (int32 codes, scales)", codes, model.device)
+        over = "" if dp is None else "+".join(dp._live(dp.batch_axes)) + " "
+        with (dp.traffic.timed(f"{over}compressed all-reduce (int32 codes, scales)", codes,
+                               model.device)
               if dp is not None else contextlib.nullcontext()):
             grads, new_e = compress_grads(grads, ebuf, group)
         for k, e in new_e.items():
@@ -399,7 +486,7 @@ def train_step(model: LM, opt: AdamWConfig, params: dict, opt_state: dict, batch
 
 def prefill_step(model: LM, batch: dict[str, torch.Tensor], *, dp: DataParallel | None = None):
     """(last-position logits, caches) of a prompt batch; with ``dp``, of
-    this rank's rows (where they split over the data ranks), its pieces of
+    this rank's rows (where they split over the batch's ranks), its pieces of
     the logits (``vocab``) and of the caches as decode takes them."""
     if dp is None:
         return model.prefill(batch)
@@ -411,7 +498,7 @@ def serve_step(model: LM, token: torch.Tensor, caches: dict, pos, *,
                dp: DataParallel | None = None):
     """One new token against ``caches`` (updated in place) at ``pos``; with
     ``dp``, this rank's rows of ``token`` against its pieces of the caches
-    (``init_caches`` under ``dp.rules()`` of its rows)."""
+    (``dp.init_caches``)."""
     if dp is None:
         return model.decode_step(token, caches, pos)
     with dp.rules():
@@ -419,12 +506,14 @@ def serve_step(model: LM, token: torch.Tensor, caches: dict, pos, *,
 
 
 def dp_rows(dp: DataParallel, batch: dict) -> dict:
-    """This data rank's rows of ``batch`` where they split over the data
-    ranks (else the whole batch, as the reference replicates it)."""
+    """This rank's rows of ``batch`` where they split over the batch's
+    ranks (:meth:`DataParallel.split`; else the whole batch, as the
+    reference replicates it)."""
     rows = batch["tokens"].shape[0]
-    if not dp.splits(rows, 1):
+    n, index, _ = dp.split(rows)
+    if n == 1:
         return batch
-    return {k: (v[dp.index * (rows // dp.size):(dp.index + 1) * (rows // dp.size)]
+    return {k: (v[index * (rows // n):(index + 1) * (rows // n)]
                 if hasattr(v, "shape") and v.ndim and v.shape[0] == rows else v)
             for k, v in batch.items()}
 
@@ -441,8 +530,7 @@ def build_cell(arch_id: str, shape: str, *, mesh=None, device="cuda",
     ranks (``cell.data_parallel``, which holds the model's model pieces:
     a train cell's initial state is ``data_parallel.local_params(
     cell.model)`` and ``adamw_init`` of it; a decode cell's caches are
-    ``cell.model.init_caches`` of the rank's rows under
-    ``data_parallel.rules()``)."""
+    ``data_parallel.init_caches(cell.model, rows, cache_len)``)."""
     cfg = get_config(arch_id)
     if cfgset:
         cfg = dataclasses.replace(cfg, **cfgset)

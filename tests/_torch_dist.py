@@ -210,58 +210,39 @@ def dp_step_devices_rank(rank, world, dev, arch, batch, lr):
     return out
 
 
-def _placed(t, spec_model_dim, rows_split, mesh):
-    """A rank's piece of a step output gathered whole: its rows split over
-    "data" (dimension ``rows_split``, or None) and ``spec_model_dim`` split
-    over "model" (or None)."""
+def _placed(t, dims: dict, mesh):
+    """A rank's piece of a step output gathered whole: ``dims`` maps each
+    split dimension to the mesh axes it is split over (its rows over the
+    axes the batch split over, a model piece over "model", a decode
+    cache's slots over the axes ``common.mark_split`` recorded)."""
     from repro_torch.distributed.collectives import gather_sharded
-    spec = [None] * t.ndim
-    if rows_split is not None:
-        spec[rows_split] = ("data",)
-    if spec_model_dim is not None:
-        spec[spec_model_dim] = ("model",)
-    return gather_sharded(t.contiguous(), tuple(spec), mesh)
+    spec = tuple(tuple(dims[d]) if dims.get(d) else None for d in range(t.ndim))
+    return gather_sharded(t.contiguous(), spec, mesh)
 
 
-def tp_parity_rank(rank, world, dev, cases_path, ckpt):
-    """Rank ``rank`` of a (data, model) gloo mesh (``case["mesh"]``, whose
-    size is ``world``).  For each case of the pickle at ``cases_path`` (read
-    here, so that starting the ranks moves no large argument through their
-    pipes; a reduced architecture, its
-    reference parameters, a train batch, a prompt batch, rule
-    ``overrides``): the partitioned train step's loss, metrics and summed
-    gradients (gathered whole), the parameters and moments after one
-    ``train_step`` (gathered), the shapes of this rank's pieces, the
-    prefill's logits and caches, and 4 decode steps' logits (from position
-    ``case["decode_at"]``) and the caches after them, all gathered whole.  ``ckpt`` ((dir, arch) or None): a
-    one-process checkpoint restored onto the mesh (the pieces), then saved
-    from the mesh into ``dir + "-back"``."""
+def _parity_case(case, mesh):
+    """One case of :func:`tp_parity_rank` / :func:`pod_parity_rank` on
+    ``mesh``: the partitioned train step (unless ``case["train"]`` is
+    False), then the prefill (unless ``case["prefill"]`` is False) and 4
+    decode steps, every output gathered whole."""
     import dataclasses
 
-    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import reduced_config
     from repro_torch.distributed.collectives import gather_sharded
     from repro_torch.distributed.sharding import tree_shardings
     from repro_torch.interop import lm_from_arrays, local_state_from_arrays
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import (DataParallel, prefill_step, serve_step, train_grads,
                                           train_step)
-    from repro_torch.models.common import split_of
-    from repro_torch.models.model import build_model
+    from repro_torch.models.common import split_axes, split_of
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
-    with open(cases_path, "rb") as f:
-        cases = pickle.load(f)
-    out = {"cases": {}}
-    for c, case in cases.items():
-        d, m = case["mesh"]
-        mesh = make_host_mesh(d, m)
-        cfg = dataclasses.replace(reduced_config(case["arch"]), **case["cfgset"])
+    cfg = dataclasses.replace(reduced_config(case["arch"]), **case["cfgset"])
+    res = {}
+    if case.get("train", True):
         model = lm_from_arrays(cfg, case["params"], device="cpu").requires_grad_(True)
         full = dict(model.named_parameters())
         sh = tree_shardings(model.param_axes(), full, mesh, case["overrides"])
         dp = DataParallel(mesh, sh, model, case["overrides"])
-        res = {}
         loss, mets, grads = train_grads(model, case["batch"], dp)
         res["loss"], res["mets"] = float(loss), {k: float(v) for k, v in mets.items()}
         res["grads"] = {k: gather_sharded(g.contiguous(), dp.model_specs[k], mesh).numpy()
@@ -274,46 +255,83 @@ def tp_parity_rank(rank, world, dev, cases_path, ckpt):
             torch.equal(opt_state[m][k], ref_state[m][k]) for m in ("m", "v") for k in params)
         res["shapes"] = {k: tuple(v.shape) for k, v in params.items()}
         res["moment_shapes"] = {k: tuple(v.shape) for k, v in opt_state["m"].items()}
+        dp.traffic.reset()
         params, opt_state, om = train_step(model, AdamWConfig(**case["opt"]), params,
                                            opt_state, case["batch"], dp=dp)
+        res["traffic"] = dict(dp.traffic.bytes)  # what the step's collectives carried
         res["om"] = {k: float(v) for k, v in om.items()}
         for part, tree in (("params", params), ("m", opt_state["m"]), ("v", opt_state["v"])):
             res[part] = {k: gather_sharded(v, sh[k].spec, mesh).numpy() for k, v in tree.items()}
 
-        # serving from the parameters the reference's prefill and decode take
-        model = lm_from_arrays(cfg, case["params"], device="cpu")
-        dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
-                                               mesh, case["overrides"]), model, case["overrides"])
-        prompt = {k: torch.as_tensor(v) for k, v in case["prompt"].items()}
-        rows = prompt["tokens"].shape[0]
-        split = 0 if dp.splits(rows, 1) else None
+    # serving from the parameters the reference's prefill and decode take
+    model = lm_from_arrays(cfg, case["params"], device="cpu")
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
+                                           mesh, case["overrides"]), model, case["overrides"])
+    m = dp.model_size
+    prompt = {k: torch.as_tensor(v) for k, v in case["prompt"].items()}
+    rows = prompt["tokens"].shape[0]
+    row_axes = dp.split(rows)[2]
+
+    def gathered(cs):
+        return {key: type(cv)(*(_placed(t, {1: row_axes, split_of(t): split_axes(t)}
+                                        if m > 1 else {1: row_axes}, mesh).numpy()
+                                for t in cv)) for key, cv in cs.items()}
+
+    if case.get("prefill", True):
         logits, caches = prefill_step(model, prompt, dp=dp)
-
-        def gathered(cs):
-            return {key: type(cv)(*(_placed(t, split_of(t) if m > 1 else None,
-                                            None if split is None else 1, mesh).numpy()
-                                    for t in cv)) for key, cv in cs.items()}
-
         with dp.rules():
-            res["prefill_logits"] = _placed(logits, 1 if m > 1 else None, split, mesh).numpy()
+            res["prefill_logits"] = _placed(logits, {0: row_axes, 1: ("model",) if m > 1 else ()},
+                                            mesh).numpy()
             res["prefill_caches"] = gathered(caches)
-            local_rows = rows // d if split is not None else rows
-            caches, _ = model.init_caches(local_rows, case["cache_len"])
-        steps = []
-        for t in range(4):
-            lg, caches = serve_step(model, prompt["tokens"][:, t:t + 1], caches,
-                                    case["decode_at"] + t, dp=dp)
-            with dp.rules():
-                steps.append(_placed(lg, 1 if m > 1 else None, split, mesh).numpy())
-        res["decode_logits"] = steps
+    caches = dp.init_caches(model, rows, case["cache_len"])
+    with dp.rules():
+        res["cache_blocks"] = {key: [(split_of(t), split_axes(t)) for t in cv]
+                               for key, cv in caches.items()}
+    steps = []
+    for t in range(case.get("decode_steps", 4)):
+        lg, caches = serve_step(model, prompt["tokens"][:, t:t + 1], caches,
+                                case["decode_at"] + t, dp=dp)
         with dp.rules():
-            res["decode_caches"] = gathered(caches)
-        out["cases"][c] = res
+            steps.append(_placed(lg, {0: row_axes, 1: ("model",) if m > 1 else ()},
+                                 mesh).numpy())
+    res["decode_logits"] = steps
+    with dp.rules():
+        res["decode_caches"] = gathered(caches)
+    return res
+
+
+def tp_parity_rank(rank, world, dev, cases_path, ckpt):
+    """Rank ``rank`` of a (data, model) gloo mesh (``case["mesh"]``, whose
+    size is ``world``).  For each case of the pickle at ``cases_path`` (read
+    here, so that starting the ranks moves no large argument through their
+    pipes; a reduced architecture, its
+    reference parameters, a train batch, a prompt batch, rule
+    ``overrides``): the partitioned train step's loss, metrics and summed
+    gradients (gathered whole), the parameters and moments after one
+    ``train_step`` (gathered), the shapes of this rank's pieces, the
+    prefill's logits and caches, and 4 decode steps' logits (from position
+    ``case["decode_at"]``) and the caches after them, all gathered whole
+    (:func:`_parity_case`).  ``ckpt`` ((dir, arch) or None): a
+    one-process checkpoint restored onto the mesh (the pieces), then saved
+    from the mesh into ``dir + "-back"``."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = {"cases": {}}
+    for c, case in cases.items():
+        d, m = case["mesh"]
+        out["cases"][c] = _parity_case(case, make_host_mesh(d, m))
 
     # build_cell over the mesh: every reduced architecture's train, prefill
     # and decode cells run one step on a small batch
     from repro_torch.configs import LM_ARCHS
-    from repro_torch.launch.steps import build_cell
     mesh = make_host_mesh(world // 2, 2)
     out["cells"] = {}
     for arch in LM_ARCHS:
@@ -363,21 +381,35 @@ def tp_parity_rank(rank, world, dev, cases_path, ckpt):
         out["cells"][arch] = got
 
     if ckpt is not None:
-        path, arch = ckpt
-        model = build_model(reduced_config(arch), device="cpu")
-        full = {k: v.detach().clone() for k, v in model.named_parameters()}
-        dp = DataParallel(mesh, tree_shardings(model.param_axes(), full, mesh), model)
-        params = dp.local_params(model)
-        like = (params, adamw_init(params))
-        shardings = dp.state_shardings(model)[:2]
-        mgr = CheckpointManager(path, async_save=False)
-        params, opt_state = mgr.restore(mgr.latest_step(), like, shardings=shardings)
-        out["restored"] = ({k: v.numpy().copy() for k, v in params.items()},
-                           {k: v.numpy().copy() for k, v in opt_state["m"].items()},
-                           int(opt_state["step"]))
-        out["specs"] = {k: s.spec for k, s in dp.shardings.items()}
-        CheckpointManager(f"{path}-back{world}", async_save=False).save(
-            int(opt_state["step"]), (params, opt_state), shardings=shardings)
+        out.update(_checkpoint_round_trip(mesh, *ckpt, f"{ckpt[0]}-back{world}"))
+    return out
+
+
+def _checkpoint_round_trip(mesh, path, arch, back):
+    """A one-process checkpoint of a reduced ``arch`` at ``path`` restored
+    onto ``mesh`` (each rank's pieces, as numpy: ``restored``, with the
+    specs), then saved from the mesh into ``back``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.steps import DataParallel
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init
+
+    model = build_model(reduced_config(arch), device="cpu")
+    full = {k: v.detach().clone() for k, v in model.named_parameters()}
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), full, mesh), model)
+    params = dp.local_params(model)
+    like = (params, adamw_init(params))
+    shardings = dp.state_shardings(model)[:2]
+    mgr = CheckpointManager(path, async_save=False)
+    params, opt_state = mgr.restore(mgr.latest_step(), like, shardings=shardings)
+    out = {"restored": ({k: v.numpy().copy() for k, v in params.items()},
+                        {k: v.numpy().copy() for k, v in opt_state["m"].items()},
+                        int(opt_state["step"])),
+           "specs": {k: s.spec for k, s in dp.shardings.items()}}
+    CheckpointManager(back, async_save=False).save(
+        int(opt_state["step"]), (params, opt_state), shardings=shardings)
     return out
 
 
@@ -425,4 +457,71 @@ def tp_devices_rank(rank, world, dev, arch, batch, lr):
                 lg, caches = serve_step(model, tokens[:, t:t + 1], caches, 2 + t, dp=dp)
                 dec.append(gather_sharded(lg, (None, ("model",)), mesh).cpu().numpy())
         out.append((float(loss), grads, after, pre, dec))
+    return out
+
+
+def pod_parity_rank(rank, world, dev, cases_path, ckpt, codec):
+    """Rank ``rank`` of a ("pod", "data", "model") gloo mesh of ``world``
+    ranks (every case's ``case["mesh"]``, one mesh for all of them): each
+    case of the pickle at ``cases_path`` through :func:`_parity_case`;
+    gemma2-9b's reduced long_500k decode cell from ``build_cell`` (its
+    cache slots over every rank) against one process's decode; the
+    one-process checkpoint ``ckpt`` ((dir, arch)) restored onto the mesh
+    and saved back into ``dir + "-back" + world``; an ``AxisComm`` gather
+    over every axis, model major; ``codec`` ({name:
+    array}) through ``compressed_grad_allreduce`` over the batch's ranks
+    (every rank the same arrays) and in one process."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.collectives import (AxisComm, axis_groups,
+                                                     compressed_grad_allreduce)
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import DataParallel, build_cell
+    from repro_torch.models.common import split_axes
+    from repro_torch.models.model import build_model
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    shape = next(iter(cases.values()))["mesh"]
+    mesh = make_mesh(shape, ("pod", "data", "model"), "cpu")
+    out = {"cases": {c: _parity_case(case, mesh) for c, case in cases.items()}}
+
+    # long_500k's cell: one row, the slots over model, data and pod
+    cfgset = dataclasses.asdict(reduced_config("gemma2-9b"))
+    cfgset.pop("arch_id")
+    cell = build_cell("gemma2-9b", "long_500k", mesh=mesh, device="cpu", cfgset=cfgset)
+    one = build_model(cell.model.cfg, device="cpu")  # build_cell's seed
+    caches = cell.data_parallel.init_caches(cell.model, 1, 16)
+    with cell.data_parallel.rules():
+        out["long_blocks"] = (caches["kv1"].k.shape[2], split_axes(caches["kv1"].k))
+    ones, _ = one.init_caches(1, 16)
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(0, one.cfg.vocab_size, (1, 12)),
+                             dtype=torch.int32)
+    v = one.cfg.vocab_padded // cell.data_parallel.model_size
+    lo = cell.data_parallel.coord["model"] * v
+    worst = 0.0
+    for t in range(12):
+        tok = tokens[:, t:t + 1]
+        lg, caches = cell.step_fn(tok, caches, t)
+        ref, _ = one.decode_step(tok, ones, t)
+        worst = max(worst, float((lg - ref[:, lo:lo + v]).abs().max()))
+    out["long_500k"] = worst
+
+    out.update(_checkpoint_round_trip(mesh, *ckpt, f"{ckpt[0]}-back{world}"))
+
+    # a gather over every axis, model major: its pieces in AxisComm's index
+    # order, which is not the group's rank order
+    comm = AxisComm(mesh, ("model", "data", "pod"), groups=axis_groups(mesh))
+    out["gather_order"] = comm.gather(torch.tensor([comm.index]), 0).tolist()
+
+    model = build_model(reduced_config("gemma-2b"), device="cpu")
+    dp = DataParallel(mesh, tree_shardings(model.param_axes(), dict(model.named_parameters()),
+                                           mesh))
+    g = {k: torch.as_tensor(a) for k, a in codec["g"].items()}
+    e = {k: torch.as_tensor(a) for k, a in codec["e"].items()}
+    out["codec"] = [{k: t.numpy() for k, t in d.items()}
+                    for d in compressed_grad_allreduce(g, e, dp.stripes)]
+    out["codec_ranks"] = torch.distributed.get_world_size(dp.stripes[0])
     return out

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX, the reference package or ``ml_dtypes``
+"""The port stands alone: nothing under ``src/repro_torch``, ``chip_smoke.py``
+nor ``examples_torch/`` imports JAX, the reference package or ``ml_dtypes``
 (the card's machine has none), its entry points run on the card unless
 asked for the CPU, and the kernel wrappers pick their path by the device
 of their tensors."""
@@ -38,7 +38,8 @@ from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples_torch").glob("*.py")))
 
 
 def _imported_modules(path: Path):
@@ -61,6 +62,12 @@ def test_training_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/optim/adamw.py", "src/repro_torch/runtime/fault_tolerance.py",
             "src/repro_torch/launch/train.py"} <= names
+
+
+def test_ported_examples_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"examples_torch/{m}.py"
+            for m in ("quickstart", "rag_retrieval", "serve_ann", "train_lm")} <= names
 
 
 def test_launch_tooling_modules_are_checked():

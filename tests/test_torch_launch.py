@@ -12,8 +12,8 @@ hlo_census, roofline, dryrun, perf, report}``), and the package-level names.
     of the compiled step, but for two products each named where it
     differs;
   * the dry run's ``argument_bytes`` and ``alias_bytes`` equal XLA's
-    ``memory_analysis()`` on a (data 2, model 2) layout, and a full-config
-    cell runs on meta;
+    ``memory_analysis()`` on a (data 2, model 2) layout, its ``temp_bytes``
+    hold the rank's model pieces once, and a full-config cell runs on meta;
   * ``ivf_scan.work`` against the arithmetic it replaced, the kernel
     wrapper's meta path and its report to a census;
   * the CLIs, and every name of the reference's four package ``__all__``.
@@ -43,7 +43,7 @@ from repro.launch import roofline as j_roofline  # noqa: E402
 from repro.launch.specs import SHAPES as J_SHAPES  # noqa: E402
 from repro.launch.specs import cell_is_runnable as j_runnable  # noqa: E402
 from repro_torch.configs import LM_ARCHS, get_config, reduced_config  # noqa: E402
-from repro_torch.distributed.sharding import AbstractMesh  # noqa: E402
+from repro_torch.distributed.sharding import AbstractMesh, local_shape  # noqa: E402
 from repro_torch.kernels import ivf_scan  # noqa: E402
 from repro_torch.launch import dryrun, op_census, perf, report, roofline, specs, steps  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
@@ -353,6 +353,37 @@ def test_dryrun_full_config_cell_is_ok_and_skips_carry_reference_reason():
     assert rec["memory"]["argument_bytes"] == (
         svc.corpus_per_device * svc.dim * 3  # bf16 rows and int8 codes, a rank's share
         + svc.query_batch * svc.dim * 2 + 4 * (svc.dim // svc.delta_d) * 4)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_dryrun_temp_bytes_hold_the_rank_model_pieces_once(shape):
+    """A reduced cell on a (data 2, model 2) layout: ``temp_bytes`` is the
+    census's peak of the rank's step (one ``RankView`` rank's) plus, once,
+    the bytes of the rank's model pieces whole along "data" (the train
+    step all-gathers them; a serving rank keeps them), computed here from
+    ``local_shape`` of each parameter's spec cut to its model-axis
+    entries."""
+    import dataclasses
+    import math
+
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    cfgset = dataclasses.asdict(reduced_config("gemma-2b"))
+    cfgset.pop("arch_id")
+    rec = dryrun.run_cell("gemma-2b", shape, mesh, cfgset=cfgset)
+    cell = steps.build_cell("gemma-2b", shape, mesh=mesh, device="meta", cfgset=cfgset)
+    rank, _ = dryrun.rank_step(cell, mesh)
+    want, data_split = 0, 0
+    for name, p in cell.model.named_parameters():
+        spec = cell.in_shardings[0][name].spec
+        data_split += any(part and "data" in part for part in spec)
+        whole_along_data = tuple(("model",) if part and "model" in part else None
+                                 for part in spec)
+        want += math.prod(local_shape(tuple(p.shape), whole_along_data, mesh)) * p.element_size()
+    assert data_split > 0  # the pieces differ from the arguments' FSDP pieces
+    m = rec["memory"]
+    assert m["model_piece_bytes"] == want
+    assert m["temp_bytes"] == rank["peak_bytes"] + want
+    assert "model_piece_bytes" in rec["temp_basis"]
 
 
 # ---- (7) ivf_scan.work and the wrapper's meta path -------------------------

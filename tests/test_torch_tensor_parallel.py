@@ -26,8 +26,8 @@ excused where the reference gradient is zero to that tolerance, at most
 rtol 1e-5 (atol 1e-5 x the step's max |logit|), every prefill and decode
 cache leaf within the LM harness's 1e-4 (int8 codes but for near-ties),
 and each rank's parameter and moment pieces of ``local_shape`` of the
-reference's spec.  Besides: a mesh the rules cannot express raises by
-name, a one-process checkpoint restores onto a (1, 2) and a (2, 2) mesh
+reference's spec.  Besides: a mesh the rules cannot express (an axis they
+do not name) raises by name, a one-process checkpoint restores onto a (1, 2) and a (2, 2) mesh
 and back bit for bit, and ``build_cell`` over either mesh gives runnable
 train, prefill and decode cells for every reduced architecture.
 """
@@ -394,12 +394,13 @@ def test_partitioned_prefill_and_decode_match_reference(runs, c):
 
 def test_unexpressible_mesh_raises_by_name():
     """A layout the port does not execute fails by name, never computes
-    whole layers on every rank: a 'pod' axis > 1 on a live mesh, and an
-    activation whose rules split one dimension over 'model' and 'data'
+    whole layers on every rank: a mesh axis of size > 1 that the rules do
+    not name (a "pod" axis is executed: ``tests/test_torch_pod.py``), and
+    an activation whose rules split one dimension over 'model' and 'data'
     together (only a decode cache's slots may be: long_500k)."""
     model = build_model(reduced_config("gemma-2b"), device="meta")
-    with pytest.raises(ValueError, match="'pod' axis > 1 is not executed"):
-        DataParallel(RankView((2, 2, 2), ("pod", "data", "model"), (0, 0, 0)), {})
+    with pytest.raises(ValueError, match=r"\['replica'\] cannot be expressed"):
+        DataParallel(RankView((2, 2, 2), ("replica", "data", "model"), (0, 0, 0)), {})
     view = RankView((2, 2), ("data", "model"), (0, 1))
     tokens = torch.zeros((1, 16), dtype=torch.int32, device="meta")
     with use_rules(view, {"act_seq": ("model", "data")}):
