@@ -1,0 +1,5 @@
+"""Set-up seconds: from the process start to the window's start."""
+
+
+def read(run):
+    return run.setup_s
